@@ -4,17 +4,34 @@
     python3 chip_smoke.py
 
 1. Set-up: the card's name and power limit, torch and CUDA versions, and
-   the build of the port's kernel source (one ``nvcc`` run).
+   the build of the port's two kernel sources (``csrc/cqt.cu``,
+   ``csrc/stem.cu``: one ``nvcc`` each, started together).
 2. Kernel against plain version (TF32 off): the fused CQT kernel at every
    precision tier on the training recipe (B=4096), the 3 s serving recipe,
    a reflect-padded recipe and a hop-1000 recipe, each against its plain
-   PyTorch version on the same inputs, plus the kernel at highest against
-   the repo's NumPy golden fixture.
+   PyTorch version on the same inputs, with the bound and the frame-GEMM
+   yardstick of the reflect and hop-1000 recipes (the shapes of TPU kernels
+   B3 and B4), plus the kernel at highest against the repo's NumPy golden
+   fixture.
 3. The ``native-best`` serving path: a seeded random-init ``Transcriber``
    (batch 2048) transcribes synthetic tracks and one 4096-window batch;
    the kernel's launch count must rise; windows/s after a warm-up; the same
    windows through the plain CQT on the card must give the same logits.
 4. A short ``--arch resnet18`` transcription through the CLI.
+5. (a) The three stem-tail kernels against their plain versions at the
+   flagship's training shape (B=256: y [256, 2, 56, 7168] bf16 from the
+   quadrant GEMM of real CQT features), directly and through the
+   ``autograd.Function``; each timed beside its plain version, the
+   ``torch.var_mean`` yardstick and the cuDNN BN -> ReLU -> max-pool
+   composition.
+6. (b) Flagship training: ``resnet18`` + ``stem_fusion="fused"``, bf16,
+   B=256 on 4 rotating batches of seeded audio, 20 steps after a warm-up;
+   each stem counter and the CQT counter rise by exactly one per step, the
+   loss stays finite, and one step with the kernels agrees with one step
+   with the plain versions from the same state.  (d) A ``torch.profiler``
+   table of the step's top 15 device ops.
+7. (c) Native training: ``resnet18_native``, ``native-best`` CQT tier,
+   B=4096, 20 steps.
 
 Then one JSON line of kernel measurements, and the status line last.
 Any failed check raises, which exits non-zero.  Needs one CUDA card.
@@ -22,6 +39,7 @@ Any failed check raises, which exits non-zero.  Needs one CUDA card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -29,6 +47,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -50,6 +69,27 @@ GOLDEN_TOL = 0.15
 #   resolution (2^-8 relative), so differences come from bf16 rounding
 #   boundaries the perturbation crosses and from cells at the gate.
 LOGIT_REL_TOL = 2e-2
+# - the stem kernels against their plain versions: pooled output and dy bit
+#   for bit (the same fp32 arithmetic, tie-break and single rounding); the
+#   per-channel sums of 411 MB of bf16 values to fp32 summation order.
+SUM_REL_TOL = 1e-5
+# - one flagship train step with kernels against one with the plain
+#   versions, from the same state.  At fp32 the two differ by summation
+#   order only: loss to 1e-5, the raw gradients' norm to 1e-4, and the Adam
+#   first moments (the clipped gradient) to cosine similarity 0.9999.  At
+#   bf16 (the main path) perturbations as small as the CQT kernel's 2e-3 dB
+#   or a last-bit change of the batch statistics move bf16 roundings and
+#   ReLU and max-pool decisions across 20 batch-statistics BatchNorms, so
+#   the gradients move by percents; each run prints the kernel step against
+#   itself with only the CQT plain as that reference.  bf16: loss to
+#   LOGIT_REL_TOL, gradient norm to 0.1, cosine 0.8, and bn1's running
+#   statistics (fp32 sums of the same conv output) to 1e-4.
+STEP_TOL = {
+    "float32": {"loss": 1e-5, "grad_norm": 1e-4, "cosine": 0.9999, "bn1": 1e-5},
+    "bfloat16": {"loss": LOGIT_REL_TOL, "grad_norm": 0.1, "cosine": 0.8, "bn1": 1e-4},
+}
+LR = 5e-4  # bench.py's learning rate
+TRAIN_STEPS = 20
 
 
 def _sync_ms(fn, iters: int) -> float:
@@ -150,6 +190,15 @@ def kernel_phase(torch, cqt_cuda, CQTConfig, CQTFrontend) -> dict:
         del x
         torch.cuda.empty_cache()
 
+    # bound and library yardstick of the recipes that B3 (reflect) and B4
+    # (hop 1000) serve, at the two tiers with a single product per term
+    for name in ("reflect", "hop1000"):
+        base, batch = recipes[name]
+        for prec in ("highest", "default"):
+            cqt_kernel_row(torch, cqt_cuda,
+                           CQTFrontend(dataclasses.replace(base, precision=prec)),
+                           batch, name)
+
     # the kernel at highest against the float64 NumPy golden fixture
     root = os.path.dirname(os.path.abspath(__file__))
     golden = np.load(os.path.join(root, "tests", "data", "cqt_golden.npz"))
@@ -164,9 +213,9 @@ def kernel_phase(torch, cqt_cuda, CQTConfig, CQTFrontend) -> dict:
     return results
 
 
-def main_path_kernel_row(torch, cqt_cuda, frontend, batch: int) -> dict:
-    """The kernel at the main path's shape (native-best: training recipe,
-    default tier, batch 2048): times, bound and the library yardstick."""
+def cqt_kernel_row(torch, cqt_cuda, frontend, batch: int, label: str) -> dict:
+    """The kernel at one recipe, tier and batch: times, bound and the
+    library yardstick."""
     cfg = frontend.cfg
     fb = frontend.filterbank
     x = tone_windows(batch, cfg.window_samples, cfg.sample_rate, seed=2)
@@ -174,23 +223,26 @@ def main_path_kernel_row(torch, cqt_cuda, frontend, batch: int) -> dict:
     r = compare_db(got, want, cfg.gate_floor_db, cfg.gate_threshold_db)
     kernel_ms = _sync_ms(lambda: frontend(x), 10)
     plain_ms = _sync_ms(lambda: frontend.plain(x), 5)
-    # yardstick: one torch.matmul of the prebuilt bf16 frame stack with the
-    # bf16 filterbank (the frame GEMM alone, without the epilogue)
+    # yardstick: one torch.matmul of the prebuilt frame stack with the
+    # filterbank (the frame GEMM alone, without the epilogue): bf16 operands
+    # at the default tier, fp32 (TF32 off) at highest
+    assert cfg.precision in ("default", "highest"), cfg.precision
+    dt = torch.bfloat16 if cfg.precision == "default" else torch.float32
     kw = fb.kernel_width
     padded = torch.nn.functional.pad(x, (kw // 2, kw // 2))
     frames = padded.unfold(-1, kw, cfg.hop_length)[:, :cfg.n_frames]
-    frames = frames.reshape(-1, kw).to(torch.bfloat16).contiguous()
-    kern = frontend.kernels_on(x.device).to(torch.bfloat16)
+    frames = frames.reshape(-1, kw).to(dt).contiguous()
+    kern = frontend.kernels_on(x.device).to(dt)
     library_ms = _sync_ms(lambda: torch.matmul(frames, kern), 10)
     del frames, padded
-    # the bound at the default tier: bf16 operands, so the bf16 peak for the
-    # products and 2 bytes for each filter value the window needs; the audio
-    # is read as given (fp32) and the dB written as fp32
-    assert cfg.precision == "default", cfg.precision
+    # the bound: the products at the peak of the operands' type (bf16 at
+    # default, fp32 at highest) and each filter value the window needs in
+    # that type; the audio is read as given (fp32) and the dB written as fp32
+    peak, width = (("bf16", 2) if cfg.precision == "default" else ("fp32", 4))
     macs = cqt_cuda.needed_macs(fb, cfg, cfg.window_samples) * batch
-    ops_s = 2 * macs / PEAK_FLOPS["bf16"]
+    ops_s = 2 * macs / PEAK_FLOPS[peak]
     filt_values = cqt_cuda.needed_filter_values(fb, cfg, cfg.window_samples)
-    nbytes = (4 * x.numel() + 2 * filt_values
+    nbytes = (4 * x.numel() + width * filt_values
               + 4 * batch * cfg.n_bins * cfg.n_frames)
     bytes_s = nbytes / PEAK_BYTES_PER_S
     row = {
@@ -200,7 +252,7 @@ def main_path_kernel_row(torch, cqt_cuda, frontend, batch: int) -> dict:
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
         "macs": macs, "bytes": nbytes,
     }
-    print(f"cqt main-path shape train default B={batch}: {json.dumps(row)}",
+    print(f"cqt row, {label} {cfg.precision} B={batch}: {json.dumps(row)}",
           flush=True)
     if r["bad_flips"] or r["max_err_db"] > DB_TOL:
         raise AssertionError(f"CQT kernel disagrees at the main-path shape: {r}")
@@ -313,19 +365,360 @@ def resnet18_phase(torch, cqt_cuda, cli) -> int:
     return launches
 
 
+@contextlib.contextmanager
+def plain_stem(stem_tail):
+    """Send the stem tail's calls to its plain versions while the block
+    runs (for the kernel-against-plain comparison only)."""
+    saved = stem_tail.stats, stem_tail.fwd, stem_tail.bwd
+    stem_tail.stats = stem_tail.stats_plain
+    stem_tail.fwd = stem_tail.fwd_plain
+    stem_tail.bwd = stem_tail.bwd_plain
+    try:
+        yield
+    finally:
+        stem_tail.stats, stem_tail.fwd, stem_tail.bwd = saved
+
+
+def stem_kernel_phase(torch, mods, batch: int = 256) -> dict:
+    """(a) The three stem-tail kernels against their plain versions at the
+    flagship's training shape, directly and through the autograd.Function,
+    with times, bounds and yardsticks."""
+    stem_cuda, stem_tail = mods["stem_cuda"], mods["stem_tail"]
+    F = torch.nn.functional
+    cfg = mods["CQTConfig"]()
+    frontend = mods["CQTFrontend"](cfg)
+    model = mods["build_model"](
+        mods["ModelConfig"](arch="resnet18", stem_fusion="fused"),
+        generator=torch.Generator().manual_seed(0),
+    ).cuda()
+    x = tone_windows(batch, cfg.window_samples, cfg.sample_rate, seed=3)
+    with torch.no_grad():
+        feats = mods["db_to_unit"](frontend(x))
+        yq = mods["stem_fusion"].precomposed_conv1_quadrant(
+            feats, model.resnet.conv1.weight, dtype=torch.bfloat16).contiguous()
+    b, _, h2, lanes = yq.shape
+    c = lanes // (2 * h2)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(c, generator=g, device="cuda")
+    gout = torch.randn((b, h2, lanes // 2), generator=g, device="cuda").to(torch.bfloat16)
+    mean, var = stem_tail.quadrant_batch_stats(yq)
+    se, oe, _ = stem_tail.lane_affine(mean, var, scale, bias, 1e-5)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    sums, sums_p = stem_cuda.stats(yq), stem_tail.stats_plain(yq)
+    pooled, pooled_p = stem_cuda.fwd(yq, se, oe), stem_tail.fwd_plain(yq, se, oe)
+    dy, sdz, sdzy = stem_cuda.bwd(yq, gout, se, oe)
+    dy_p, sdz_p, sdzy_p = stem_tail.bwd_plain(yq, gout, se, oe)
+    torch.cuda.synchronize()
+    checks = {
+        "stats_rel_err": rel(sums, sums_p),
+        "fwd_equal": bool(torch.equal(pooled, pooled_p)),
+        "bwd_dy_equal": bool(torch.equal(dy, dy_p)),
+        "bwd_sum_dz_rel_err": rel(sdz, sdz_p),
+        "bwd_sum_dzy_rel_err": rel(sdzy, sdzy_p),
+    }
+    errs = {
+        "stem_stats": float((sums - sums_p).abs().max()),
+        "stem_fwd": float((pooled.float() - pooled_p.float()).abs().max()),
+        "stem_bwd": max(float((dy.float() - dy_p.float()).abs().max()),
+                        float((sdz - sdz_p).abs().max()),
+                        float((sdzy - sdzy_p).abs().max())),
+    }
+    del pooled_p, dy_p
+
+    # through the autograd.Function: kernels against plain versions
+    def train_op():
+        y = yq.clone().requires_grad_(True)
+        s_, b_ = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        out, m, v = stem_tail.bn_relu_pool_train(y, s_, b_)
+        out.backward(gout.reshape(out.shape))
+        return out.detach(), m, v, y.grad, s_.grad, b_.grad
+
+    got = train_op()
+    with plain_stem(stem_tail):
+        want = train_op()
+    torch.cuda.synchronize()
+    names = ("pooled", "mean", "var", "dy", "dscale", "dbias")
+    function_err = {n: rel(a.float(), w.float()) for n, a, w in zip(names, got, want)}
+    del got, want
+    torch.cuda.empty_cache()
+    print("stem kernels vs plain, B=%d: %s" % (b, json.dumps(
+        {**checks, "abs_err": errs, "autograd_function_rel_err": function_err})), flush=True)
+    if not (checks["fwd_equal"] and checks["bwd_dy_equal"]
+            and max(checks["stats_rel_err"], checks["bwd_sum_dz_rel_err"],
+                    checks["bwd_sum_dzy_rel_err"]) <= SUM_REL_TOL):
+        raise AssertionError(f"stem kernels disagree with their plain versions: {checks}")
+    # one bf16 ulp on outputs where the sums' order moves se/oe's last bit
+    if max(function_err.values()) > LOGIT_REL_TOL:
+        raise AssertionError(f"bn_relu_pool_train kernels vs plain: {function_err}")
+
+    # times (CUDA events), plain versions, bounds and yardsticks
+    ms = {
+        "stem_stats": (_sync_ms(lambda: stem_cuda.stats(yq), 20),
+                       _sync_ms(lambda: stem_tail.stats_plain(yq), 3)),
+        "stem_fwd": (_sync_ms(lambda: stem_cuda.fwd(yq, se, oe), 20),
+                     _sync_ms(lambda: stem_tail.fwd_plain(yq, se, oe), 3)),
+        "stem_bwd": (_sync_ms(lambda: stem_cuda.bwd(yq, gout, se, oe), 20),
+                     _sync_ms(lambda: stem_tail.bwd_plain(yq, gout, se, oe), 3)),
+    }
+    nhwc = stem_tail.quadrant_unpack(yq, c)  # a permuted view, [B, 112, 112, C]
+    library = {"stem_stats": _sync_ms(
+        lambda: torch.var_mean(nhwc.float(), dim=(0, 1, 2), correction=0), 10)}
+    # context only: eager cuDNN batch_norm -> relu -> max_pool2d (a
+    # composition of library calls, not one call computing the function)
+    xin = nhwc.permute(0, 3, 1, 2).detach().requires_grad_(True)  # channels last
+
+    def composed():
+        z = F.batch_norm(xin, None, None, scale, bias, True, 0.0, 1e-5)
+        return F.max_pool2d(F.relu(z), 3, 2, 1)
+
+    with torch.no_grad():
+        comp_fwd = _sync_ms(composed, 10)
+    gcomp = gout.reshape(b, h2, h2, c).permute(0, 3, 1, 2)
+    comp_fwd_bwd = _sync_ms(lambda: torch.autograd.grad(composed(), xin, gcomp), 10)
+    el = yq.element_size()
+    n_y, n_pool = yq.numel(), b * h2 * (lanes // 2)
+    bytes_ = {
+        "stem_stats": el * n_y + 8 * c,
+        "stem_fwd": el * (n_y + n_pool) + 8 * c,
+        "stem_bwd": el * (2 * n_y + n_pool) + 16 * c,
+    }
+    ops = {  # fp32 operations on the FP32 pipes (bound_by is bytes for all)
+        "stem_stats": 3 * n_y,          # y, y*y, two adds
+        "stem_fwd": 3 * n_y + 8 * n_pool,  # affine + ReLU, 8 maxima a window
+        "stem_bwd": 7 * n_y + 17 * n_pool,  # + mask, dy, two sums; window max and routing
+    }
+    rows = {}
+    for name in ("stem_stats", "stem_fwd", "stem_bwd"):
+        bytes_s = bytes_[name] / PEAK_BYTES_PER_S
+        ops_s = ops[name] / PEAK_FLOPS["fp32"]
+        rows[name] = {
+            "max_abs_err": errs[name], "ms": ms[name][0], "plain_ms": ms[name][1],
+            "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "library_ms": library.get(name), "bytes": bytes_[name],
+        }
+    context = {"cudnn_bn_relu_maxpool_fwd_ms": comp_fwd,
+               "cudnn_bn_relu_maxpool_fwd_bwd_ms": comp_fwd_bwd,
+               "var_mean_ms": library["stem_stats"]}
+    print("stem kernel rows: " + json.dumps(rows), flush=True)
+    print("stem yardsticks (composition, context only): " + json.dumps(context), flush=True)
+    del nhwc, xin, yq, gout
+    torch.cuda.empty_cache()
+    return {"rows": rows, "context": context}
+
+
+def _counts(mods) -> dict:
+    return {"cqt_fused": mods["cqt_cuda"].launches, **mods["stem_cuda"].launches}
+
+
+def _reset_counts(mods) -> None:
+    mods["cqt_cuda"].launches = 0
+    for key in mods["stem_cuda"].launches:
+        mods["stem_cuda"].launches[key] = 0
+
+
+def _device_ms(evt) -> float:
+    us = getattr(evt, "self_device_time_total", None)
+    if us is None:
+        us = evt.self_cuda_time_total
+    return us / 1e3
+
+
+def compare_step(torch, mods, model_cfg, frontend, batch) -> dict:
+    """One train step with the kernels and one with the plain versions
+    (stem tail and CQT), each from the same freshly seeded state and batch;
+    held to STEP_TOL for the model's dtype."""
+    preprocess = mods["make_preprocess"](model_cfg)
+
+    def one_step(plain_stem_tail: bool, plain_cqt: bool):
+        model = mods["build_model"](model_cfg, generator=torch.Generator().manual_seed(0))
+        state = mods["create_train_state"](model, mods["OptimConfig"](), device="cuda")
+        step = mods["make_train_step"](
+            model, preprocess, smoothing=0.05,
+            frontend=frontend.plain if plain_cqt else frontend)
+        ctx = plain_stem(mods["stem_tail"]) if plain_stem_tail else contextlib.nullcontext()
+        with ctx:
+            met = step(state, batch, torch.Generator(device="cuda").manual_seed(7), LR)
+        torch.cuda.synchronize()
+        bn1 = model.resnet.bn1
+        return (float(met["loss"]), float(met["grad_norm"]), state.opt_state.mu.clone(),
+                bn1.running_mean.clone(), bn1.running_var.clone())
+
+    def agreement(a, b):
+        return {
+            "loss_rel": abs(a[0] - b[0]) / abs(b[0]),
+            "grad_norm_rel": abs(a[1] - b[1]) / abs(b[1]),
+            "adam_mu_cosine": float(torch.nn.functional.cosine_similarity(a[2], b[2], dim=0)),
+            "bn1_running_rel": max(float((x - y).abs().max() / y.abs().max())
+                                   for x, y in zip(a[3:], b[3:])),
+        }
+
+    before = _counts(mods)
+    kern = one_step(False, False)
+    launches = {k: v - before[k] for k, v in _counts(mods).items()}
+    plain = one_step(True, True)
+    plain_launches = {k: v - before[k] - launches[k] for k, v in _counts(mods).items()}
+    cmp = {
+        "loss": [kern[0], plain[0]], "grad_norm": [kern[1], plain[1]],
+        **agreement(kern, plain),
+        "kernel_step_launches": launches, "plain_step_launches": plain_launches,
+        # reference: the kernel step against itself with only the CQT plain,
+        # i.e. under a perturbation of the features of <= 2e-3 dB
+        "kernel_vs_kernel_with_plain_cqt": agreement(kern, one_step(False, True)),
+    }
+    tol = STEP_TOL[model_cfg.dtype]
+    if (cmp["loss_rel"] > tol["loss"] or cmp["grad_norm_rel"] > tol["grad_norm"]
+            or cmp["adam_mu_cosine"] < tol["cosine"] or cmp["bn1_running_rel"] > tol["bn1"]
+            or any(v != 1 for v in launches.values())
+            or any(plain_launches.values())):
+        raise AssertionError(
+            f"{model_cfg.dtype}: kernel and plain train steps disagree: {cmp}")
+    return cmp
+
+
+def train_phase(torch, mods, name: str, model_cfg, cqt_cfg, batch: int,
+                compare: bool = False, profile: bool = False) -> dict:
+    """(b)/(c) TRAIN_STEPS train steps on 4 rotating batches of seeded
+    audio after a warm-up; counters read around the timed run."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    frontend = mods["CQTFrontend"](cqt_cfg)
+    preprocess = mods["make_preprocess"](model_cfg)
+
+    def fresh():
+        model = mods["build_model"](model_cfg, generator=torch.Generator().manual_seed(0))
+        state = mods["create_train_state"](model, mods["OptimConfig"](), device="cuda")
+        return model, state
+
+    model, state = fresh()
+    step = mods["make_train_step"](model, preprocess, smoothing=0.05, frontend=frontend)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    audio = torch.randn((4, batch, cqt_cfg.window_samples), generator=g, device="cuda")
+    labels = torch.randint(0, 19, (4, batch, 6), generator=g, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def batch_i(i):
+        return {"audio": audio[i % 4], "labels": labels[i % 4]}
+
+    for i in range(2):  # warm-up: cuDNN plans, kernel loads
+        step(state, batch_i(i), gen, LR)
+    torch.cuda.synchronize()
+    _reset_counts(mods)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    losses = [step(state, batch_i(i), gen, LR)["loss"] for i in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    counts = _counts(mods)
+    elapsed = start.elapsed_time(end)
+    losses = torch.stack(losses)
+    out = {
+        "batch": batch, "steps": TRAIN_STEPS, "step_ms": elapsed / TRAIN_STEPS,
+        "segments_per_s": 1e3 * batch * TRAIN_STEPS / elapsed,
+        "launches": counts, "first_loss": float(losses[0]),
+        "last_loss": float(losses[-1]), "all_finite": bool(torch.isfinite(losses).all()),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    if not out["all_finite"]:
+        raise AssertionError(f"{name}: non-finite loss {losses.tolist()}")
+    if counts["cqt_fused"] != TRAIN_STEPS:
+        raise AssertionError(f"{name}: CQT kernel launches {counts}")
+    fused = model_cfg.stem_fusion == "fused"
+    for key in ("stem_stats", "stem_fwd", "stem_bwd"):
+        if counts[key] != (TRAIN_STEPS if fused else 0):
+            raise AssertionError(f"{name}: {key} launches {counts}")
+
+    if profile:  # (d) the step's device ops
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(3):
+                step(state, batch_i(i), gen, LR)
+            torch.cuda.synchronize()
+        from torch.autograd import DeviceType
+
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and _device_ms(e) > 0]
+        total = sum(_device_ms(e) for e in events)
+        top = sorted(events, key=_device_ms, reverse=True)[:15]
+        print(f"{name}: top 15 device ops (kernels, copies) over 3 steps (device ms, "
+              f"share of {total:.3f} ms device time):", flush=True)
+        for e in top:
+            print(f"  {_device_ms(e):9.3f} ms {100 * _device_ms(e) / total:5.1f} %  "
+                  f"x{e.count:<4d} {e.key[:110]}", flush=True)
+        stem = sum(_device_ms(e) for e in events
+                   if "stem_" in e.key or "reduce_partials" in e.key)
+        out["profile"] = {
+            "device_ms_per_step": total / 3, "stem_kernels_ms_per_step": stem / 3,
+            "device_ops_per_step": sum(e.count for e in events) / 3,
+            "stem_share_of_device_time": stem / total,
+            # device time of a profiled step over the timed run's step time
+            "device_busy_share": total / 3 / out["step_ms"],
+        }
+    if compare:  # one step with the kernels, one with the plain versions
+        out["kernel_vs_plain_step"] = {
+            dtype: compare_step(torch, mods, dataclasses.replace(model_cfg, dtype=dtype),
+                                frontend, batch_i(0))
+            for dtype in STEP_TOL
+        }
+    print(f"train {name}: " + json.dumps(out), flush=True)
+    del audio, labels, state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def port_modules() -> dict:
+    """The port's modules and entry points this script drives."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from guitar_tablature_classification_tpu_torch.config import (
+        RECIPES,
+        CQTConfig,
+        ModelConfig,
+        OptimConfig,
+    )
+    from guitar_tablature_classification_tpu_torch.infer import Transcriber, cli
+    from guitar_tablature_classification_tpu_torch.models import build_model
+    from guitar_tablature_classification_tpu_torch.ops import (
+        cqt_cuda,
+        stem_cuda,
+        stem_fusion,
+        stem_tail,
+    )
+    from guitar_tablature_classification_tpu_torch.ops.cqt import CQTFrontend
+    from guitar_tablature_classification_tpu_torch.ops.framing import frame_track
+    from guitar_tablature_classification_tpu_torch.ops.normalize import db_to_unit
+    from guitar_tablature_classification_tpu_torch.train import (
+        create_train_state,
+        make_preprocess,
+        make_train_step,
+    )
+
+    return dict(
+        RECIPES=RECIPES, CQTConfig=CQTConfig, ModelConfig=ModelConfig,
+        OptimConfig=OptimConfig, Transcriber=Transcriber, cli=cli,
+        build_model=build_model, cqt_cuda=cqt_cuda, stem_cuda=stem_cuda,
+        stem_fusion=stem_fusion, stem_tail=stem_tail, CQTFrontend=CQTFrontend,
+        frame_track=frame_track, db_to_unit=db_to_unit,
+        create_train_state=create_train_state, make_preprocess=make_preprocess,
+        make_train_step=make_train_step,
+    )
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from guitar_tablature_classification_tpu_torch.config import RECIPES, CQTConfig
-    from guitar_tablature_classification_tpu_torch.infer import Transcriber, cli
-    from guitar_tablature_classification_tpu_torch.ops import cqt_cuda
-    from guitar_tablature_classification_tpu_torch.ops.cqt import CQTFrontend
-    from guitar_tablature_classification_tpu_torch.ops.framing import frame_track
-
+    mods = port_modules()
+    cqt_cuda, stem_cuda = mods["cqt_cuda"], mods["stem_cuda"]
+    RECIPES, CQTConfig, ModelConfig = mods["RECIPES"], mods["CQTConfig"], mods["ModelConfig"]
+    CQTFrontend = mods["CQTFrontend"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -337,31 +730,60 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    path, log = cqt_cuda.build()
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source
+        builds = {name: pool.submit(mod.build)
+                  for name, mod in (("cqt_fused", cqt_cuda), ("stem", stem_cuda))}
+        builds = {name: fut.result() for name, fut in builds.items()}
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    print(f"  cqt_fused: {os.path.relpath(path)} " + " | ".join(regs))
+    for name, (path, log) in builds.items():
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        print(f"  {name}: {os.path.relpath(path)} " + " | ".join(regs))
 
-    kernel_phase(torch, cqt_cuda, CQTConfig, CQTFrontend)
-    serving = serving_phase(torch, cqt_cuda, RECIPES, Transcriber, frame_track)
-    main_row = main_path_kernel_row(
-        torch, cqt_cuda, CQTFrontend(RECIPES["native-best"]().cqt), 2048
+    phase_s = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        result = fn(*args, **kwargs)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return result
+
+    timed("cqt_kernels", kernel_phase, torch, cqt_cuda, CQTConfig, CQTFrontend)
+    timed("serving", serving_phase, torch, cqt_cuda, RECIPES, mods["Transcriber"],
+          mods["frame_track"])
+    timed("cqt_serving_row", cqt_kernel_row, torch, cqt_cuda,
+          CQTFrontend(RECIPES["native-best"]().cqt), 2048, "native-best serving")
+    timed("resnet18_cli", resnet18_phase, torch, cqt_cuda, mods["cli"])
+
+    stem = timed("stem_kernels", stem_kernel_phase, torch, mods)
+    flagship = timed(
+        "flagship_train", train_phase, torch, mods, "flagship resnet18+fused",
+        ModelConfig(arch="resnet18", stem_fusion="fused"), CQTConfig(), 256,
+        compare=True, profile=True,
     )
-    resnet18_phase(torch, cqt_cuda, cli)
+    native_recipe = RECIPES["native-best"]()
+    timed("native_train", train_phase, torch, mods, "native resnet18_native",
+          native_recipe.model, native_recipe.cqt, 4096)
+    # the CQT kernel at the flagship step's shape (training recipe, highest)
+    cqt_row = timed("cqt_train_row", cqt_kernel_row, torch, cqt_cuda,
+                    CQTFrontend(CQTConfig()), 256, "flagship train")
+    print("phase seconds: " + json.dumps(phase_s), flush=True)
 
+    sources = {
+        "cqt_fused": ("cqt.cu", "cqt_pallas.py:594"),
+        "stem_stats": ("stem.cu", "stem_pallas.py:388"),
+        "stem_fwd": ("stem.cu", "stem_pallas.py:214"),
+        "stem_bwd": ("stem.cu", "stem_pallas.py:262"),
+    }
+    rows = {"cqt_fused": cqt_row, **stem["rows"]}
     kernels = [{
-        "name": "cqt_fused",
+        "name": name,
         "route": "cuda",
-        "source": "guitar_tablature_classification_tpu_torch/csrc/cqt.cu",
-        "replaces": "guitar_tablature_classification_tpu/ops/cqt_pallas.py:594",
-        "launches": serving["launches"],
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-    }]
+        "source": f"guitar_tablature_classification_tpu_torch/csrc/{src}",
+        "replaces": f"guitar_tablature_classification_tpu/ops/{tpu}",
+        "launches": flagship["launches"][name],
+        **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+    } for name, (src, tpu) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

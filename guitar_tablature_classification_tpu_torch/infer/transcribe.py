@@ -4,7 +4,9 @@
 A track is framed once, then CQT'd and classified in bucketed batch shapes
 (full batches at ``batch_size``; the tail pads only to the smallest bucket
 that fits), argmaxed and mode-smoothed.  On the card the CQT runs in the
-hand-written kernel of ``ops/cqt_cuda.py``.
+hand-written kernel of ``ops/cqt_cuda.py``, and the flagship's fused stem
+(``resnet18`` with ``stem_fusion="fused"``, ``entry()``'s configuration)
+in the stem-tail forward kernel of ``ops/stem_cuda.py``.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@
 (a nested dict of NumPy arrays: ``{'params': ..., 'batch_stats': ...}``)
 to this package's state dict.  It is the port's own copy of the mapping in
 the JAX package's ``models/torch_export.py`` (``guitartabnet_state_dict``);
-the port does not import that package.
+the port does not import that package.  :func:`adam_state_from_optax`
+carries an optax Adam state's moments across by the same mapping.
 
 :func:`load_torch_checkpoint` and :func:`strip_module_prefix` read
 reference ``best_guitar_tab_model.pt``-style files, as the JAX package's
@@ -34,29 +35,37 @@ def _dense(out: dict, name: str, params: Mapping) -> None:
         out[f"{name}.bias"] = _t(params["bias"])
 
 
-def _bn(out: dict, name: str, params: Mapping, stats: Mapping) -> None:
+def _bn(out: dict, name: str, params: Mapping, stats: Mapping | None) -> None:
     out[f"{name}.weight"] = _t(params["scale"])
     out[f"{name}.bias"] = _t(params["bias"])
+    if stats is None:  # a parameter-shaped tree (an optimizer moment)
+        return
     out[f"{name}.running_mean"] = _t(stats["mean"])
     out[f"{name}.running_var"] = _t(stats["var"])
     out[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
-def _resnet(out: dict, params: Mapping, stats: Mapping, prefix: str) -> None:
+def _sub(stats: Mapping | None, *keys: str) -> Mapping | None:
+    for key in keys:
+        stats = None if stats is None else stats[key]
+    return stats
+
+
+def _resnet(out: dict, params: Mapping, stats: Mapping | None, prefix: str) -> None:
     _conv(out, f"{prefix}conv1", params["conv1"])
-    _bn(out, f"{prefix}bn1", params["bn1"], stats["bn1"])
+    _bn(out, f"{prefix}bn1", params["bn1"], _sub(stats, "bn1"))
     for stage in range(1, 5):
         for block in range(2):
             f = f"layer{stage}_{block}"
             t = f"{prefix}layer{stage}.{block}"
             _conv(out, f"{t}.conv1", params[f]["conv1"])
-            _bn(out, f"{t}.bn1", params[f]["bn1"], stats[f]["bn1"])
+            _bn(out, f"{t}.bn1", params[f]["bn1"], _sub(stats, f, "bn1"))
             _conv(out, f"{t}.conv2", params[f]["conv2"])
-            _bn(out, f"{t}.bn2", params[f]["bn2"], stats[f]["bn2"])
+            _bn(out, f"{t}.bn2", params[f]["bn2"], _sub(stats, f, "bn2"))
             if "downsample_conv" in params[f]:
                 _conv(out, f"{t}.downsample.0", params[f]["downsample_conv"])
                 _bn(out, f"{t}.downsample.1", params[f]["downsample_bn"],
-                    stats[f]["downsample_bn"])
+                    _sub(stats, f, "downsample_bn"))
     if "fc" in params:
         _dense(out, f"{prefix}fc", params["fc"])
 
@@ -68,28 +77,64 @@ def _string_dense(out: dict, fmt: str, params: Mapping) -> None:
         out[fmt.format(i=i) + ".bias"] = _t(bias[i])
 
 
-def _string_bn(out: dict, fmt: str, params: Mapping, stats: Mapping) -> None:
+def _string_bn(out: dict, fmt: str, params: Mapping, stats: Mapping | None) -> None:
     for i in range(np.asarray(params["scale"]).shape[0]):
         _bn(out, fmt.format(i=i),
             {"scale": np.asarray(params["scale"])[i],
              "bias": np.asarray(params["bias"])[i]},
+            None if stats is None else
             {"mean": np.asarray(stats["mean"])[i],
              "var": np.asarray(stats["var"])[i]})
+
+
+def _guitartabnet(params: Mapping, stats: Mapping | None) -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    _resnet(out, params["resnet"], _sub(stats, "resnet"), "resnet.")
+    heads_p, heads_s = params["heads"], _sub(stats, "heads")
+    _string_dense(out, "branches.{i}.0", heads_p["dense0"])
+    _string_bn(out, "branches.{i}.2", heads_p["bn0"], _sub(heads_s, "bn0"))
+    _string_dense(out, "branches.{i}.4", heads_p["dense1"])
+    _string_bn(out, "branches.{i}.6", heads_p["bn1"], _sub(heads_s, "bn1"))
+    _string_dense(out, "branches.{i}.8", heads_p["out"])
+    return out
 
 
 def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Flax GuitarTabNet variables (NumPy leaves) -> this package's
     GuitarTabNet state dict (``resnet.*`` + ``branches.{i}.{0,2,4,6,8}.*``)."""
-    params, stats = variables["params"], variables["batch_stats"]
-    out: dict[str, torch.Tensor] = {}
-    _resnet(out, params["resnet"], stats["resnet"], "resnet.")
-    heads_p, heads_s = params["heads"], stats["heads"]
-    _string_dense(out, "branches.{i}.0", heads_p["dense0"])
-    _string_bn(out, "branches.{i}.2", heads_p["bn0"], heads_s["bn0"])
-    _string_dense(out, "branches.{i}.4", heads_p["dense1"])
-    _string_bn(out, "branches.{i}.6", heads_p["bn1"], heads_s["bn1"])
-    _string_dense(out, "branches.{i}.8", heads_p["out"])
-    return out
+    return _guitartabnet(variables["params"], variables["batch_stats"])
+
+
+def _find_adam(state: Any) -> Any:
+    """The ``ScaleByAdamState`` (the node with ``mu`` and ``nu``) inside an
+    optax state: named tuples and tuples, walked depth first."""
+    if hasattr(state, "mu") and hasattr(state, "nu"):
+        return state
+    if isinstance(state, tuple):
+        for item in state:
+            found = _find_adam(item)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state: Any) -> dict[str, Any]:
+    """The Adam moments of an optax state (the JAX package's
+    ``make_optimizer`` chain, NumPy or JAX leaves) keyed by this package's
+    parameter names: ``{"count": int, "mu": {name: tensor}, "nu": {...}}``,
+    the form :meth:`..train.engine.TrainState.load_adam_state` takes."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu) in this optax state")
+    as_np = lambda tree: {  # noqa: E731
+        k: as_np(v) if isinstance(v, Mapping) else np.asarray(v)
+        for k, v in tree.items()
+    }
+    return {
+        "count": int(np.asarray(adam.count)),
+        "mu": _guitartabnet(as_np(adam.mu), None),
+        "nu": _guitartabnet(as_np(adam.nu), None),
+    }
 
 
 def strip_module_prefix(sd: Mapping[str, Any]) -> dict[str, Any]:

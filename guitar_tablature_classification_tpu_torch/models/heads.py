@@ -6,14 +6,35 @@ keeps them as six ``nn.Sequential`` branches so the state dict has the
 reference layout ``branches.{i}.{0,2,4,6,8}.*``.  Per string: Linear
 256->128, ReLU, BatchNorm, Dropout .3, Linear 128->64, ReLU, BatchNorm,
 Dropout .2, Linear 64->19.  Each BatchNorm runs per (string, feature), as
-the JAX model's ``axis=(-2, -1)`` BatchNorm does.  The heads compute in
-fp32.
+the JAX model's ``axis=(-2, -1)`` BatchNorm does, with Flax's train-mode
+semantics (:class:`.resnet.FlaxBatchNorm`).  The heads compute in fp32.
+
+In train mode the dropout masks are drawn from the ``torch.Generator``
+the forward is given (the train step's), never from the global RNG.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from .resnet import FlaxBatchNorm
+
+
+class Dropout(nn.Dropout):
+    """Flax ``nn.Dropout``: keep each value with probability ``1 - p`` and
+    scale it by ``1 / (1 - p)``, the mask drawn from ``generator``."""
+
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs the step's torch.Generator")
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class StringBranchHeads(nn.ModuleList):
@@ -28,14 +49,21 @@ class StringBranchHeads(nn.ModuleList):
             width = in_features
             for h, p in ((128, 0.3), (64, 0.2)):  # bestengine.py:28-40
                 layers += [
-                    nn.Linear(width, h), nn.ReLU(),
-                    nn.BatchNorm1d(h, eps=1e-5, momentum=0.1), nn.Dropout(p),
+                    nn.Linear(width, h), nn.ReLU(), FlaxBatchNorm(h), Dropout(p),
                 ]
                 width = h
             layers.append(nn.Linear(width, num_frets))
             branches.append(nn.Sequential(*layers))
         super().__init__(branches)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
         x = x.float()
-        return torch.stack([branch(x) for branch in self], dim=1)
+        outs = []
+        for branch in self:
+            h = x
+            for layer in branch:
+                h = layer(h, generator) if isinstance(layer, Dropout) else layer(h)
+            outs.append(h)
+        return torch.stack(outs, dim=1)

@@ -11,7 +11,16 @@ Parameters are fp32; the forward computes in ``dtype`` (bf16 by default)
 as the Flax model does: convolutions and the fc run on bf16 operands, and
 each BatchNorm normalizes in fp32 and rounds its output to ``dtype``
 (Flax ``nn.BatchNorm`` with ``dtype=bfloat16`` promotes against its fp32
-statistics).
+statistics).  In train mode the BatchNorms follow Flax, not
+``torch.nn.BatchNorm*`` (:class:`FlaxBatchNorm`).
+
+``fused_stem=224`` is the ``stem_fusion="fused"`` flagship
+(``models/resnet.py:238-312,428-441`` of the JAX package): a single-channel
+CQT input skips the 224^2 image, conv1 runs as the precomposed quadrant
+GEMM (:mod:`..ops.stem_fusion`) and bn1 + ReLU + max-pool as the fused stem
+tail (:mod:`..ops.stem_tail`, the Hopper kernels of ``csrc/stem.cu`` on the
+card).  The fused stem keeps the keys ``conv1.weight`` and ``bn1.*``, so a
+checkpoint loads into either stem.
 
 The JAX model's ``w1_conv`` modes only change how a 3x3 conv on a width-1
 feature map is contracted (its side columns multiply zero padding), never
@@ -23,6 +32,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.stem_fusion import precomposed_conv1_quadrant
+from ..ops.stem_tail import bn_relu_pool, bn_relu_pool_train
 
 
 def _operands(module: nn.Module, x: torch.Tensor):
@@ -57,16 +69,87 @@ class Linear(nn.Linear):
         return F.linear(x, weight, bias).to(dtype)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm that normalizes in fp32 and returns its input's dtype."""
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode BatchNorm with Flax's numerics: fp32 batch statistics
+    from the input, the fast variance max(0, E[x^2] - E[x]^2), and
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` rounded once to the
+    input's dtype (``flax/linen/normalization.py`` ``_compute_stats``,
+    ``_normalize``), computed in place on an fp32 copy of the input.  The
+    backward is the batch-statistics BatchNorm gradient, which is what
+    autodiff of that forward gives."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = (0,) + tuple(range(2, x.ndim))
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        xf = x.to(torch.float32, copy=True)  # normalized in place below
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        mul = rstd * weight.float()
+        y = xf.sub_(mean.view(shape)).mul_(mul.view(shape)).add_(bias.float().view(shape))
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, rstd = ctx.saved_tensors
+        dx, dw, db = torch.ops.aten.native_batch_norm_backward(
+            gy.to(x.dtype), x, weight.float(), None, None, mean, rstd, True,
+            ctx.eps, [True, True, True],
+        )
+        return dx, dw.to(weight.dtype), db.to(weight.dtype), None
+
+
+class FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
+    """BatchNorm with Flax ``nn.BatchNorm`` semantics (momentum 0.9).
+
+    Train mode normalizes with the batch statistics of
+    :class:`_BatchNormTrain` and sets the running averages to
+    ``0.9 * old + 0.1 * batch`` with the *biased* batch variance
+    (``torch.nn.BatchNorm*`` would use the unbiased one).  Eval mode
+    normalizes with the running averages in fp32.  Either returns the
+    input's dtype.  The state dict is torch's: ``weight``, ``bias``,
+    ``running_mean``, ``running_var``, ``num_batches_tracked`` (the last is
+    kept for the reference layout and not advanced)."""
+
+    flax_momentum = 0.9
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=0.1)
+
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        if x.ndim < 2 or x.shape[1] != self.num_features:
+            raise ValueError(
+                f"expected [B, {self.num_features}, ...], got {tuple(x.shape)}"
+            )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(x.dtype)
+        self._check_input_dim(x)
+        if self.training:
+            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
+            self.update_running(mean, var)
+            return y
+        # one pass of PyTorch's inference kernel: bf16 input, fp32
+        # statistics and parameters, fp32 arithmetic, one rounding
+        return F.batch_norm(
+            x, self.running_mean, self.running_var, self.weight, self.bias,
+            False, 0.0, self.eps,
+        )
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Flax's running-average update with this batch's mean and biased
+        variance."""
+        m = self.flax_momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
 
-def _bn(channels: int) -> BatchNorm2d:
-    # Flax momentum 0.9 on the running average == torch momentum 0.1
-    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+def _bn(channels: int) -> FlaxBatchNorm:
+    return FlaxBatchNorm(channels, eps=1e-5)
 
 
 class BasicBlock(nn.Module):
@@ -101,10 +184,12 @@ class ResNet18(nn.Module):
         num_features: int = 256,
         input_channels: int = 3,
         dtype: torch.dtype = torch.bfloat16,
+        fused_stem: int | None = None,
     ):
         super().__init__()
         self.input_channels = input_channels
         self.dtype = dtype
+        self.fused_stem = fused_stem
         self.conv1 = Conv2d(input_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         in_ch = 64
@@ -117,15 +202,35 @@ class ResNet18(nn.Module):
             in_ch = filters
         self.fc = Linear(in_ch, num_features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.shape[1] != self.input_channels:
-            raise ValueError(
-                f"expected {self.input_channels} channels (NCHW), "
-                f"got {tuple(x.shape)}"
+    def _fused_stem(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, 1, src_h, src_w] unit CQT -> pooled stem output [B, 64, 56,
+        56] (a channels-last view of the tail's NHWC result)."""
+        yq = precomposed_conv1_quadrant(
+            x[:, 0], self.conv1.weight, out_size=self.fused_stem, dtype=self.dtype
+        )
+        bn = self.bn1
+        if self.training:
+            pooled, mean, var = bn_relu_pool_train(yq, bn.weight, bn.bias, bn.eps)
+            bn.update_running(mean, var)
+        else:
+            pooled = bn_relu_pool(
+                yq, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps
             )
-        x = x.to(self.dtype)
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
+        return pooled.to(self.dtype).permute(0, 3, 1, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        size = self.fused_stem
+        if size is not None and x.shape[1] == 1 and tuple(x.shape[2:]) != (size, size):
+            x = self._fused_stem(x)
+        else:
+            if x.shape[1] != self.input_channels:
+                raise ValueError(
+                    f"expected {self.input_channels} channels (NCHW), "
+                    f"got {tuple(x.shape)}"
+                )
+            x = x.to(self.dtype)
+            x = F.relu(self.bn1(self.conv1(x)))
+            x = F.max_pool2d(x, 3, 2, 1)
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = layer(x)
         x = x.mean(dim=(2, 3))  # global average pool -> [B, 512]

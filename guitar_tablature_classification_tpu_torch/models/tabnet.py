@@ -7,7 +7,9 @@
 reference ``GuitarTabNet`` layout (``bestengine.py:18-48``):
 ``resnet.*`` and ``branches.{i}.{0,2,4,6,8}.*``, so reference ``.pt``
 checkpoints and the JAX package's ``save_torch_checkpoint`` output load
-with ``strict=True``.
+with ``strict=True``.  ``model.train()`` gives the JAX model's
+``train=True``: batch statistics, Flax running averages, and dropout drawn
+from the generator passed to ``forward``.
 """
 
 from __future__ import annotations
@@ -31,19 +33,24 @@ class GuitarTabNet(nn.Module):
         num_strings: int = 6,
         input_channels: int = 3,
         dtype: torch.dtype = torch.bfloat16,
+        fused_stem: int | None = None,
     ):
         super().__init__()
         self.resnet = ResNet18(
-            num_features=256, input_channels=input_channels, dtype=dtype
+            num_features=256, input_channels=input_channels, dtype=dtype,
+            fused_stem=fused_stem,
         )
         self.branches = StringBranchHeads(
             256, num_frets=num_frets, num_strings=num_strings
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, H, W, C] -> [B, num_strings, num_frets] fp32 logits."""
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        """x: [B, H, W, C] -> [B, num_strings, num_frets] fp32 logits.
+        ``generator`` draws the heads' dropout masks in train mode."""
         feats = self.resnet(x.permute(0, 3, 1, 2).contiguous())
-        return self.branches(feats)
+        return self.branches(feats, generator)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -72,12 +79,14 @@ def build_model(
     ``resnet18_native`` on the raw 96x9 CQT), seeded from ``generator``
     (seed 0 when None).
 
-    Knobs that only choose how the JAX package computes the same output map
-    to the plain formulation: every ``w1_conv`` mode, ``stem_fusion="on"``
-    (its precomposed resize/conv1 GEMMs equal resize -> conv1) and
-    ``remat`` (rematerialization only matters for training memory).
-    Knobs that select a TPU kernel this port does not have yet raise
-    ``NotImplementedError`` naming the ROADMAP item.
+    ``resnet18`` with ``stem_fusion="fused"`` builds the fused 224^2 stem
+    (precomposed quadrant conv1 GEMM + the stem-tail kernels of
+    ``csrc/stem.cu``).  Knobs that only choose how the JAX package computes
+    the same output map to the plain formulation: every ``w1_conv`` mode,
+    ``stem_fusion="on"`` (its precomposed resize/conv1 GEMMs equal resize ->
+    conv1) and ``remat`` (rematerialization only matters for training
+    memory).  Knobs that select a TPU kernel this port does not have yet
+    raise ``NotImplementedError`` naming the ROADMAP item.
     """
     if cfg.stem_fusion not in ("on", "off", "fused"):
         raise ValueError(
@@ -95,11 +104,10 @@ def build_model(
             "A12 ViT with kernel B5); the port serves resnet18 and "
             "resnet18_native"
         )
-    if cfg.stem_fusion == "fused":
-        item = "B2" if cfg.arch == "resnet18" else "B6"
+    if cfg.stem_fusion == "fused" and cfg.arch == "resnet18_native":
         raise NotImplementedError(
-            f"stem_fusion='fused' needs the fused stem kernel (ROADMAP {item}), "
-            "not ported yet"
+            "stem_fusion='fused' on resnet18_native needs the native fused "
+            "stem kernels (ROADMAP B6), not ported yet"
         )
     if cfg.bn_fusion == "on":
         raise NotImplementedError(
@@ -116,6 +124,7 @@ def build_model(
         num_strings=cfg.num_strings,
         input_channels=cfg.input_channels if cfg.arch == "resnet18" else 1,
         dtype=_DTYPES[cfg.dtype],
+        fused_stem=224 if cfg.stem_fusion == "fused" else None,
     )
     if generator is None:
         generator = torch.Generator().manual_seed(0)

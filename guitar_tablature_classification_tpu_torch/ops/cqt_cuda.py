@@ -7,10 +7,10 @@ padding mode, so it also computes what ``cqt_fused`` and
 ``cqt_fused_split`` compute there.  ``csrc/cqt.cu`` explains its design
 and its bound.
 
-The source is compiled with ``nvcc`` on first use into ``_build/`` beside
-the package (listed in ``.gitignore``), named by a hash of the source and
-flags, and loaded through ``ctypes``.  Nothing is compiled or loaded when
-this module is imported.
+The source is compiled with ``nvcc`` on first use (:mod:`.nvcc`: into
+``_build/`` beside the package, named by a hash of the source and flags)
+and loaded through ``ctypes``.  Nothing is compiled or loaded when this
+module is imported.
 
 :func:`cqt_fused` is the wrapper: a CPU tensor goes to the plain version
 (:func:`.cqt.cqt_plain`), a CUDA tensor to the kernel, which raises if it
@@ -22,16 +22,14 @@ kernels (the coefficients, then the per-window dB epilogue).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..config import CQTConfig
+from . import nvcc
 from .cqt_kernels import CQTFilterbank, n_frames_for
 
 GROUP = 4  # bins per work item; csrc/cqt.cu kGroup
@@ -40,13 +38,8 @@ TILE_FRAMES = 9  # frames per CTA; csrc/cqt.cu kTileFrames
 PRECISION_CODES = {"highest": 0, "bf16x3": 1, "default": 2}
 MAX_SMEM_BYTES = 232448  # dynamic shared memory a Hopper CTA may use
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "cqt.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = os.path.join(nvcc.CSRC_DIR, "cqt.cu")
+NVCC_FLAGS = nvcc.BASE_FLAGS
 
 launches = 0  # fused launches since import (or since a caller reset it)
 _lib = None
@@ -263,44 +256,11 @@ def make_plan(
 # -------------------------------------------------------------------- build
 
 
-def nvcc_path() -> str:
-    for var in ("CUDA_HOME", "CUDA_PATH"):
-        root = os.environ.get(var)
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-
-
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libcqt_{tag.hexdigest()[:16]}.so")
-
-
 def build() -> tuple[str, str]:
     """Compile ``csrc/cqt.cu`` unless this source is built already.
     Returns the library path and the compiler's log (``-Xptxas -v``:
     registers, shared memory and spills of each kernel)."""
-    path = library_path()
-    if os.path.exists(path):
-        return path, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    return path, proc.stderr
+    return nvcc.build(SOURCE, NVCC_FLAGS)
 
 
 def _library():

@@ -1,0 +1,181 @@
+"""The fused stem-tail kernels for Hopper (``csrc/stem.cu``): build and
+wrappers.
+
+They replace the JAX package's three TPU kernels of
+``ops/stem_pallas.py``: ``_stats_pallas`` (:func:`stats`), ``_fwd_pallas``
+(:func:`fwd`) and ``_bwd_pallas`` (:func:`bwd`).  ``csrc/stem.cu`` explains
+their design and bound; :mod:`.stem_tail` holds the plain versions and the
+``autograd.Function``s that call these wrappers for CUDA tensors.
+
+The source is built with ``nvcc`` on first use (:mod:`.nvcc`), with
+``-fmad=false`` so that no multiply-add is contracted, and loaded through
+``ctypes``.  Nothing is compiled or loaded when this module is imported.
+
+``launches`` counts each wrapper's launches.  :func:`stats` and :func:`bwd`
+enqueue two kernels per launch (the per-CTA partial sums, then their
+fixed-order reduction); each counts as one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from . import nvcc
+
+SOURCE = os.path.join(nvcc.CSRC_DIR, "stem.cu")
+NVCC_FLAGS = nvcc.BASE_FLAGS + ("-fmad=false",)
+THREADS = 256  # csrc/stem.cu kThreads
+VEC_STATS, VEC_FWD, VEC_BWD = 8, 8, 2  # channels per thread of each kernel
+MAX_PARTS = 1024  # CTAs that write partial sums (fixed: deterministic sums)
+MAX_FWD_CTAS = 132 * 16
+BWD_RUN = 8  # quad rows a backward thread walks down
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = {"stem_stats": 0, "stem_fwd": 0, "stem_bwd": 0}
+_lib = None
+
+
+def build() -> tuple[str, str]:
+    """Compile ``csrc/stem.cu`` unless this source is built already.
+    Returns the library path and the compiler's ``-Xptxas -v`` log."""
+    return nvcc.build(SOURCE, NVCC_FLAGS)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(path)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.stem_stats_launch.argtypes = [p, p, p, ll, i, i, i, p]
+        lib.stem_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.stem_bwd_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        for fn in (lib.stem_stats_launch, lib.stem_fwd_launch, lib.stem_bwd_launch):
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _geometry(yq: torch.Tensor) -> tuple[int, int, int, int]:
+    """(B, H2, W2, C) of a quadrant-layout tensor; C = L // (2*H2), as the
+    JAX package reads it (square maps)."""
+    if yq.ndim != 4 or yq.shape[1] != 2:
+        raise ValueError(f"expected quadrant layout [B, 2, H2, L], got {tuple(yq.shape)}")
+    b, _, h2, lanes = yq.shape
+    c = lanes // (2 * h2)
+    if c * 2 * h2 != lanes:
+        raise ValueError(f"lanes {lanes} are not 2*H2*C for H2={h2}")
+    return b, h2, h2, c
+
+
+def _check(t: torch.Tensor, name: str, dtype=None, vec: int = 8) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must lie on a CUDA device, got {t.device}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dtype not in _DTYPES:
+        raise ValueError(f"{name}: the stem kernels take float32 or bfloat16, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % (vec * t.element_size()) != 0:
+        raise ValueError(f"{name} must be aligned to {vec} elements")
+
+
+def _check_channels(c: int) -> None:
+    for vec in (VEC_STATS, VEC_FWD, VEC_BWD):
+        if c < vec or c % vec or THREADS % (c // vec):
+            raise ValueError(
+                f"the stem kernels need C % 8 == 0 and {THREADS} % (C/2) == 0, got C={c}"
+            )
+
+
+def _check_affine(se: torch.Tensor, oe: torch.Tensor, c: int, device) -> None:
+    for name, t in (("se", se), ("oe", oe)):
+        if t.shape != (c,) or t.dtype != torch.float32 or t.device != device:
+            raise ValueError(f"{name} must be [{c}] float32 on {device}, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _parts(n_items: int, lanes: int) -> int:
+    return max(1, min(MAX_PARTS, -(-n_items // lanes)))
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_if(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def stats(yq: torch.Tensor) -> torch.Tensor:
+    """Quadrant-layout y -> [2, C] fp32: per-channel sum and sum of squares."""
+    _check(yq, "yq", vec=VEC_STATS)
+    b, h2, w2, c = _geometry(yq)
+    _check_channels(c)
+    n_pix = b * 2 * h2 * 2 * w2
+    parts = _parts(n_pix, THREADS // (c // VEC_STATS))
+    partial = torch.empty((parts, 2, c), device=yq.device, dtype=torch.float32)
+    sums = torch.empty((2, c), device=yq.device, dtype=torch.float32)
+    with torch.cuda.device(yq.device):
+        rc = _library().stem_stats_launch(
+            yq.data_ptr(), partial.data_ptr(), sums.data_ptr(), n_pix, c,
+            parts, _DTYPES[yq.dtype], _stream(yq.device),
+        )
+    _raise_if(rc, "stem stats")
+    launches["stem_stats"] += 1
+    return sums
+
+
+def fwd(yq: torch.Tensor, se: torch.Tensor, oe: torch.Tensor) -> torch.Tensor:
+    """max_pool3x3s2(relu(y*se + oe)): quadrant-layout y, per-channel se/oe
+    [C] fp32 -> [B, H2, W2*C] in y's dtype."""
+    _check(yq, "yq", vec=VEC_FWD)
+    b, h2, w2, c = _geometry(yq)
+    _check_channels(c)
+    _check_affine(se, oe, c, yq.device)
+    out = torch.empty((b, h2, w2 * c), device=yq.device, dtype=yq.dtype)
+    n_threads = b * h2 * w2 * (c // VEC_FWD)
+    ctas = max(1, min(MAX_FWD_CTAS, -(-n_threads // THREADS)))
+    with torch.cuda.device(yq.device):
+        rc = _library().stem_fwd_launch(
+            yq.data_ptr(), se.data_ptr(), oe.data_ptr(), out.data_ptr(),
+            b, h2, w2, c, ctas, _DTYPES[yq.dtype], _stream(yq.device),
+        )
+    _raise_if(rc, "stem forward")
+    launches["stem_fwd"] += 1
+    return out
+
+
+def bwd(
+    yq: torch.Tensor, g: torch.Tensor, se: torch.Tensor, oe: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradient of :func:`fwd` at the BN input: quadrant-layout y, pooled
+    gradient g [B, H2, W2*C] (y's dtype) -> (dy like y, sum dz [C],
+    sum dz*y [C]), dz the gradient at the BN output, dy = dz*se."""
+    _check(yq, "yq", vec=VEC_BWD)
+    b, h2, w2, c = _geometry(yq)
+    _check(g, "g", dtype=yq.dtype, vec=VEC_BWD)
+    if g.shape != (b, h2, w2 * c):
+        raise ValueError(f"g must be [{b}, {h2}, {w2 * c}], got {tuple(g.shape)}")
+    _check_channels(c)
+    _check_affine(se, oe, c, yq.device)
+    parts = _parts(b * -(-h2 // BWD_RUN) * w2, THREADS // (c // VEC_BWD))
+    dy = torch.empty_like(yq)
+    partial = torch.empty((parts, 2, c), device=yq.device, dtype=torch.float32)
+    sums = torch.empty((2, c), device=yq.device, dtype=torch.float32)
+    with torch.cuda.device(yq.device):
+        rc = _library().stem_bwd_launch(
+            yq.data_ptr(), g.data_ptr(), se.data_ptr(), oe.data_ptr(),
+            dy.data_ptr(), partial.data_ptr(), sums.data_ptr(), b, h2, w2, c,
+            BWD_RUN, parts, _DTYPES[yq.dtype], _stream(yq.device),
+        )
+    _raise_if(rc, "stem backward")
+    launches["stem_bwd"] += 1
+    return dy, sums[0], sums[1]

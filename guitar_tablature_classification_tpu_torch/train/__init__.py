@@ -1,5 +1,18 @@
-"""Training engine (this slice: preprocessing only)."""
+"""Training engine: preprocessing, optimizer, train state, train and eval
+steps."""
 
-from .engine import make_preprocess
+from .engine import (
+    AdamState,
+    Optimizer,
+    TrainState,
+    create_train_state,
+    make_eval_step,
+    make_optimizer,
+    make_preprocess,
+    make_train_step,
+)
 
-__all__ = ["make_preprocess"]
+__all__ = [
+    "AdamState", "Optimizer", "TrainState", "create_train_state",
+    "make_eval_step", "make_optimizer", "make_preprocess", "make_train_step",
+]

@@ -106,7 +106,6 @@ def test_save_torch_checkpoint_loads_strict(tmp_path, arch):
 
 
 @pytest.mark.parametrize("overrides, match", [
-    (dict(arch="resnet18", stem_fusion="fused"), "B2"),
     (dict(arch="resnet18_native", stem_fusion="fused"), "B6"),
     (dict(arch="resnet18_native", bn_fusion="on"), "B7"),
     (dict(arch="vit_s8"), "A12"),
