@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. Set-up: the card's name and power limit, torch and CUDA versions, and
-   the build of the port's two kernel sources (``csrc/cqt.cu``,
-   ``csrc/stem.cu``: one ``nvcc`` each, started together).
+   the build of the port's three kernel sources (``csrc/cqt.cu``,
+   ``csrc/stem.cu``, ``csrc/attention.cu``: one ``nvcc`` each, started
+   together).
 2. Kernel against plain version (TF32 off): the fused CQT kernel at every
    precision tier on the training recipe (B=4096), the 3 s serving recipe,
    a reflect-padded recipe and a hop-1000 recipe, each against its plain
@@ -32,8 +33,23 @@
    table of the step's top 15 device ops.
 7. (c) Native training: ``resnet18_native``, ``native-best`` CQT tier,
    B=4096, 20 steps.
+8. (a) The attention kernels against the plain version on strided q, k, v
+   views of one projection at [64, 785, 6, 64], [2, 50, 4, 64] and
+   [1, 300, 2, 64], fp32 and bf16: outputs, gradients, two identical
+   backward runs, the ``autograd.Function``'s wiring; times at vit_s8's
+   shape beside the plain version, the bound and
+   ``scaled_dot_product_attention``; kernel against plain at 19, 197 and
+   785 tokens.
+9. (b) ``vit_s8`` training (``vit-reference``: AdamW, backbone lr/10, bf16,
+   B=64), 20 steps: each attention counter +12 and the CQT counter +1 a
+   step; one step with the kernels against one with the plain attention at
+   fp32 and bf16; a ``torch.profiler`` table.  (c) ``vit_s8`` serving
+   through ``Transcriber`` at batch 128 (``attn_fwd`` +12 a batch).  (d)
+   ``vit-small-data`` training, 5 steps: 19 tokens take the plain
+   attention, so the attention counters stay at 0.
 
-Then one JSON line of kernel measurements, and the status line last.
+Then one JSON line of the six kernels' measurements, and the status line
+last.
 Any failed check raises, which exits non-zero.  Needs one CUDA card.
 """
 
@@ -512,13 +528,15 @@ def stem_kernel_phase(torch, mods, batch: int = 256) -> dict:
 
 
 def _counts(mods) -> dict:
-    return {"cqt_fused": mods["cqt_cuda"].launches, **mods["stem_cuda"].launches}
+    return {"cqt_fused": mods["cqt_cuda"].launches, **mods["stem_cuda"].launches,
+            **mods["attention_cuda"].launches}
 
 
 def _reset_counts(mods) -> None:
     mods["cqt_cuda"].launches = 0
-    for key in mods["stem_cuda"].launches:
-        mods["stem_cuda"].launches[key] = 0
+    for counts in (mods["stem_cuda"].launches, mods["attention_cuda"].launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def _device_ms(evt) -> float:
@@ -528,34 +546,43 @@ def _device_ms(evt) -> float:
     return us / 1e3
 
 
-def compare_step(torch, mods, model_cfg, frontend, batch) -> dict:
+def compare_step(torch, mods, model_cfg, frontend, batch, *, optim_cfg, smoothing,
+                 plain_ctx, expect, bn=None) -> dict:
     """One train step with the kernels and one with the plain versions
-    (stem tail and CQT), each from the same freshly seeded state and batch;
-    held to STEP_TOL for the model's dtype."""
+    (``plain_ctx(model)`` for the model's kernels, and the plain CQT), each
+    from the same freshly seeded state and batch; held to STEP_TOL for the
+    model's dtype.  ``expect``: each kernel's launches in the kernel step.
+    ``bn(model)``: a BatchNorm whose running statistics are held to
+    STEP_TOL's "bn1" entry (skipped when None)."""
     preprocess = mods["make_preprocess"](model_cfg)
 
-    def one_step(plain_stem_tail: bool, plain_cqt: bool):
+    def one_step(plain_kernels: bool, plain_cqt: bool):
         model = mods["build_model"](model_cfg, generator=torch.Generator().manual_seed(0))
-        state = mods["create_train_state"](model, mods["OptimConfig"](), device="cuda")
+        state = mods["create_train_state"](model, optim_cfg, device="cuda")
         step = mods["make_train_step"](
-            model, preprocess, smoothing=0.05,
+            model, preprocess, smoothing=smoothing,
             frontend=frontend.plain if plain_cqt else frontend)
-        ctx = plain_stem(mods["stem_tail"]) if plain_stem_tail else contextlib.nullcontext()
+        ctx = plain_ctx(model) if plain_kernels else contextlib.nullcontext()
         with ctx:
             met = step(state, batch, torch.Generator(device="cuda").manual_seed(7), LR)
         torch.cuda.synchronize()
-        bn1 = model.resnet.bn1
-        return (float(met["loss"]), float(met["grad_norm"]), state.opt_state.mu.clone(),
-                bn1.running_mean.clone(), bn1.running_var.clone())
+        stats = () if bn is None else (bn(model).running_mean.clone(),
+                                       bn(model).running_var.clone())
+        out = (float(met["loss"]), float(met["grad_norm"]), state.opt_state.mu.clone(), *stats)
+        del state, model
+        torch.cuda.empty_cache()
+        return out
 
     def agreement(a, b):
-        return {
+        out = {
             "loss_rel": abs(a[0] - b[0]) / abs(b[0]),
             "grad_norm_rel": abs(a[1] - b[1]) / abs(b[1]),
             "adam_mu_cosine": float(torch.nn.functional.cosine_similarity(a[2], b[2], dim=0)),
-            "bn1_running_rel": max(float((x - y).abs().max() / y.abs().max())
-                                   for x, y in zip(a[3:], b[3:])),
         }
+        if bn is not None:
+            out["bn1_running_rel"] = max(float((x - y).abs().max() / y.abs().max())
+                                         for x, y in zip(a[3:], b[3:]))
+        return out
 
     before = _counts(mods)
     kern = one_step(False, False)
@@ -572,30 +599,328 @@ def compare_step(torch, mods, model_cfg, frontend, batch) -> dict:
     }
     tol = STEP_TOL[model_cfg.dtype]
     if (cmp["loss_rel"] > tol["loss"] or cmp["grad_norm_rel"] > tol["grad_norm"]
-            or cmp["adam_mu_cosine"] < tol["cosine"] or cmp["bn1_running_rel"] > tol["bn1"]
-            or any(v != 1 for v in launches.values())
+            or cmp["adam_mu_cosine"] < tol["cosine"]
+            or cmp.get("bn1_running_rel", 0.0) > tol["bn1"]
+            or launches != {k: expect.get(k, 0) for k in launches}
             or any(plain_launches.values())):
         raise AssertionError(
             f"{model_cfg.dtype}: kernel and plain train steps disagree: {cmp}")
     return cmp
 
 
-def train_phase(torch, mods, name: str, model_cfg, cqt_cfg, batch: int,
-                compare: bool = False, profile: bool = False) -> dict:
-    """(b)/(c) TRAIN_STEPS train steps on 4 rotating batches of seeded
-    audio after a warm-up; counters read around the timed run."""
+ATTN_TOL = {  # (atol, rtol), tests/test_models.py:304-377,713-737 of the JAX package
+    "float32": {"out": (2e-5, 0.0), "grad": (1e-4, 0.0)},
+    "bfloat16": {"out": (3e-2, 3e-2), "grad": (0.25, 0.1)},
+}
+# The JAX limits were set at N=40.  At N=785 with unit-variance inputs a
+# typical output or gradient element is ~0.06, so at bf16 they would pass a
+# backward whose dV is off by a factor of two.  Each tensor (the output, dq,
+# dk, dv) is therefore also held relative to the plain version:
+# max|err| <= max * max|ref| and ||err||_2 <= l2 * ||ref||_2.  The limits
+# sit between the bf16 kernels' readings and those of faulty versions that
+# must fail (attention_controls); each run checks both sides.
+ATTN_REL_TOL = {"max": 0.05, "l2": 0.015}
+ATTN_MUST_FAIL = ("dv_halved", "rowsum_dropped", "last_key_dropped")
+# (B, N, H) at head dim 64: vit_s8's training shape, a ragged N below one
+# tile, and N over several tiles
+ATTN_CASES = {"main": (64, 785, 6), "ragged": (2, 50, 4), "multi_tile": (1, 300, 2)}
+
+
+def _qkv_views(torch, b, n, h, dtype, seed, requires_grad=False):
+    """One [B, N, 3*H*64] projection output and its q, k, v [B, N, H, 64]
+    strided views (the ViT block's layout)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, n, 3 * h * 64), generator=g, device="cuda").to(dtype)
+    qkv.requires_grad_(requires_grad)
+    return qkv, [t.view(b, n, h, 64) for t in qkv.split(h * 64, dim=-1)]
+
+
+def _allclose(got, want, atol: float, rtol: float) -> bool:
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def _rel_err(got, want) -> dict:
+    """max|err| / max|ref| and ||err||_2 / ||ref||_2 (see ATTN_REL_TOL)."""
+    got, want = got.float(), want.float()
+    err = got - want
+    return {"max": float(err.abs().max() / want.abs().max()),
+            "l2": float(err.norm() / want.norm())}
+
+
+def _rel_ok(errs: dict) -> bool:
+    return all(e["max"] <= ATTN_REL_TOL["max"] and e["l2"] <= ATTN_REL_TOL["l2"]
+               for e in errs.values())
+
+
+def attention_controls(torch, attention, q, k, v, g, want, want_grads, dname) -> dict:
+    """Faulty versions of the attention, each against the plain version on
+    the same inputs: a halved dV; dS = P*dP without its rowsum(dP*P) term
+    (dq, dk); the last key left out of the softmax, as an off-by-one mask
+    would (the output).  ATTN_REL_TOL must reject each of them; the
+    returned ``jax_limits_pass`` says whether ATTN_TOL alone would let it
+    through.  ``p_unrounded`` (the value GEMM on fp32 weights) is a
+    reading only: a rounding-order difference of the size a sound bf16
+    kernel shows."""
+    dtype = q.dtype
+    (gatol, grtol), (atol, rtol) = ATTN_TOL[dname]["grad"], ATTN_TOL[dname]["out"]
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    scale = q.shape[-1] ** -0.5
+    with torch.no_grad():
+        p = torch.softmax(torch.einsum("btnh,bsnh->bnts", qf, kf) * scale, dim=-1)
+        ds = p * torch.einsum("btnh,bsnh->bnts", gf, vf)
+        faulty = {
+            "dv_halved": {"dv": (0.5 * want_grads[2].float()).to(dtype)},
+            "rowsum_dropped": {
+                "dq": (torch.einsum("bnts,bsnh->btnh", ds, kf) * scale).to(dtype),
+                "dk": (torch.einsum("bnts,btnh->bsnh", ds, qf) * scale).to(dtype)},
+            "last_key_dropped": {"out": attention.attention_reference(q, k[:, :-1], v[:, :-1])},
+            "p_unrounded": {"out": torch.einsum("bnts,bsnh->btnh", p, vf).to(dtype)},
+        }
+        del p, ds
+    refs = {"out": want, "dq": want_grads[0], "dk": want_grads[1], "dv": want_grads[2]}
+    result = {}
+    for name, tensors in faulty.items():
+        errs = {t: _rel_err(got, refs[t]) for t, got in tensors.items()}
+        result[name] = {
+            "rel_err": errs, "rejected": not _rel_ok(errs),
+            "jax_limits_pass": all(
+                _allclose(got, refs[t], *((atol, rtol) if t == "out" else (gatol, grtol)))
+                for t, got in tensors.items())}
+    return result
+
+
+@contextlib.contextmanager
+def plain_attention(model, attention):
+    """Send the ViT blocks' attention to the plain version while the block
+    runs (for the kernel-against-plain comparison only)."""
+    blocks = list(model.vit.encoder.layer)
+    saved = [blk.attend for blk in blocks]
+    for blk in blocks:
+        blk.attend = attention.attention_reference
+    try:
+        yield
+    finally:
+        for blk, fn in zip(blocks, saved):
+            blk.attend = fn
+
+
+def attention_kernel_phase(torch, mods) -> dict:
+    """(a) The attention kernels against the plain version on strided q, k,
+    v views at three shapes and both dtypes (forward, gradients, two
+    identical backward runs, and the autograd.Function's wiring); then the
+    times at vit_s8's training shape in bf16 beside the plain version, the
+    bound and scaled_dot_product_attention; then kernel against plain at
+    19, 197 and 785 tokens beside the JAX package's 128-token rule."""
+    attention, attention_cuda = mods["attention"], mods["attention_cuda"]
+    F = torch.nn.functional
+    errs = {"attn_fwd": 0.0, "attn_bwd": 0.0}
+    for case, (b, n, h) in ATTN_CASES.items():
+        for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            qkv, (q, k, v) = _qkv_views(torch, b, n, h, dtype, seed=11)
+            g = torch.randn((b, n, h, 64), generator=torch.Generator(device="cuda")
+                            .manual_seed(12), device="cuda").to(dtype)
+            out, lse = attention_cuda.fwd(q, k, v)
+            grads = attention_cuda.bwd(q, k, v, out, lse, g)
+            again = attention_cuda.bwd(q, k, v, out, lse, g)
+            leaf, views = _qkv_views(torch, b, n, h, dtype, seed=11, requires_grad=True)
+            want = attention.attention_reference(*views)
+            want_grads = torch.autograd.grad(want, views, g)
+            want = want.detach()
+            # through the autograd.Function, as the model calls it
+            leaf2, views2 = _qkv_views(torch, b, n, h, dtype, seed=11, requires_grad=True)
+            fused = attention.fused_attention(*views2)
+            dqkv = torch.autograd.grad(fused, leaf2, g)[0]
+            torch.cuda.synchronize()
+            (atol, rtol), (gatol, grtol) = ATTN_TOL[dname]["out"], ATTN_TOL[dname]["grad"]
+            r = {
+                "out_max_abs_err": float((out.float() - want.float()).abs().max()),
+                "grad_max_abs_err": max(float((a.float() - w.float()).abs().max())
+                                        for a, w in zip(grads, want_grads)),
+                "out_ok": _allclose(out, want, atol, rtol),
+                "grad_ok": all(_allclose(a, w, gatol, grtol)
+                               for a, w in zip(grads, want_grads)),
+                "deterministic": all(torch.equal(a, w) for a, w in zip(grads, again)),
+                "function_equals_kernels": bool(torch.equal(fused, out) and torch.equal(
+                    dqkv, torch.cat([d.reshape(b, n, h * 64) for d in grads], dim=-1))),
+                "lse_finite": bool(torch.isfinite(lse).all()),
+                "rel_err": {t: _rel_err(a, w) for t, a, w in
+                            zip(("out", "dq", "dk", "dv"), (out, *grads), (want, *want_grads))},
+            }
+            r["rel_ok"] = _rel_ok(r["rel_err"])
+            print(f"attention kernels vs plain, {case} {dname} [B={b}, N={n}, H={h}, 64]: "
+                  + json.dumps(r), flush=True)
+            if not all(v for key, v in r.items() if not key.endswith("err")):
+                raise AssertionError(f"attention kernels disagree, {case} {dname}: {r}")
+            controls = attention_controls(torch, attention, q, k, v, g, want, want_grads, dname)
+            print(f"attention controls (faulty versions vs plain), {case} {dname}: "
+                  + json.dumps(controls), flush=True)
+            passed = [c for c in ATTN_MUST_FAIL if not controls[c]["rejected"]]
+            if passed:
+                raise AssertionError(f"the attention limits pass faulty versions {passed}, "
+                                     f"{case} {dname}: {controls}")
+            if case == "main" and dname == "bfloat16":
+                errs = {"attn_fwd": r["out_max_abs_err"], "attn_bwd": r["grad_max_abs_err"]}
+            del qkv, leaf, leaf2, views, views2, out, lse, grads, again, want, want_grads
+            del fused, dqkv
+            torch.cuda.empty_cache()
+
+    # times at vit_s8's training shape, bf16
+    b, n, h = ATTN_CASES["main"]
+    qkv, (q, k, v) = _qkv_views(torch, b, n, h, torch.bfloat16, seed=13)
+    g = torch.randn((b, n, h, 64), device="cuda").to(torch.bfloat16)
+    out, lse = attention_cuda.fwd(q, k, v)
+    ms = {"attn_fwd": _sync_ms(lambda: attention_cuda.fwd(q, k, v), 10),
+          "attn_bwd": _sync_ms(lambda: attention_cuda.bwd(q, k, v, out, lse, g), 5)}
+    with torch.no_grad():
+        plain = {"attn_fwd": _sync_ms(lambda: attention.attention_reference(q, k, v), 5)}
+    leaf, views = _qkv_views(torch, b, n, h, torch.bfloat16, seed=13, requires_grad=True)
+    ref = attention.attention_reference(*views)
+    plain["attn_bwd"] = _sync_ms(
+        lambda: torch.autograd.grad(ref, views, g, retain_graph=True), 5)
+    del ref
+    # yardstick: scaled_dot_product_attention on [B, H, N, Dh] (timed here,
+    # never called by the port)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    gh = g.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        lib_fwd = _sync_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 10)
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh)
+    lib_bwd = _sync_ms(
+        lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh, retain_graph=True), 10)
+    lib_fwd_bwd = _sync_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh), gh), 10)
+    del lib_out
+    # bounds: the operations of the JAX kernels' own cost estimates
+    # (attention_pallas.py:116-120, 216-220, N unpadded) at the bf16 tensor
+    # peak, and each input read once and each output written once
+    el = q.element_size()
+    elems = b * n * h * 64
+    ops = {"attn_fwd": 4 * b * h * n * n * 64, "attn_bwd": 10 * b * h * n * n * 64}
+    bytes_ = {"attn_fwd": 4 * el * elems + 4 * b * h * n,           # q, k, v, o; lse
+              "attn_bwd": 8 * el * elems + 4 * b * h * n}           # q,k,v,o,g,dq,dk,dv; lse
+    rows = {}
+    for name in ("attn_fwd", "attn_bwd"):
+        ops_s = ops[name] / PEAK_FLOPS["bf16"]
+        bytes_s = bytes_[name] / PEAK_BYTES_PER_S
+        rows[name] = {
+            "max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain[name],
+            "bound_ms": 1e3 * max(ops_s, bytes_s),
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "library_ms": lib_fwd if name == "attn_fwd" else lib_bwd,
+            "flops": ops[name], "bytes": bytes_[name],
+            "tflops_per_s": ops[name] / ms[name] / 1e9,
+        }
+    print("attention kernel rows, bf16 [64, 785, 6, 64]: " + json.dumps(rows), flush=True)
+    print("attention yardstick: scaled_dot_product_attention fwd %.4f ms, bwd %.4f ms, "
+          "fwd+bwd %.4f ms" % (lib_fwd, lib_bwd, lib_fwd_bwd), flush=True)
+    del qkv, q, k, v, g, out, lse, leaf, views, qh, kh, vh, gh
+    torch.cuda.empty_cache()
+
+    # kernel against plain, forward + backward, at three token counts
+    crossover = {}
+    for n in (19, 197, 785):
+        gn = torch.randn((b, n, h, 64), device="cuda").to(torch.bfloat16)
+        leaf, _ = _qkv_views(torch, b, n, h, torch.bfloat16, seed=14, requires_grad=True)
+
+        def fwd_bwd(fn, n=n, gn=gn, leaf=leaf):
+            views = [t.view(b, n, h, 64) for t in leaf.split(h * 64, dim=-1)]
+            torch.autograd.grad(fn(*views), leaf, gn)
+
+        crossover[n] = {"kernel_ms": _sync_ms(lambda: fwd_bwd(attention.fused_attention), 5),
+                        "plain_ms": _sync_ms(lambda: fwd_bwd(attention.attention_reference), 5)}
+        crossover[n]["plain_over_kernel"] = crossover[n]["plain_ms"] / crossover[n]["kernel_ms"]
+    print("attention fwd+bwd, kernel vs plain by tokens (B=64, H=6, bf16; the JAX "
+          "package's rule takes the kernel above 128 tokens): " + json.dumps(crossover),
+          flush=True)
+    torch.cuda.empty_cache()
+    return {"rows": rows, "crossover": crossover,
+            "sdpa_ms": {"fwd": lib_fwd, "bwd": lib_bwd, "fwd_bwd": lib_fwd_bwd}}
+
+
+def vit_serving_phase(torch, mods, batch: int = 128, n_batches: int = 8) -> dict:
+    """(c) vit_s8 serving through Transcriber at batch 128 (vit-reference
+    recipe, bf16): windows/s, attn_fwd launches (12 a batch), and the same
+    windows through the plain attention."""
+    recipe = mods["RECIPES"]["vit-reference"]()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    t = mods["Transcriber"](None, model_cfg=recipe.model, cqt_cfg=recipe.cqt,
+                            batch_size=batch, device="cuda", seed=0)
+    cfg = t.cqt_cfg
+    windows = tone_windows(batch * n_batches, cfg.window_samples, cfg.sample_rate,
+                           seed=8).cpu().numpy()
+    t.predict_windows(windows[:batch])  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts(mods)
+    logits = t.predict_windows(windows)
+    torch.cuda.synchronize()
+    counts = _counts(mods)
+    rates = []
+    for _ in range(2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        t.predict_windows(windows)
+        end.record()
+        torch.cuda.synchronize()
+        rates.append(1e3 * len(windows) / start.elapsed_time(end))
+    x = torch.from_numpy(windows[:batch]).to("cuda")
+    with torch.inference_mode():
+        feats = t.frontend(x)
+        images = t.preprocess(feats)
+        model_ms = _sync_ms(lambda: t.model(images), 5)
+        with_kernel = t.model(images)
+        with plain_attention(t.model, mods["attention"]):
+            with_plain = t.model(images)
+            plain_model_ms = _sync_ms(lambda: t.model(images), 3)
+    track = synthetic_track(np.random.default_rng(9), 5.0, cfg.sample_rate)
+    res = t.transcribe(track, keep_logits=True)
+    diff = float((with_kernel - with_plain).abs().max())
+    scale = float(with_plain.abs().max())
+    out = {
+        "batch": batch, "windows": len(windows), "windows_per_s": rates,
+        "model_ms_per_batch": model_ms, "model_ms_per_batch_plain_attention": plain_model_ms,
+        "launches": counts, "logit_max_abs_diff": diff, "logit_scale": scale,
+        "fret_agreement": float((with_kernel.argmax(-1) == with_plain.argmax(-1))
+                                .float().mean()),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    print("serving vit_s8: " + json.dumps(out), flush=True)
+    want = {key: 0 for key in counts}
+    want.update(cqt_fused=n_batches, attn_fwd=12 * n_batches)
+    if counts != want:
+        raise AssertionError(f"vit_s8 serving launches {counts}, expected {want}")
+    if logits.shape != (len(windows), 6, 19) or not np.isfinite(logits).all():
+        raise AssertionError("vit_s8 serving gave bad logits")
+    if res.frets.shape != (res.times.shape[0], 6) or not np.isfinite(res.logits).all():
+        raise AssertionError("vit_s8 transcription failed")
+    # bf16 model tolerance of the repo (tests/test_torch_models.py): 5e-2 of
+    # the logits' scale
+    if diff > 5e-2 * scale:
+        raise AssertionError("vit_s8 logits with kernel and plain attention differ")
+    del t, x, feats, images
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(torch, mods, name: str, model_cfg, cqt_cfg, batch: int, *,
+                expect: dict, optim_cfg=None, smoothing: float = 0.05,
+                compare: dict | None = None, profile: str | None = None,
+                steps: int = TRAIN_STEPS) -> dict:
+    """(b)/(c) ``steps`` train steps on 4 rotating batches of seeded audio
+    after a warm-up; counters set to 0 just before the timed run and read
+    just after, each held to ``expect`` launches per step (0 where not
+    named).  ``compare``: keyword arguments of :func:`compare_step`.
+    ``profile``: the kernel-name fragment whose share of device time the
+    profiler table reports."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    optim_cfg = optim_cfg or mods["OptimConfig"]()
     frontend = mods["CQTFrontend"](cqt_cfg)
     preprocess = mods["make_preprocess"](model_cfg)
-
-    def fresh():
-        model = mods["build_model"](model_cfg, generator=torch.Generator().manual_seed(0))
-        state = mods["create_train_state"](model, mods["OptimConfig"](), device="cuda")
-        return model, state
-
-    model, state = fresh()
-    step = mods["make_train_step"](model, preprocess, smoothing=0.05, frontend=frontend)
+    model = mods["build_model"](model_cfg, generator=torch.Generator().manual_seed(0))
+    state = mods["create_train_state"](model, optim_cfg, device="cuda")
+    step = mods["make_train_step"](model, preprocess, smoothing=smoothing, frontend=frontend)
     g = torch.Generator(device="cuda").manual_seed(5)
     audio = torch.randn((4, batch, cqt_cfg.window_samples), generator=g, device="cuda")
     labels = torch.randint(0, 19, (4, batch, 6), generator=g, device="cuda")
@@ -610,29 +935,26 @@ def train_phase(torch, mods, name: str, model_cfg, cqt_cfg, batch: int,
     _reset_counts(mods)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    losses = [step(state, batch_i(i), gen, LR)["loss"] for i in range(TRAIN_STEPS)]
+    losses = [step(state, batch_i(i), gen, LR)["loss"] for i in range(steps)]
     end.record()
     torch.cuda.synchronize()
     counts = _counts(mods)
     elapsed = start.elapsed_time(end)
     losses = torch.stack(losses)
     out = {
-        "batch": batch, "steps": TRAIN_STEPS, "step_ms": elapsed / TRAIN_STEPS,
-        "segments_per_s": 1e3 * batch * TRAIN_STEPS / elapsed,
+        "batch": batch, "steps": steps, "step_ms": elapsed / steps,
+        "segments_per_s": 1e3 * batch * steps / elapsed,
         "launches": counts, "first_loss": float(losses[0]),
         "last_loss": float(losses[-1]), "all_finite": bool(torch.isfinite(losses).all()),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     if not out["all_finite"]:
         raise AssertionError(f"{name}: non-finite loss {losses.tolist()}")
-    if counts["cqt_fused"] != TRAIN_STEPS:
-        raise AssertionError(f"{name}: CQT kernel launches {counts}")
-    fused = model_cfg.stem_fusion == "fused"
-    for key in ("stem_stats", "stem_fwd", "stem_bwd"):
-        if counts[key] != (TRAIN_STEPS if fused else 0):
-            raise AssertionError(f"{name}: {key} launches {counts}")
+    want = {key: steps * expect.get(key, 0) for key in counts}
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
 
-    if profile:  # (d) the step's device ops
+    if profile:  # the step's device ops
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
 
@@ -651,23 +973,26 @@ def train_phase(torch, mods, name: str, model_cfg, cqt_cfg, batch: int,
         for e in top:
             print(f"  {_device_ms(e):9.3f} ms {100 * _device_ms(e) / total:5.1f} %  "
                   f"x{e.count:<4d} {e.key[:110]}", flush=True)
-        stem = sum(_device_ms(e) for e in events
-                   if "stem_" in e.key or "reduce_partials" in e.key)
+        mine = sum(_device_ms(e) for e in events if profile in e.key
+                   or (profile == "stem_" and "reduce_partials" in e.key))
         out["profile"] = {
-            "device_ms_per_step": total / 3, "stem_kernels_ms_per_step": stem / 3,
-            "device_ops_per_step": sum(e.count for e in events) / 3,
-            "stem_share_of_device_time": stem / total,
+            "device_ms_per_step": total / 3, "kernels_ms_per_step": mine / 3,
+            "kernels": profile, "device_ops_per_step": sum(e.count for e in events) / 3,
+            "kernels_share_of_device_time": mine / total,
             # device time of a profiled step over the timed run's step time
             "device_busy_share": total / 3 / out["step_ms"],
         }
+    del state, model
+    torch.cuda.empty_cache()
     if compare:  # one step with the kernels, one with the plain versions
         out["kernel_vs_plain_step"] = {
             dtype: compare_step(torch, mods, dataclasses.replace(model_cfg, dtype=dtype),
-                                frontend, batch_i(0))
+                                frontend, batch_i(0), optim_cfg=optim_cfg,
+                                smoothing=smoothing, expect=expect, **compare)
             for dtype in STEP_TOL
         }
     print(f"train {name}: " + json.dumps(out), flush=True)
-    del audio, labels, state, model
+    del audio, labels
     torch.cuda.empty_cache()
     return out
 
@@ -684,6 +1009,8 @@ def port_modules() -> dict:
     from guitar_tablature_classification_tpu_torch.infer import Transcriber, cli
     from guitar_tablature_classification_tpu_torch.models import build_model
     from guitar_tablature_classification_tpu_torch.ops import (
+        attention,
+        attention_cuda,
         cqt_cuda,
         stem_cuda,
         stem_fusion,
@@ -702,6 +1029,7 @@ def port_modules() -> dict:
         RECIPES=RECIPES, CQTConfig=CQTConfig, ModelConfig=ModelConfig,
         OptimConfig=OptimConfig, Transcriber=Transcriber, cli=cli,
         build_model=build_model, cqt_cuda=cqt_cuda, stem_cuda=stem_cuda,
+        attention=attention, attention_cuda=attention_cuda,
         stem_fusion=stem_fusion, stem_tail=stem_tail, CQTFrontend=CQTFrontend,
         frame_track=frame_track, db_to_unit=db_to_unit,
         create_train_state=create_train_state, make_preprocess=make_preprocess,
@@ -730,9 +1058,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source
-        builds = {name: pool.submit(mod.build)
-                  for name, mod in (("cqt_fused", cqt_cuda), ("stem", stem_cuda))}
+    sources = (("cqt_fused", cqt_cuda), ("stem", stem_cuda),
+               ("attention", mods["attention_cuda"]))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:  # one nvcc per source
+        builds = {name: pool.submit(mod.build) for name, mod in sources}
         builds = {name: fut.result() for name, fut in builds.items()}
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, (path, log) in builds.items():
@@ -755,35 +1084,56 @@ def main() -> int:
     timed("resnet18_cli", resnet18_phase, torch, cqt_cuda, mods["cli"])
 
     stem = timed("stem_kernels", stem_kernel_phase, torch, mods)
+    one_each = {"cqt_fused": 1, "stem_stats": 1, "stem_fwd": 1, "stem_bwd": 1}
     flagship = timed(
         "flagship_train", train_phase, torch, mods, "flagship resnet18+fused",
         ModelConfig(arch="resnet18", stem_fusion="fused"), CQTConfig(), 256,
-        compare=True, profile=True,
+        expect=one_each, profile="stem_",
+        compare=dict(plain_ctx=lambda model: plain_stem(mods["stem_tail"]),
+                     bn=lambda model: model.resnet.bn1),
     )
     native_recipe = RECIPES["native-best"]()
     timed("native_train", train_phase, torch, mods, "native resnet18_native",
-          native_recipe.model, native_recipe.cqt, 4096)
+          native_recipe.model, native_recipe.cqt, 4096, expect={"cqt_fused": 1})
     # the CQT kernel at the flagship step's shape (training recipe, highest)
     cqt_row = timed("cqt_train_row", cqt_kernel_row, torch, cqt_cuda,
                     CQTFrontend(CQTConfig()), 256, "flagship train")
+
+    attn = timed("attention_kernels", attention_kernel_phase, torch, mods)
+    vit_recipe = RECIPES["vit-reference"]()
+    vit_expect = {"cqt_fused": 1, "attn_fwd": vit_recipe.model.vit_layers,
+                  "attn_bwd": vit_recipe.model.vit_layers}
+    vit = timed(
+        "vit_s8_train", train_phase, torch, mods, "vit_s8 (vit-reference)",
+        vit_recipe.model, vit_recipe.cqt, vit_recipe.data.batch_size,
+        expect=vit_expect, optim_cfg=vit_recipe.optim,
+        smoothing=vit_recipe.optim.label_smoothing, profile="attn_",
+        compare=dict(plain_ctx=lambda model: plain_attention(model, mods["attention"])),
+    )
+    timed("vit_s8_serving", vit_serving_phase, torch, mods)
+    small = RECIPES["vit-small-data"]()
+    timed("vit_small_data_train", train_phase, torch, mods, "vit_native (vit-small-data)",
+          small.model, small.cqt, small.data.batch_size, expect={"cqt_fused": 1},
+          optim_cfg=small.optim, smoothing=small.optim.label_smoothing, steps=5)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
-    sources = {
-        "cqt_fused": ("cqt.cu", "cqt_pallas.py:594"),
-        "stem_stats": ("stem.cu", "stem_pallas.py:388"),
-        "stem_fwd": ("stem.cu", "stem_pallas.py:214"),
-        "stem_bwd": ("stem.cu", "stem_pallas.py:262"),
+    kernel_sources = {  # name -> (source, TPU kernel, rows, the main path's run)
+        "cqt_fused": ("cqt.cu", "cqt_pallas.py:594", {"cqt_fused": cqt_row}, flagship),
+        "stem_stats": ("stem.cu", "stem_pallas.py:388", stem["rows"], flagship),
+        "stem_fwd": ("stem.cu", "stem_pallas.py:214", stem["rows"], flagship),
+        "stem_bwd": ("stem.cu", "stem_pallas.py:262", stem["rows"], flagship),
+        "attn_fwd": ("attention.cu", "attention_pallas.py:70", attn["rows"], vit),
+        "attn_bwd": ("attention.cu", "attention_pallas.py:138", attn["rows"], vit),
     }
-    rows = {"cqt_fused": cqt_row, **stem["rows"]}
     kernels = [{
         "name": name,
         "route": "cuda",
         "source": f"guitar_tablature_classification_tpu_torch/csrc/{src}",
         "replaces": f"guitar_tablature_classification_tpu/ops/{tpu}",
-        "launches": flagship["launches"][name],
+        "launches": run["launches"][name],
         **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
-    } for name, (src, tpu) in sources.items()]
+    } for name, (src, tpu, rows, run) in kernel_sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

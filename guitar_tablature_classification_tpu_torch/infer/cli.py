@@ -8,6 +8,12 @@ yet and raise a clear error.
 
     python -m guitar_tablature_classification_tpu_torch.infer.cli track.wav \\
         --recipe native-best --model best_guitar_tab_model.pt
+    python -m guitar_tablature_classification_tpu_torch.infer.cli track.wav \\
+        --arch vit_s8 --model best_vit_guitar_tab_model.pt
+
+Every arch but ``small_cnn`` serves: ``resnet18``, ``resnet18_native``,
+``vit_s8`` and ``vit_native`` (the recipes ``cnn-reference``,
+``native-best``, ``vit-reference`` and ``vit-small-data``).
 """
 
 from __future__ import annotations

@@ -4,9 +4,10 @@
 A track is framed once, then CQT'd and classified in bucketed batch shapes
 (full batches at ``batch_size``; the tail pads only to the smallest bucket
 that fits), argmaxed and mode-smoothed.  On the card the CQT runs in the
-hand-written kernel of ``ops/cqt_cuda.py``, and the flagship's fused stem
+hand-written kernel of ``ops/cqt_cuda.py``, the flagship's fused stem
 (``resnet18`` with ``stem_fusion="fused"``, ``entry()``'s configuration)
-in the stem-tail forward kernel of ``ops/stem_cuda.py``.
+in the stem-tail forward kernel of ``ops/stem_cuda.py``, and ``vit_s8``'s
+attention (785 tokens) in the forward kernel of ``ops/attention_cuda.py``.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ class Transcription:
 class Transcriber:
     """Load once, transcribe many tracks.
 
-    ``state_dict``: GuitarTabNet weights in the reference layout (from
+    ``state_dict``: GuitarTabNet or ViTTab weights in the reference layout (from
     :func:`..models.convert.load_torch_checkpoint` or
     :func:`..models.convert.state_dict_from_flax`); None initializes the
     model from ``seed``.  ``device`` defaults to the card; the CPU is used
@@ -138,9 +139,20 @@ class Transcriber:
 def transcriber_from_torch_checkpoint(
     path: str, *, arch: str = "resnet18", **kwargs
 ) -> Transcriber:
-    """Serve a reference ``.pt`` checkpoint (best_guitar_tab_model.pt, or
-    the JAX package's ``save_torch_checkpoint`` output)."""
+    """Serve a reference ``.pt`` checkpoint (best_guitar_tab_model.pt,
+    best_vit_guitar_tab_model.pt, or the JAX package's
+    ``save_torch_checkpoint`` output).  The file's keys must match the
+    model of ``arch`` exactly.  A conv-stem ViT has no reference layout, so
+    it cannot be served from such a file: that raises the JAX package's
+    error (``infer/transcribe.py:171-176`` there)."""
     from ..models.convert import load_torch_checkpoint
 
     model_cfg = kwargs.pop("model_cfg", None) or ModelConfig(arch=arch)
+    if model_cfg.vit_conv_stem:
+        raise ValueError(
+            "torch checkpoints carry the reference patchify layout; a "
+            "conv-stem ViT (vit_conv_stem=True) cannot be served from "
+            "one. Serve the Orbax checkpoint it was trained to, or "
+            "retrain with vit_conv_stem=False for torch portability."
+        )
     return Transcriber(load_torch_checkpoint(path), model_cfg=model_cfg, **kwargs)

@@ -1,11 +1,16 @@
 """Weights across the two packages, and reference ``.pt`` checkpoints.
 
-:func:`state_dict_from_flax` maps the JAX package's GuitarTabNet variables
-(a nested dict of NumPy arrays: ``{'params': ..., 'batch_stats': ...}``)
-to this package's state dict.  It is the port's own copy of the mapping in
-the JAX package's ``models/torch_export.py`` (``guitartabnet_state_dict``);
-the port does not import that package.  :func:`adam_state_from_optax`
-carries an optax Adam state's moments across by the same mapping.
+:func:`state_dict_from_flax` maps the JAX package's GuitarTabNet or ViTTab
+variables (a nested dict of NumPy arrays: ``{'params': ..., 'batch_stats':
+...}``) to this package's state dict.  It is the port's own copy of the
+mappings in the JAX package's ``models/torch_export.py``
+(``guitartabnet_state_dict``, ``vittab_state_dict``); the port does not
+import that package.  The ViT's fused ``qkv`` kernel ``[D, 3D]`` splits
+into Hugging Face's ``query``, ``key`` and ``value``.  A conv-stem ViT,
+which has no reference layout, maps to the port's own names
+(``vit.stem_conv{i}``, ``vit.stem_bn{i}``, ``vit.stem_proj``).
+:func:`adam_state_from_optax` carries an optax Adam state's moments across
+by the same mapping.
 
 :func:`load_torch_checkpoint` and :func:`strip_module_prefix` read
 reference ``best_guitar_tab_model.pt``-style files, as the JAX package's
@@ -27,6 +32,8 @@ def _t(x) -> torch.Tensor:
 def _conv(out: dict, name: str, params: Mapping) -> None:
     # Flax HWIO -> torch OIHW
     out[f"{name}.weight"] = _t(np.asarray(params["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in params:
+        out[f"{name}.bias"] = _t(params["bias"])
 
 
 def _dense(out: dict, name: str, params: Mapping) -> None:
@@ -43,6 +50,11 @@ def _bn(out: dict, name: str, params: Mapping, stats: Mapping | None) -> None:
     out[f"{name}.running_mean"] = _t(stats["mean"])
     out[f"{name}.running_var"] = _t(stats["var"])
     out[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def _ln(out: dict, name: str, params: Mapping) -> None:
+    out[f"{name}.weight"] = _t(params["scale"])
+    out[f"{name}.bias"] = _t(params["bias"])
 
 
 def _sub(stats: Mapping | None, *keys: str) -> Mapping | None:
@@ -99,10 +111,62 @@ def _guitartabnet(params: Mapping, stats: Mapping | None) -> dict[str, torch.Ten
     return out
 
 
+def _vit(out: dict, params: Mapping, stats: Mapping | None, prefix: str) -> None:
+    """ViTBackbone -> Hugging Face ``ViTModel`` names (``vit_state_dict``)."""
+    emb = f"{prefix}embeddings"
+    if "patch_embed" in params:
+        _conv(out, f"{emb}.patch_embeddings.projection", params["patch_embed"])
+    else:  # the conv stem: the port's own names
+        i = 0
+        while f"stem_conv{i}" in params:
+            _conv(out, f"{prefix}stem_conv{i}", params[f"stem_conv{i}"])
+            _bn(out, f"{prefix}stem_bn{i}", params[f"stem_bn{i}"],
+                _sub(stats, f"stem_bn{i}"))
+            i += 1
+        _conv(out, f"{prefix}stem_proj", params["stem_proj"])
+    out[f"{emb}.cls_token"] = _t(params["cls_token"])
+    out[f"{emb}.position_embeddings"] = _t(params["pos_embed"])
+    _ln(out, f"{prefix}layernorm", params["ln_final"])
+    layer = 0
+    while f"block{layer}" in params:
+        p = params[f"block{layer}"]
+        t = f"{prefix}encoder.layer.{layer}"
+        _ln(out, f"{t}.layernorm_before", p["ln_before"])
+        _ln(out, f"{t}.layernorm_after", p["ln_after"])
+        qkv_w, qkv_b = np.asarray(p["qkv"]["kernel"]), np.asarray(p["qkv"]["bias"])
+        d = qkv_w.shape[0]
+        for j, name in enumerate(("query", "key", "value")):
+            _dense(out, f"{t}.attention.attention.{name}",
+                   {"kernel": qkv_w[:, j * d:(j + 1) * d], "bias": qkv_b[j * d:(j + 1) * d]})
+        _dense(out, f"{t}.attention.output.dense", p["proj"])
+        _dense(out, f"{t}.intermediate.dense", p["mlp_in"])
+        _dense(out, f"{t}.output.dense", p["mlp_out"])
+        layer += 1
+
+
+def _vittab(params: Mapping, stats: Mapping | None) -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    # only a conv stem has backbone statistics
+    vit_stats = None if stats is None else stats.get("vit")
+    _vit(out, params["vit"], vit_stats, "vit.")
+    _dense(out, "fc1", params["fc1"])
+    _bn(out, "bn_fc1", params["bn_fc1"], _sub(stats, "bn_fc1"))
+    _dense(out, "fc2", params["fc2"])
+    _bn(out, "bn_fc2", params["bn_fc2"], _sub(stats, "bn_fc2"))
+    _string_dense(out, "string_heads.{i}.1", params["heads"]["out"])
+    return out
+
+
+def _model(params: Mapping, stats: Mapping | None) -> dict[str, torch.Tensor]:
+    return (_vittab if "vit" in params else _guitartabnet)(params, stats)
+
+
 def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Flax GuitarTabNet variables (NumPy leaves) -> this package's
-    GuitarTabNet state dict (``resnet.*`` + ``branches.{i}.{0,2,4,6,8}.*``)."""
-    return _guitartabnet(variables["params"], variables["batch_stats"])
+    """Flax GuitarTabNet or ViTTab variables (NumPy leaves) -> this
+    package's state dict: ``resnet.*`` + ``branches.{i}.{0,2,4,6,8}.*``, or
+    ``vit.*`` + ``fc1``/``bn_fc1``/``fc2``/``bn_fc2`` +
+    ``string_heads.{i}.1.*``."""
+    return _model(variables["params"], variables["batch_stats"])
 
 
 def _find_adam(state: Any) -> Any:
@@ -132,8 +196,8 @@ def adam_state_from_optax(opt_state: Any) -> dict[str, Any]:
     }
     return {
         "count": int(np.asarray(adam.count)),
-        "mu": _guitartabnet(as_np(adam.mu), None),
-        "nu": _guitartabnet(as_np(adam.nu), None),
+        "mu": _model(as_np(adam.mu), None),
+        "nu": _model(as_np(adam.nu), None),
     }
 
 

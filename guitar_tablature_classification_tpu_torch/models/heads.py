@@ -1,5 +1,6 @@
 """Per-string classification heads, the counterpart of the JAX package's
-``models/heads.py::StringBranchHeads``.
+``models/heads.py``: ``StringBranchHeads`` (GuitarTabNet) and
+``SimpleStringHeads`` (the ViT's).
 
 The reference runs six branch MLPs (``bestengine.py:28-40``); this module
 keeps them as six ``nn.Sequential`` branches so the state dict has the
@@ -35,6 +36,30 @@ class Dropout(nn.Dropout):
         keep = 1.0 - self.p
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class SimpleStringHeads(nn.ModuleList):
+    """The ViT head stack (``SimpleStringHeads``, ``heads.py:92-113`` of the
+    JAX package): per string Dropout then Linear in_features -> num_frets,
+    [B, in_features] -> [B, num_strings, num_frets] fp32 logits.  The state
+    dict has the reference layout ``{i}.1.*`` (``ViT_model.py:26-31``).  As
+    in the JAX model, one dropout mask is drawn for the shared input and
+    serves all six strings."""
+
+    def __init__(
+        self, in_features: int = 256, num_frets: int = 19, num_strings: int = 6,
+        dropout: float = 0.15,
+    ):
+        super().__init__([
+            nn.Sequential(Dropout(dropout), nn.Linear(in_features, num_frets))
+            for _ in range(num_strings)
+        ])
+
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        x = self[0][0](x.float(), generator)
+        return torch.stack([branch[1](x) for branch in self], dim=1)
 
 
 class StringBranchHeads(nn.ModuleList):

@@ -37,15 +37,15 @@ from ..ops.stem_fusion import precomposed_conv1_quadrant
 from ..ops.stem_tail import bn_relu_pool, bn_relu_pool_train
 
 
-def _operands(module: nn.Module, x: torch.Tensor):
+def operands(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None):
     """(x, weight, bias, out_dtype) for a product in x's dtype: bf16
     operands with fp32 accumulation.  On the CPU, where PyTorch's bf16
     convolution is unreliable (wrong values on some shapes), the bf16
     operands are upcast exactly to fp32 and the output rounded back,
     which is the same arithmetic."""
     dtype = x.dtype
-    weight = module.weight.to(dtype)
-    bias = None if module.bias is None else module.bias.to(dtype)
+    weight = weight.to(dtype)
+    bias = None if bias is None else bias.to(dtype)
     if x.device.type == "cpu" and dtype == torch.bfloat16:
         x, weight = x.float(), weight.float()
         bias = None if bias is None else bias.float()
@@ -57,7 +57,7 @@ class Conv2d(nn.Conv2d):
     cast to it per call)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, weight, bias, dtype = _operands(self, x)
+        x, weight, bias, dtype = operands(x, self.weight, self.bias)
         return self._conv_forward(x, weight, bias).to(dtype)
 
 
@@ -65,7 +65,7 @@ class Linear(nn.Linear):
     """``nn.Linear`` that computes in its input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, weight, bias, dtype = _operands(self, x)
+        x, weight, bias, dtype = operands(x, self.weight, self.bias)
         return F.linear(x, weight, bias).to(dtype)
 
 

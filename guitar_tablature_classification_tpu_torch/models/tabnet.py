@@ -1,13 +1,17 @@
-"""GuitarTabNet and ``build_model``, the counterpart of the JAX package's
-``models/tabnet.py`` for the two ResNet archs.
+"""GuitarTabNet, ViTTab and ``build_model``, the counterpart of the JAX
+package's ``models/tabnet.py``.
 
-``GuitarTabNet`` maps channels-last spectrogram images ``[B, H, W, C]``
-(the JAX model's layout, so both packages take the same tensors) to one
-``[B, 6, num_frets]`` fp32 logits tensor.  Its state dict has the
-reference ``GuitarTabNet`` layout (``bestengine.py:18-48``):
-``resnet.*`` and ``branches.{i}.{0,2,4,6,8}.*``, so reference ``.pt``
-checkpoints and the JAX package's ``save_torch_checkpoint`` output load
-with ``strict=True``.  ``model.train()`` gives the JAX model's
+Both models map channels-last spectrogram images ``[B, H, W, C]`` (the JAX
+models' layout, so both packages take the same tensors) to one
+``[B, 6, num_frets]`` fp32 logits tensor.
+
+``GuitarTabNet``'s state dict has the reference ``GuitarTabNet`` layout
+(``bestengine.py:18-48``): ``resnet.*`` and ``branches.{i}.{0,2,4,6,8}.*``.
+``ViTTab``'s has the reference ``ViTGuitarTabModel`` layout
+(``ViT_model.py:6-53``): ``vit.*`` (Hugging Face ``ViTModel`` names),
+``fc1``, ``bn_fc1``, ``fc2``, ``bn_fc2`` and ``string_heads.{i}.1.*``.  So
+reference ``.pt`` checkpoints and the JAX package's ``save_torch_checkpoint``
+output load with ``strict=True``.  ``model.train()`` gives the JAX model's
 ``train=True``: batch statistics, Flax running averages, and dropout drawn
 from the generator passed to ``forward``.
 """
@@ -15,11 +19,14 @@ from the generator passed to ``forward``.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
-from .heads import StringBranchHeads
-from .resnet import ResNet18
+from ..ops.attention import resolve_attention
+from .heads import Dropout, SimpleStringHeads, StringBranchHeads
+from .resnet import FlaxBatchNorm, ResNet18
+from .vit import ViTBackbone
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -53,6 +60,60 @@ class GuitarTabNet(nn.Module):
         return self.branches(feats, generator)
 
 
+class ViTTab(nn.Module):
+    """ViT CLS -> fc1 512 -> fc2 256 (Flax BatchNorm + leaky ReLU 0.1) ->
+    per-string heads (``ViTTab``, ``tabnet.py:62-112`` of the JAX package).
+    The backbone computes in ``dtype``; the head from the fp32 CLS features
+    on runs in fp32."""
+
+    def __init__(
+        self,
+        num_frets: int = 19,
+        num_strings: int = 6,
+        input_channels: int = 3,
+        hidden: int = 384,
+        layers: int = 12,
+        heads: int = 6,
+        patch: int | tuple[int, int] = 8,
+        input_hw: tuple[int, int] = (224, 224),
+        dropout: float = 0.3,
+        dtype: torch.dtype = torch.bfloat16,
+        attention_impl: str = "xla",
+        gelu: str = "auto",
+        conv_stem: bool = False,
+    ):
+        super().__init__()
+        self.vit = ViTBackbone(
+            hidden=hidden, layers=layers, heads=heads, patch=patch, input_hw=input_hw,
+            input_channels=input_channels, dtype=dtype, attention_impl=attention_impl,
+            gelu=gelu, conv_stem=conv_stem,
+        )
+        self.dropout1 = Dropout(dropout)
+        self.fc1 = nn.Linear(hidden, 512)
+        self.bn_fc1 = FlaxBatchNorm(512)
+        self.dropout2 = Dropout(dropout)
+        self.fc2 = nn.Linear(512, 256)
+        self.bn_fc2 = FlaxBatchNorm(256)
+        self.string_heads = SimpleStringHeads(
+            256, num_frets=num_frets, num_strings=num_strings, dropout=dropout / 2
+        )
+
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        """x: [B, H, W, C] -> [B, num_strings, num_frets] fp32 logits.
+        ``generator`` draws the head's dropout masks in train mode."""
+        h = self.dropout1(self.vit(x.permute(0, 3, 1, 2)), generator)
+        h = F.leaky_relu(self.bn_fc1(self.fc1(h)), 0.1)
+        h = self.dropout2(h, generator)
+        h = F.leaky_relu(self.bn_fc2(self.fc2(h)), 0.1)
+        return self.string_heads(h, generator)
+
+
+def _trunc_normal(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialization: LeCun-normal (truncated at 2 sigma) conv and
     linear weights as Flax's default, zero biases, identity BatchNorms."""
@@ -60,11 +121,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
-                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-                nn.init.trunc_normal_(
-                    m.weight, std=std, a=-2 * std, b=2 * std,
-                    generator=generator,
-                )
+                _trunc_normal(m.weight, (1.0 / fan_in) ** 0.5 / 0.87962566103423978,
+                              generator)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.modules.batchnorm._BatchNorm):
@@ -72,21 +130,71 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+def init_vittab(model: ViTTab, generator: torch.Generator) -> ViTTab:
+    """Seeded ViTTab initialization with the JAX model's distributions:
+    :func:`init_weights` (LeCun-normal Dense and Conv, zero biases, identity
+    norms), then a zero ``cls_token``, truncated-normal 0.02
+    ``pos_embed``, and Kaiming fan-out (variance 2 / fan_out, truncated
+    normal) for ``fc1``, ``fc2`` and the string heads, whose Flax
+    ``[6, 256, 19]`` kernel has fan_out 6 * 19."""
+    init_weights(model, generator)
+    with torch.no_grad():
+        emb = model.vit.embeddings
+        emb.cls_token.zero_()
+        _trunc_normal(emb.position_embeddings, 0.02, generator)
+        heads = model.string_heads
+        fan_out = {model.fc1: model.fc1.out_features, model.fc2: model.fc2.out_features}
+        for branch in heads:
+            fan_out[branch[1]] = branch[1].out_features * len(heads)
+        for linear, fan in fan_out.items():
+            _trunc_normal(linear.weight, (2.0 / fan) ** 0.5 / 0.87962566103423978, generator)
+    return model
+
+
+def _vittab(cfg: ModelConfig) -> ViTTab:
+    """The ViTTab of a ViT arch.  ``vit_s8`` takes the 224^2 image in square
+    ``vit_patch`` patches; ``vit_native`` the raw [96, 9] CQT in
+    (``vit_patch``, ``vit_native_patch_w``) patches, with one channel.  The
+    token count (patches + CLS) picks the attention under ``"auto"``, as
+    ``tabnet.py:164-196`` of the JAX package does.  Like the JAX ViTTab,
+    which builds its backbone without it, ``vit_mlp_ratio`` is not read:
+    the MLP is 4x the width (ROADMAP C)."""
+    if cfg.arch == "vit_s8":
+        patch, input_hw, channels = (cfg.vit_patch, cfg.vit_patch), (224, 224), cfg.input_channels
+    else:
+        patch, input_hw, channels = (cfg.vit_patch, cfg.vit_native_patch_w), (96, 9), 1
+    tokens = (input_hw[0] // patch[0]) * (input_hw[1] // patch[1]) + 1
+    return ViTTab(
+        num_frets=cfg.num_frets, num_strings=cfg.num_strings, input_channels=channels,
+        hidden=cfg.vit_hidden, layers=cfg.vit_layers, heads=cfg.vit_heads, patch=patch,
+        input_hw=input_hw, dropout=cfg.dropout, dtype=_DTYPES[cfg.dtype],
+        attention_impl=resolve_attention(cfg.attention_impl, tokens),
+        gelu=cfg.gelu, conv_stem=cfg.vit_conv_stem,
+    )
+
+
 def build_model(
     cfg: ModelConfig, *, generator: torch.Generator | None = None
-) -> GuitarTabNet:
-    """GuitarTabNet for ``cfg`` (``resnet18`` at 224^2 or
-    ``resnet18_native`` on the raw 96x9 CQT), seeded from ``generator``
-    (seed 0 when None).
+) -> GuitarTabNet | ViTTab:
+    """The model of ``cfg``, seeded from ``generator`` (seed 0 when None):
+    GuitarTabNet for ``resnet18`` (224^2) and ``resnet18_native`` (the raw
+    96x9 CQT), ViTTab for ``vit_s8`` (224^2, 785 tokens at patch 8) and
+    ``vit_native`` (the raw CQT, with the conv stem under
+    ``vit_conv_stem``).
 
     ``resnet18`` with ``stem_fusion="fused"`` builds the fused 224^2 stem
     (precomposed quadrant conv1 GEMM + the stem-tail kernels of
-    ``csrc/stem.cu``).  Knobs that only choose how the JAX package computes
-    the same output map to the plain formulation: every ``w1_conv`` mode,
+    ``csrc/stem.cu``).  The ViT archs' attention follows
+    ``attention_impl`` (:func:`..ops.attention.resolve_attention`): the
+    fused kernels of ``csrc/attention.cu`` above 128 tokens under
+    ``"auto"``.  Knobs that only choose how the JAX package computes the
+    same output map to the plain formulation: every ``w1_conv`` mode,
     ``stem_fusion="on"`` (its precomposed resize/conv1 GEMMs equal resize ->
     conv1) and ``remat`` (rematerialization only matters for training
-    memory).  Knobs that select a TPU kernel this port does not have yet
-    raise ``NotImplementedError`` naming the ROADMAP item.
+    memory).  ``stem_fusion``, ``bn_fusion`` and ``w1_conv`` are validated
+    and then ignored for the ViT archs, as in the JAX package.  Knobs that
+    select a TPU kernel this port does not have yet raise
+    ``NotImplementedError`` naming the ROADMAP item.
     """
     if cfg.stem_fusion not in ("on", "off", "fused"):
         raise ValueError(
@@ -98,18 +206,20 @@ def build_model(
         raise ValueError(
             f"w1_conv must be 'slim', 'gemm', 'dense' or 'full', got {cfg.w1_conv!r}"
         )
-    if cfg.arch not in ("resnet18", "resnet18_native"):
+    vit = cfg.arch in ("vit_s8", "vit_native")
+    if cfg.vit_conv_stem and not vit:
+        raise ValueError(f"vit_conv_stem only applies to ViT archs, got {cfg.arch!r}")
+    if cfg.arch not in ("resnet18", "resnet18_native") and not vit:
         raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (ROADMAP A11 small_cnn, "
-            "A12 ViT with kernel B5); the port serves resnet18 and "
-            "resnet18_native"
+            f"arch {cfg.arch!r} is not ported yet (ROADMAP A11 small_cnn); the "
+            "port serves resnet18, resnet18_native, vit_s8 and vit_native"
         )
     if cfg.stem_fusion == "fused" and cfg.arch == "resnet18_native":
         raise NotImplementedError(
             "stem_fusion='fused' on resnet18_native needs the native fused "
             "stem kernels (ROADMAP B6), not ported yet"
         )
-    if cfg.bn_fusion == "on":
+    if cfg.bn_fusion == "on" and not vit:
         raise NotImplementedError(
             "bn_fusion='on' needs the fused BatchNorm kernel (ROADMAP B7), "
             "not ported yet"
@@ -119,6 +229,10 @@ def build_model(
             f"dtype must be one of {tuple(_DTYPES)} with float32 params, "
             f"got {cfg.dtype!r}/{cfg.param_dtype!r}"
         )
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if vit:
+        return init_vittab(_vittab(cfg), generator)
     model = GuitarTabNet(
         num_frets=cfg.num_frets,
         num_strings=cfg.num_strings,
@@ -126,6 +240,4 @@ def build_model(
         dtype=_DTYPES[cfg.dtype],
         fused_stem=224 if cfg.stem_fusion == "fused" else None,
     )
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
     return init_weights(model, generator)

@@ -1,5 +1,8 @@
-"""Device-side DSP of the port: CQT (plain version + Hopper kernel),
-framing, normalization, resize, smoothing."""
+"""Device-side ops of the port: CQT (plain version + Hopper kernel),
+attention (plain version + Hopper kernels), framing, normalization,
+resize, smoothing."""
+
+from .attention import attention_reference, fused_attention, resolve_attention
 
 from .cqt import CQTFrontend, cqt_plain, reflect_index, split_geometry
 from .cqt_kernels import CQTFilterbank, cqt_reference, make_filterbank, n_frames_for
@@ -9,7 +12,7 @@ from .resize import resize_bicubic, resize_matrix
 from .smoothing import mode_filter, mode_filter_np
 
 __all__ = [
-    "CQTFilterbank", "CQTFrontend", "cqt_plain", "cqt_reference",
+    "attention_reference", "fused_attention", "resolve_attention", "CQTFilterbank", "CQTFrontend", "cqt_plain", "cqt_reference",
     "db_to_unit", "frame_track", "imagenet_normalize", "make_filterbank",
     "mode_filter", "mode_filter_np", "n_frames_for", "num_windows",
     "reflect_index", "resize_bicubic", "resize_matrix", "split_geometry",

@@ -1,0 +1,152 @@
+"""The fused attention kernels for Hopper (``csrc/attention.cu``): build and
+wrappers.
+
+They replace the JAX package's two TPU kernels of
+``ops/attention_pallas.py``: ``_attention_fwd_hd`` (:func:`fwd`) and
+``_attention_bwd_hd`` (:func:`bwd`).  ``csrc/attention.cu`` explains their
+design and bound; :mod:`.attention` holds the plain version and the
+``autograd.Function`` that calls these wrappers for CUDA tensors.
+
+The source is built with ``nvcc`` on first use (:mod:`.nvcc`) and loaded
+through ``ctypes``.  Nothing is compiled or loaded when this module is
+imported.
+
+The wrappers take q, k, v (and o, g) as ``[B, N, H, 64]`` tensors with any
+strides whose head-dim values are contiguous and 16-byte aligned, such as
+the q, k and v views of one ``[B, N, 3*H*64]`` projection, and raise for
+anything else.  ``launches`` counts each wrapper's launches; :func:`bwd`
+enqueues three kernels per launch (the row dots, then dK/dV, then dQ) and
+counts as one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from . import nvcc
+
+SOURCE = os.path.join(nvcc.CSRC_DIR, "attention.cu")
+NVCC_FLAGS = nvcc.BASE_FLAGS
+HEAD_DIM = 64  # csrc/attention.cu kD
+THREADS = 256  # csrc/attention.cu kThreads
+MAX_GRID_YZ = 65535  # heads and batch ride on gridDim.y / gridDim.z
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = {"attn_fwd": 0, "attn_bwd": 0}
+_lib = None
+
+
+def build() -> tuple[str, str]:
+    """Compile ``csrc/attention.cu`` unless this source is built already.
+    Returns the library path and the compiler's ``-Xptxas -v`` log."""
+    return nvcc.build(SOURCE, NVCC_FLAGS)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(path)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.attn_fwd_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, i, p]
+        lib.attn_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
+        for fn in (lib.attn_fwd_launch, lib.attn_bwd_launch):
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(t: torch.Tensor, name: str, like: torch.Tensor | None = None) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must lie on a CUDA device, got {t.device}")
+    if t.dtype not in _DTYPES:
+        raise ValueError(f"{name}: the attention kernels take float32 or bfloat16, got {t.dtype}")
+    if t.ndim != 4:
+        raise ValueError(f"{name} must be [B, N, H, Dh], got {tuple(t.shape)}")
+    if t.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{name}: the attention kernels take head dim {HEAD_DIM}, got {t.shape[-1]}")
+    if like is not None and (t.shape != like.shape or t.dtype != like.dtype
+                             or t.device != like.device):
+        raise ValueError(
+            f"{name} must match q: {tuple(like.shape)} {like.dtype} {like.device}, got "
+            f"{tuple(t.shape)} {t.dtype} {t.device}")
+    vec = 16 // t.element_size()
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
+        raise ValueError(
+            f"{name}: head-dim values must be contiguous and rows 16-byte aligned, "
+            f"got strides {t.stride()}")
+
+
+def _geometry(q: torch.Tensor) -> tuple[int, int, int]:
+    b, n, h, _ = q.shape
+    if b > MAX_GRID_YZ or h > MAX_GRID_YZ:
+        raise ValueError(f"batch and heads must be <= {MAX_GRID_YZ}, got {b}, {h}")
+    return b, n, h
+
+
+def _strides(*tensors: torch.Tensor):
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_if(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """q, k, v [B, N, H, 64] -> (out [B, N, H, 64] contiguous in q's dtype,
+    lse [B, H, N] fp32: the log-sum-exp of each scaled score row)."""
+    _check(q, "q")
+    _check(k, "k", q)
+    _check(v, "v", q)
+    b, n, h = _geometry(q)
+    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out, lse
+    with torch.cuda.device(q.device):
+        rc = _library().attn_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v),
+            out.data_ptr(), lse.data_ptr(), b, n, h, HEAD_DIM ** -0.5,
+            _DTYPES[q.dtype], _stream(q.device),
+        )
+    _raise_if(rc, "attention forward")
+    launches["attn_fwd"] += 1
+    return out, lse
+
+
+def bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, g: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of :func:`fwd` for the output gradient g (q's layout
+    rules): (dq, dk, dv), each [B, N, H, 64] contiguous in q's dtype."""
+    _check(q, "q")
+    for name, t in (("k", k), ("v", v), ("out", out), ("g", g)):
+        _check(t, name, q)
+    b, n, h = _geometry(q)
+    if lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous [{b}, {h}, {n}] float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
+    if q.numel() == 0:
+        return dq, dk, dv
+    dsum = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        rc = _library().attn_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+            _strides(q, k, v, out, g), lse.data_ptr(), dsum.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h, HEAD_DIM ** -0.5,
+            _DTYPES[q.dtype], _stream(q.device),
+        )
+    _raise_if(rc, "attention backward")
+    launches["attn_bwd"] += 1
+    return dq, dk, dv

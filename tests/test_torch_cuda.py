@@ -1,4 +1,4 @@
-"""Card-only tests of the port's CUDA kernel and its wrapper.
+"""Card-only tests of the port's CUDA kernels and their wrappers.
 
 They skip where there is no CUDA card (the kernel has no CPU mode).  This
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -15,7 +15,13 @@ import torch
 
 from guitar_tablature_classification_tpu_torch.config import RECIPES, CQTConfig
 from guitar_tablature_classification_tpu_torch.infer import Transcriber
-from guitar_tablature_classification_tpu_torch.ops import cqt_cuda, stem_cuda, stem_tail
+from guitar_tablature_classification_tpu_torch.ops import (
+    attention,
+    attention_cuda,
+    cqt_cuda,
+    stem_cuda,
+    stem_tail,
+)
 from guitar_tablature_classification_tpu_torch.ops.cqt import CQTFrontend
 
 RECIPE_CFGS = {
@@ -174,3 +180,119 @@ def test_serving_path_launches_the_kernel(card):
     out = t.transcribe(audio, keep_logits=True)
     assert cqt_cuda.launches > before
     assert np.isfinite(out.logits).all()
+
+
+# attention: (atol, rtol) of the JAX package's tests (test_models.py:304-377)
+ATTN_TOL = {
+    torch.float32: {"out": (2e-5, 0.0), "grad": (1e-4, 0.0)},
+    torch.bfloat16: {"out": (3e-2, 3e-2), "grad": (0.25, 0.1)},
+}
+# and, since those were set at N=40 and pass a halved dV at N=785 in bf16,
+# each tensor relative to the plain version: max|err| <= max * max|ref| and
+# ||err||_2 <= l2 * ||ref||_2 (chip_smoke.py's ATTN_REL_TOL)
+ATTN_REL_TOL = {"max": 0.05, "l2": 0.015}
+
+
+def _assert_rel_close(got, want):
+    got, want = got.float(), want.float()
+    err = got - want
+    assert float(err.abs().max()) <= ATTN_REL_TOL["max"] * float(want.abs().max())
+    assert float(err.norm()) <= ATTN_REL_TOL["l2"] * float(want.norm())
+
+
+def _qkv(b, n, h, dtype, device, seed=0):
+    """q, k, v as strided [B, N, H, 64] views of one [B, N, 3*H*64]
+    projection (the ViT block's layout), and an output gradient."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * 64), np.float32)).to(device, dtype)
+    g = torch.from_numpy(rng.standard_normal((b, n, h, 64), np.float32)).to(device, dtype)
+    return qkv, [t.view(b, n, h, 64) for t in qkv.split(h * 64, dim=-1)], g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 50, 4), (1, 300, 2), (4, 785, 6)])
+def test_attention_kernels_match_plain(card, dtype, shape):
+    """attn_fwd and attn_bwd against the plain version on strided views:
+    the JAX package's tolerances and the relative limits, each launch
+    counted, and two backward runs giving identical gradients (no
+    atomics)."""
+    b, n, h = shape
+    qkv, (q, k, v), g = _qkv(b, n, h, dtype, card)
+    before = dict(attention_cuda.launches)
+    out, lse = attention_cuda.fwd(q, k, v)
+    grads = attention_cuda.bwd(q, k, v, out, lse, g)
+    again = attention_cuda.bwd(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert {k_: attention_cuda.launches[k_] - before[k_] for k_ in before} == {
+        "attn_fwd": 1, "attn_bwd": 2}
+    leaf = qkv.clone().requires_grad_(True)
+    views = [t.view(b, n, h, 64) for t in leaf.split(h * 64, dim=-1)]
+    want = attention.attention_reference(*views)
+    want_grads = torch.autograd.grad(want, views, g)
+    atol, rtol = ATTN_TOL[dtype]["out"]
+    torch.testing.assert_close(out.float(), want.detach().float(), atol=atol, rtol=rtol)
+    _assert_rel_close(out, want.detach())
+    atol, rtol = ATTN_TOL[dtype]["grad"]
+    for got, ref, rerun in zip(grads, want_grads, again):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+        _assert_rel_close(got, ref)
+        assert torch.equal(got, rerun)
+
+
+@pytest.mark.cuda
+def test_fused_attention_function_on_card(card):
+    """fused_attention's autograd.Function launches both kernels and gives
+    the kernels' gradients, assembled into the projection's gradient."""
+    b, n, h = 2, 129, 2
+    qkv, (q, k, v), g = _qkv(b, n, h, torch.bfloat16, card, seed=1)
+    out, lse = attention_cuda.fwd(q, k, v)
+    direct = attention_cuda.bwd(q, k, v, out, lse, g)
+    leaf = qkv.clone().requires_grad_(True)
+    before = dict(attention_cuda.launches)
+    fused = attention.fused_attention(*[t.view(b, n, h, 64) for t in leaf.split(h * 64, -1)])
+    (dqkv,) = torch.autograd.grad(fused, leaf, g)
+    assert attention_cuda.launches == {k_: v_ + 1 for k_, v_ in before.items()}
+    assert torch.equal(fused, out)
+    assert torch.equal(dqkv, torch.cat([d.reshape(b, n, h * 64) for d in direct], -1))
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_reject_what_the_kernels_do_not_take(card):
+    _, (q, k, v), g = _qkv(1, 20, 2, torch.bfloat16, card)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        attention_cuda.fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_cuda.fwd(q.cpu(), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        attention_cuda.fwd(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="must match q"):
+        attention_cuda.fwd(q, k.float(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention_cuda.fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    out, lse = attention_cuda.fwd(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        attention_cuda.bwd(q, k, v, out, lse.double(), g)
+    with pytest.raises(ValueError, match="head dim"):  # no fallback through the Function
+        attention.fused_attention(q[..., :32], k[..., :32], v[..., :32])
+
+
+@pytest.mark.cuda
+def test_vit_s8_serving_launches_the_attention_kernel(card):
+    """vit_s8 through Transcriber on the card, cut to 2 layers: each batch
+    launches attn_fwd once per layer and never attn_bwd."""
+    from guitar_tablature_classification_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(arch="vit_s8", vit_layers=2)
+    t = Transcriber(None, model_cfg=cfg, batch_size=8)
+    audio = _windows(t.cqt_cfg, 1, seed=4, device="cpu").numpy().repeat(5)
+    windows = (len(audio) - t.cqt_cfg.window_samples) // t.cqt_cfg.hop_samples + 1
+    before = dict(attention_cuda.launches)
+    out = t.transcribe(audio, keep_logits=True)
+    batches, lo = 0, 0  # the transcriber's bucketed batches
+    while lo < windows:
+        lo += min(t._bucket_for(windows - lo), windows - lo)
+        batches += 1
+    assert attention_cuda.launches["attn_fwd"] - before["attn_fwd"] == 2 * batches
+    assert attention_cuda.launches["attn_bwd"] == before["attn_bwd"]
+    assert out.logits.shape == (windows, 6, 19) and np.isfinite(out.logits).all()

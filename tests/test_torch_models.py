@@ -108,8 +108,6 @@ def test_save_torch_checkpoint_loads_strict(tmp_path, arch):
 @pytest.mark.parametrize("overrides, match", [
     (dict(arch="resnet18_native", stem_fusion="fused"), "B6"),
     (dict(arch="resnet18_native", bn_fusion="on"), "B7"),
-    (dict(arch="vit_s8"), "A12"),
-    (dict(arch="vit_native"), "A12"),
     (dict(arch="small_cnn"), "A11"),
 ])
 def test_unported_knobs_raise(overrides, match):
