@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 1. Set-up: the card's name and power limit, torch and CUDA versions, and
-   the build of the port's three kernel sources (``csrc/cqt.cu``,
-   ``csrc/stem.cu``, ``csrc/attention.cu``: one ``nvcc`` each, started
-   together).
+   the build of the port's five kernel sources (``csrc/cqt.cu``,
+   ``csrc/stem.cu``, ``csrc/attention.cu``, ``csrc/bn.cu``,
+   ``csrc/stem_native.cu``: one ``nvcc`` each, started together).
 2. Kernel against plain version (TF32 off): the fused CQT kernel at every
    precision tier on the training recipe (B=4096), the 3 s serving recipe,
    a reflect-padded recipe and a hop-1000 recipe, each against its plain
@@ -47,8 +47,28 @@
    through ``Transcriber`` at batch 128 (``attn_fwd`` +12 a batch).  (d)
    ``vit-small-data`` training, 5 steps: 19 tokens take the plain
    attention, so the attention counters stay at 0.
+10. (a) The fused trunk BatchNorm's column sums (``bn_sums``,
+   ``bn_grad_sums``) against their plain versions at the flagship's four
+   trunk shapes (B=256, bf16, NCHW and channels last), one fp32 shape and
+   one native trunk shape (B=4096); two runs identical; times at
+   [256, 64, 56, 56] beside the plain version, the bound and
+   ``torch.var_mean``.
+11. (a) The native stem kernels (``native_stats``, ``native_fwd``,
+   ``native_bwd``) against their plain versions on ``native-best``'s conv1
+   planes (ye, yo [4096, 24, 384]) at bf16 and fp32 and on a tie-rich
+   input; times beside the plain versions, the bounds and ``torch.var_mean``.
+12. (b) Path A: the flagship with ``bn_fusion="on"`` (B=256, 20 steps:
+   ``bn_sums`` and ``bn_grad_sums`` +19 a step beside the stem and CQT
+   kernels), the kernels-vs-plain step, a profile, the memory format each
+   trunk BatchNorm receives, and the trunk BatchNorms' device time a step,
+   fused against the plain ``FlaxBatchNorm`` at the same shapes.  (c) Path
+   B: ``native-best`` with ``stem_fusion="fused"`` and ``bn_fusion="on"``
+   (B=4096, 20 steps: each ``native_*`` +1 and each ``bn_*`` +19 a step),
+   the same checks.  (d) Path B served through ``Transcriber`` at batch 2048
+   (``native_fwd`` +1 a batch, no train-mode kernel), its frets against the
+   same weights served unfused.
 
-Then one JSON line of the six kernels' measurements, and the status line
+Then one JSON line of the eleven kernels' measurements, and the status line
 last.
 Any failed check raises, which exits non-zero.  Needs one CUDA card.
 """
@@ -100,10 +120,24 @@ SUM_REL_TOL = 1e-5
 #   itself with only the CQT plain as that reference.  bf16: loss to
 #   LOGIT_REL_TOL, gradient norm to 0.1, cosine 0.8, and bn1's running
 #   statistics (fp32 sums of the same conv output) to 1e-4.
+#   Where the CQT runs at the `default` tier (native-best), kernel and plain
+#   CQT differ by up to 2e-3 dB, not by summation order, so there the plain
+#   step keeps the CQT kernel (compare_step's plain_cqt=False) and the two
+#   steps differ by the model's kernels only.
 STEP_TOL = {
     "float32": {"loss": 1e-5, "grad_norm": 1e-4, "cosine": 0.9999, "bn1": 1e-5},
     "bfloat16": {"loss": LOGIT_REL_TOL, "grad_norm": 0.1, "cosine": 0.8, "bn1": 1e-4},
 }
+# - a trunk BatchNorm's running statistics after the kernels-vs-plain step:
+#   its input has passed conv1, the stem and a conv after the perturbations
+#   above, so at fp32 ten times bn1's limit, at bf16 that of the loss.
+TRUNK_BN_TOL = {"float32": 1e-4, "bfloat16": LOGIT_REL_TOL}
+# - path B served fused (native stem tail, bf16 BatchNorm affines) against
+#   the same weights served unfused (fp32 BatchNorm normalize), its
+#   BatchNorms moved off the identity: the share of frets that must agree.
+#   The first reading on the card was 0.9974 (PERF.md section 6); the
+#   limit allows four times its disagreement.
+FRET_AGREEMENT_MIN = 0.99
 LR = 5e-4  # bench.py's learning rate
 TRAIN_STEPS = 20
 
@@ -527,14 +561,20 @@ def stem_kernel_phase(torch, mods, batch: int = 256) -> dict:
     return {"rows": rows, "context": context}
 
 
+COUNTED = ("stem_cuda", "attention_cuda", "bn_cuda", "stem_native_cuda")
+
+
 def _counts(mods) -> dict:
-    return {"cqt_fused": mods["cqt_cuda"].launches, **mods["stem_cuda"].launches,
-            **mods["attention_cuda"].launches}
+    out = {"cqt_fused": mods["cqt_cuda"].launches}
+    for name in COUNTED:
+        out.update(mods[name].launches)
+    return out
 
 
 def _reset_counts(mods) -> None:
     mods["cqt_cuda"].launches = 0
-    for counts in (mods["stem_cuda"].launches, mods["attention_cuda"].launches):
+    for name in COUNTED:
+        counts = mods[name].launches
         for key in counts:
             counts[key] = 0
 
@@ -547,13 +587,15 @@ def _device_ms(evt) -> float:
 
 
 def compare_step(torch, mods, model_cfg, frontend, batch, *, optim_cfg, smoothing,
-                 plain_ctx, expect, bn=None) -> dict:
+                 plain_ctx, expect, bn=None, trunk_bn=None, plain_cqt=True) -> dict:
     """One train step with the kernels and one with the plain versions
-    (``plain_ctx(model)`` for the model's kernels, and the plain CQT), each
-    from the same freshly seeded state and batch; held to STEP_TOL for the
-    model's dtype.  ``expect``: each kernel's launches in the kernel step.
-    ``bn(model)``: a BatchNorm whose running statistics are held to
-    STEP_TOL's "bn1" entry (skipped when None)."""
+    (``plain_ctx(model)`` for the model's kernels, and the plain CQT unless
+    ``plain_cqt`` is False), each from the same freshly seeded state and
+    batch; held to STEP_TOL for the model's dtype.  ``expect``: each
+    kernel's launches in the kernel step.  ``bn(model)``: a BatchNorm whose
+    running statistics are held to STEP_TOL's "bn1" entry;
+    ``trunk_bn(model)``: one held to TRUNK_BN_TOL (each skipped when
+    None)."""
     preprocess = mods["make_preprocess"](model_cfg)
 
     def one_step(plain_kernels: bool, plain_cqt: bool):
@@ -566,9 +608,9 @@ def compare_step(torch, mods, model_cfg, frontend, batch, *, optim_cfg, smoothin
         with ctx:
             met = step(state, batch, torch.Generator(device="cuda").manual_seed(7), LR)
         torch.cuda.synchronize()
-        stats = () if bn is None else (bn(model).running_mean.clone(),
-                                       bn(model).running_var.clone())
-        out = (float(met["loss"]), float(met["grad_norm"]), state.opt_state.mu.clone(), *stats)
+        stats = {key: (f(model).running_mean.clone(), f(model).running_var.clone())
+                 for key, f in (("bn1", bn), ("trunk_bn", trunk_bn)) if f is not None}
+        out = (float(met["loss"]), float(met["grad_norm"]), state.opt_state.mu.clone(), stats)
         del state, model
         torch.cuda.empty_cache()
         return out
@@ -579,16 +621,18 @@ def compare_step(torch, mods, model_cfg, frontend, batch, *, optim_cfg, smoothin
             "grad_norm_rel": abs(a[1] - b[1]) / abs(b[1]),
             "adam_mu_cosine": float(torch.nn.functional.cosine_similarity(a[2], b[2], dim=0)),
         }
-        if bn is not None:
-            out["bn1_running_rel"] = max(float((x - y).abs().max() / y.abs().max())
-                                         for x, y in zip(a[3:], b[3:]))
+        for key in a[3]:
+            out[f"{key}_running_rel"] = max(float((x - y).abs().max() / y.abs().max())
+                                            for x, y in zip(a[3][key], b[3][key]))
         return out
 
     before = _counts(mods)
     kern = one_step(False, False)
     launches = {k: v - before[k] for k, v in _counts(mods).items()}
-    plain = one_step(True, True)
+    plain = one_step(True, plain_cqt)
     plain_launches = {k: v - before[k] - launches[k] for k, v in _counts(mods).items()}
+    if not plain_cqt:  # the plain step's CQT ran as the kernel
+        plain_launches["cqt_fused"] -= 1
     cmp = {
         "loss": [kern[0], plain[0]], "grad_norm": [kern[1], plain[1]],
         **agreement(kern, plain),
@@ -601,6 +645,7 @@ def compare_step(torch, mods, model_cfg, frontend, batch, *, optim_cfg, smoothin
     if (cmp["loss_rel"] > tol["loss"] or cmp["grad_norm_rel"] > tol["grad_norm"]
             or cmp["adam_mu_cosine"] < tol["cosine"]
             or cmp.get("bn1_running_rel", 0.0) > tol["bn1"]
+            or cmp.get("trunk_bn_running_rel", 0.0) > TRUNK_BN_TOL[model_cfg.dtype]
             or launches != {k: expect.get(k, 0) for k in launches}
             or any(plain_launches.values())):
         raise AssertionError(
@@ -905,14 +950,16 @@ def vit_serving_phase(torch, mods, batch: int = 128, n_batches: int = 8) -> dict
 
 def train_phase(torch, mods, name: str, model_cfg, cqt_cfg, batch: int, *,
                 expect: dict, optim_cfg=None, smoothing: float = 0.05,
-                compare: dict | None = None, profile: str | None = None,
-                steps: int = TRAIN_STEPS) -> dict:
+                compare: dict | None = None, profile: dict | None = None,
+                trunk_bn: bool = False, steps: int = TRAIN_STEPS) -> dict:
     """(b)/(c) ``steps`` train steps on 4 rotating batches of seeded audio
     after a warm-up; counters set to 0 just before the timed run and read
     just after, each held to ``expect`` launches per step (0 where not
     named).  ``compare``: keyword arguments of :func:`compare_step`.
-    ``profile``: the kernel-name fragment whose share of device time the
-    profiler table reports."""
+    ``profile``: groups of kernel-name fragments ({group: (fragment, ...)})
+    whose shares of device time the profiler table reports.  ``trunk_bn``:
+    record the memory format of each trunk BatchNorm's input in one step
+    and time those BatchNorms (:func:`trunk_bn_cost`)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     optim_cfg = optim_cfg or mods["OptimConfig"]()
@@ -930,12 +977,16 @@ def train_phase(torch, mods, name: str, model_cfg, cqt_cfg, batch: int, *,
         return {"audio": audio[i % 4], "labels": labels[i % 4]}
 
     for i in range(2):  # warm-up: cuDNN plans, kernel loads
-        step(state, batch_i(i), gen, LR)
+        with record_bn_inputs(torch, mods, model) if trunk_bn and i else \
+                contextlib.nullcontext() as bn_record:
+            step(state, batch_i(i), gen, LR)
     torch.cuda.synchronize()
     _reset_counts(mods)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
+    t_host = time.perf_counter()
     losses = [step(state, batch_i(i), gen, LR)["loss"] for i in range(steps)]
+    t_host = time.perf_counter() - t_host  # the host's time to enqueue the steps
     end.record()
     torch.cuda.synchronize()
     counts = _counts(mods)
@@ -943,6 +994,7 @@ def train_phase(torch, mods, name: str, model_cfg, cqt_cfg, batch: int, *,
     losses = torch.stack(losses)
     out = {
         "batch": batch, "steps": steps, "step_ms": elapsed / steps,
+        "host_enqueue_ms_per_step": 1e3 * t_host / steps,
         "segments_per_s": 1e3 * batch * steps / elapsed,
         "launches": counts, "first_loss": float(losses[0]),
         "last_loss": float(losses[-1]), "all_finite": bool(torch.isfinite(losses).all()),
@@ -973,15 +1025,20 @@ def train_phase(torch, mods, name: str, model_cfg, cqt_cfg, batch: int, *,
         for e in top:
             print(f"  {_device_ms(e):9.3f} ms {100 * _device_ms(e) / total:5.1f} %  "
                   f"x{e.count:<4d} {e.key[:110]}", flush=True)
-        mine = sum(_device_ms(e) for e in events if profile in e.key
-                   or (profile == "stem_" and "reduce_partials" in e.key))
+        groups = {}
+        for group, fragments in profile.items():
+            mine = sum(_device_ms(e) for e in events if any(f in e.key for f in fragments))
+            groups[group] = {"kernels": fragments, "ms_per_step": mine / 3,
+                             "share_of_device_time": mine / total}
         out["profile"] = {
-            "device_ms_per_step": total / 3, "kernels_ms_per_step": mine / 3,
-            "kernels": profile, "device_ops_per_step": sum(e.count for e in events) / 3,
-            "kernels_share_of_device_time": mine / total,
+            "device_ms_per_step": total / 3, "groups": groups,
+            "device_ops_per_step": sum(e.count for e in events) / 3,
             # device time of a profiled step over the timed run's step time
             "device_busy_share": total / 3 / out["step_ms"],
         }
+    if trunk_bn:
+        out["trunk_bn"] = trunk_bn_cost(torch, mods, bn_record,
+                                        out.get("profile", {}).get("device_ms_per_step"))
     del state, model
     torch.cuda.empty_cache()
     if compare:  # one step with the kernels, one with the plain versions
@@ -997,6 +1054,384 @@ def train_phase(torch, mods, name: str, model_cfg, cqt_cfg, batch: int, *,
     return out
 
 
+@contextlib.contextmanager
+def plain_trunk_and_stems(mods):
+    """The fused BatchNorm's, the 224^2 stem tail's and the native stem
+    tail's kernels all sent to their plain versions while the block runs."""
+    with plain_bn(mods["bn_fused"]), plain_stem(mods["stem_tail"]), \
+            plain_native_stem(mods["stem_native"]):
+        yield
+
+
+@contextlib.contextmanager
+def plain_bn(bn_fused):
+    """Send the fused BatchNorm's reductions to their plain versions while
+    the block runs (for the kernel-against-plain comparison only)."""
+    saved = bn_fused.sums, bn_fused.grad_sums
+    bn_fused.sums, bn_fused.grad_sums = bn_fused.sums_plain, bn_fused.grad_sums_plain
+    try:
+        yield
+    finally:
+        bn_fused.sums, bn_fused.grad_sums = saved
+
+
+@contextlib.contextmanager
+def plain_native_stem(stem_native):
+    """The same for the native stem tail's three kernels."""
+    saved = stem_native.stats, stem_native.fwd, stem_native.bwd
+    stem_native.stats = stem_native.stats_plain
+    stem_native.fwd, stem_native.bwd = stem_native.fwd_plain, stem_native.bwd_plain
+    try:
+        yield
+    finally:
+        stem_native.stats, stem_native.fwd, stem_native.bwd = saved
+
+
+def _layout(t) -> str:
+    import torch
+
+    nchw = t.is_contiguous()
+    last = t.ndim == 4 and t.is_contiguous(memory_format=torch.channels_last)
+    return "both" if nchw and last else "nchw" if nchw else "channels_last" if last else "strided"
+
+
+@contextlib.contextmanager
+def record_bn_inputs(torch, mods, model):
+    """While the block runs (one train step): the (shape, dtype, layout) of
+    every FusedBatchNorm input, and how many backward passes received a
+    gradient whose strides differ from the input's (the backward then copies
+    it into the input's layout)."""
+    rec = {"calls": [], "grad_layout_copies": 0}
+
+    def on_forward(_m, args, out):
+        x = args[0]
+        rec["calls"].append((tuple(x.shape), x.dtype, _layout(x)))
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.__setitem__(
+                "grad_layout_copies", rec["grad_layout_copies"] + (g.stride() != x.stride())))
+
+    hooks = [m.register_forward_hook(on_forward)
+             for m in model.modules() if isinstance(m, mods["FusedBatchNorm"])]
+    try:
+        yield rec
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def trunk_bn_cost(torch, mods, rec, device_ms_per_step) -> dict:
+    """One step's trunk BatchNorms, forward and backward, run alone at their
+    recorded shapes and memory formats: FusedBatchNorm (the bn_sums /
+    bn_grad_sums kernels and the plain PyTorch apply and dy) against
+    FlaxBatchNorm (plain PyTorch) on the same inputs.  Device time from the
+    profiler (the sum of the device ops' times), and the wall time of the
+    same pass between CUDA events, which also holds the host's gaps."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    calls = rec["calls"]
+    inputs = []
+    for shape, dtype, layout in calls:
+        fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+        x = torch.randn(shape, device="cuda").to(dtype).contiguous(memory_format=fmt)
+        inputs.append((x.requires_grad_(True), torch.randn_like(x)))
+    out = {"calls_per_step": len(calls),
+           "input_layouts": dict(Counter(layout for _, _, layout in calls)),
+           "grad_layout_copies_per_step": rec["grad_layout_copies"]}
+    for name, cls in (("fused", mods["FusedBatchNorm"]), ("plain", mods["FlaxBatchNorm"])):
+        bns = [cls(x.shape[1]).cuda().train() for x, _ in inputs]
+
+        def one_pass():
+            for m, (x, g) in zip(bns, inputs):
+                torch.autograd.grad(m(x), x, g)
+
+        out[f"{name}_wall_ms_per_step"] = _sync_ms(one_pass, 3)
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            one_pass()
+            torch.cuda.synchronize()
+        out[f"{name}_device_ms_per_step"] = sum(
+            _device_ms(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    del inputs
+    torch.cuda.empty_cache()
+    if device_ms_per_step:
+        out["fused_share_of_step_device_time"] = out["fused_device_ms_per_step"] / device_ms_per_step
+    print("trunk BatchNorms of one step, each timed alone (forward + backward): "
+          + json.dumps(out) + " (PERF.md run E: trunk BatchNorm took 49 % of the flagship "
+          "step's device time under FlaxBatchNorm)", flush=True)
+    return out
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+def bn_kernel_phase(torch, mods) -> dict:
+    """(a) bn_sums and bn_grad_sums against their plain versions: the
+    flagship's four trunk shapes at B=256 (bf16, NCHW and channels last),
+    one fp32 shape and one native trunk shape at B=4096; two runs identical.
+    Rows at [256, 64, 56, 56] bf16 channels last (the flagship's layer1, as
+    the fused stem hands it over)."""
+    bn_cuda, bn_fused = mods["bn_cuda"], mods["bn_fused"]
+    cases = [(shape, torch.bfloat16, cl) for shape in
+             ((256, 64, 56, 56), (256, 128, 28, 28), (256, 256, 14, 14), (256, 512, 7, 7))
+             for cl in (False, True)]
+    cases += [((256, 64, 56, 56), torch.float32, True), ((4096, 64, 24, 3), torch.bfloat16, False),
+              ((4096, 64, 24, 3), torch.bfloat16, True)]
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    errs, worst = {"bn_sums": 0.0, "bn_grad_sums": 0.0}, 0.0
+    for shape, dtype, cl in cases:
+        fmt = torch.channels_last if cl else torch.contiguous_format
+        y, g = ((torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5)
+                .to(dtype).contiguous(memory_format=fmt) for _ in range(2))
+        got, got_g = bn_cuda.sums(y), bn_cuda.grad_sums(y, g)
+        want, want_g = bn_fused.sums_plain(y), bn_fused.grad_sums_plain(y, g)
+        again = torch.equal(bn_cuda.sums(y), got) and torch.equal(bn_cuda.grad_sums(y, g), got_g)
+        torch.cuda.synchronize()
+        r = {"sums_rel_err": _rel(got, want), "grad_sums_rel_err": _rel(got_g, want_g),
+             "deterministic": again}
+        print(f"bn sums vs plain {list(shape)} {str(dtype)[6:]} "
+              f"{'channels_last' if cl else 'nchw'}: " + json.dumps(r), flush=True)
+        if max(r["sums_rel_err"], r["grad_sums_rel_err"]) > SUM_REL_TOL or not again:
+            raise AssertionError(f"bn sums kernels disagree at {shape} {dtype}: {r}")
+        worst = max(worst, r["sums_rel_err"], r["grad_sums_rel_err"])
+        if shape == (256, 64, 56, 56) and dtype == torch.bfloat16 and cl:
+            errs = {"bn_sums": float((got - want).abs().max()),
+                    "bn_grad_sums": float((got_g - want_g).abs().max())}
+            row_inputs = (y, g)
+        else:
+            del y, g
+        del want, want_g
+        torch.cuda.empty_cache()
+
+    y, g = row_inputs
+    ms = {"bn_sums": (_sync_ms(lambda: bn_cuda.sums(y), 20),
+                      _sync_ms(lambda: bn_fused.sums_plain(y), 5)),
+          "bn_grad_sums": (_sync_ms(lambda: bn_cuda.grad_sums(y, g), 20),
+                           _sync_ms(lambda: bn_fused.grad_sums_plain(y, g), 5))}
+    # batch_norm_backward_reduce (SyncBatchNorm's reduction) with mean 0 and
+    # invstd 1 returns (sum g, sum g*(y - 0)): the same two sums
+    c = y.shape[1]
+    mean, invstd = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+
+    def reduce():
+        return torch.batch_norm_backward_reduce(g, y, mean, invstd, None, True, False, False)
+
+    library = {"bn_sums": _sync_ms(lambda: torch.var_mean(y, dim=(0, 2, 3), correction=0), 10),
+               "bn_grad_sums": _sync_ms(reduce, 10)}
+    lib_g = torch.stack(reduce()[:2])
+    if _rel(lib_g, bn_fused.grad_sums_plain(y, g)) > SUM_REL_TOL:
+        raise AssertionError("batch_norm_backward_reduce does not compute bn_grad_sums' sums")
+    n = y.numel()
+    bytes_ = {"bn_sums": y.element_size() * n + 8 * c,
+              "bn_grad_sums": 2 * y.element_size() * n + 8 * c}
+    ops = {"bn_sums": 3 * n, "bn_grad_sums": 3 * n}  # fp32 products and adds
+    rows = {}
+    for name in ("bn_sums", "bn_grad_sums"):
+        bytes_s, ops_s = bytes_[name] / PEAK_BYTES_PER_S, ops[name] / PEAK_FLOPS["fp32"]
+        rows[name] = {
+            "max_abs_err": errs[name], "ms": ms[name][0], "plain_ms": ms[name][1],
+            "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "library_ms": library[name], "bytes": bytes_[name],
+        }
+    print("bn kernel rows, [256, 64, 56, 56] bf16 channels last: " + json.dumps(rows), flush=True)
+    del y, g, row_inputs, lib_g
+    torch.cuda.empty_cache()
+    return {"rows": rows, "worst_rel_err": worst}
+
+
+def native_stem_kernel_phase(torch, mods, batch: int = 4096) -> dict:
+    """(a) native_stats, native_fwd and native_bwd against their plain
+    versions on native-best's conv1 planes (ye, yo [4096, 24, 384] from the
+    recipe's CQT of seeded audio) at bf16 and fp32, and on a tie-rich bf16
+    input (values on a 1/4 grid); rows at bf16 with times, bounds and
+    yardsticks."""
+    sn, snc = mods["stem_native"], mods["stem_native_cuda"]
+    F = torch.nn.functional
+    recipe = mods["RECIPES"]["native-best"]()
+    cfg = recipe.cqt
+    model_cfg = dataclasses.replace(recipe.model, stem_fusion="fused", bn_fusion="on")
+    model = mods["build_model"](model_cfg, generator=torch.Generator().manual_seed(0)).cuda()
+    x = tone_windows(batch, cfg.window_samples, cfg.sample_rate, seed=22)
+    with torch.no_grad():
+        feats = mods["make_preprocess"](model_cfg)(mods["CQTFrontend"](cfg)(x))  # [B, 96, 9, 1]
+    del x
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    c, wreal = 64, 5
+    scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    errs, checks = {}, {}
+    inputs = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32), ("bf16_ties", None)):
+        if dtype is None:
+            shape = inputs["bf16"][0].shape
+            ye, yo = ((torch.randn(shape, generator=gen, device="cuda") * 4).round() / 4
+                      for _ in range(2))
+            ye, yo = ye.to(torch.bfloat16), yo.to(torch.bfloat16)
+        else:
+            with torch.no_grad():
+                ye, yo = sn.conv1_parity_native(feats, model.resnet.conv1.weight, dtype=dtype)
+        b, h2, lanes = ye.shape
+        mean, var = sn.native_batch_stats(ye, yo, c, wreal)
+        se, oe, _ = mods["stem_tail"].lane_affine(mean, var, scale, bias, 1e-5)
+        gout = torch.randn((b, h2, 3, c), generator=gen, device="cuda").to(ye.dtype)
+        sums, sums_p = snc.stats(ye, yo), sn.stats_plain(ye, yo)
+        pooled, pooled_p = snc.fwd(ye, yo, se, oe, wreal), sn.fwd_plain(ye, yo, se, oe, wreal)
+        dye, dyo, sdz, sdzy = snc.bwd(ye, yo, gout, se, oe, wreal)
+        pdye, pdyo, psdz, psdzy = sn.bwd_plain(ye, yo, gout, se, oe, wreal)
+        again = snc.bwd(ye, yo, gout, se, oe, wreal)
+        torch.cuda.synchronize()
+        r = {
+            "stats_rel_err": _rel(sums, sums_p),
+            "fwd_equal": bool(torch.equal(pooled, pooled_p)),
+            "bwd_dy_equal": bool(torch.equal(dye, pdye) and torch.equal(dyo, pdyo)),
+            "bwd_sum_dz_rel_err": _rel(sdz, psdz), "bwd_sum_dzy_rel_err": _rel(sdzy, psdzy),
+            "deterministic": bool(torch.equal(again[2], sdz) and torch.equal(again[3], sdzy)
+                                  and torch.equal(snc.stats(ye, yo), sums)),
+        }
+        checks[label] = r
+        print(f"native stem kernels vs plain, {label} ye/yo {list(ye.shape)}: "
+              + json.dumps(r), flush=True)
+        if not (r["fwd_equal"] and r["bwd_dy_equal"] and r["deterministic"]
+                and max(r["stats_rel_err"], r["bwd_sum_dz_rel_err"],
+                        r["bwd_sum_dzy_rel_err"]) <= SUM_REL_TOL):
+            raise AssertionError(f"native stem kernels disagree ({label}): {r}")
+        if label == "bf16":
+            errs = {"native_stats": float((sums - sums_p).abs().max()),
+                    "native_fwd": float((pooled.float() - pooled_p.float()).abs().max()),
+                    "native_bwd": max(float((dye.float() - pdye.float()).abs().max()),
+                                      float((dyo.float() - pdyo.float()).abs().max()),
+                                      float((sdz - psdz).abs().max()),
+                                      float((sdzy - psdzy).abs().max()))}
+            inputs["bf16"] = (ye, yo, se, oe, gout)
+        del sums_p, pooled_p, pdye, pdyo, again
+        torch.cuda.empty_cache()
+
+    ye, yo, se, oe, gout = inputs["bf16"]
+    b, h2, lanes = ye.shape
+    wp = lanes // c
+    ms = {
+        "native_stats": (_sync_ms(lambda: snc.stats(ye, yo), 20),
+                         _sync_ms(lambda: sn.stats_plain(ye, yo), 5)),
+        "native_fwd": (_sync_ms(lambda: snc.fwd(ye, yo, se, oe, wreal), 20),
+                       _sync_ms(lambda: sn.fwd_plain(ye, yo, se, oe, wreal), 3)),
+        "native_bwd": (_sync_ms(lambda: snc.bwd(ye, yo, gout, se, oe, wreal), 20),
+                       _sync_ms(lambda: sn.bwd_plain(ye, yo, gout, se, oe, wreal), 3)),
+    }
+    # yardstick of the stats: torch.var_mean of the same values per channel,
+    # pad columns left out, over one tensor holding both planes
+    both = torch.cat([ye, yo]).view(2 * b * h2, wp, c)
+    library = {"native_stats": _sync_ms(
+        lambda: torch.var_mean(both[:, :wreal], dim=(0, 1), correction=0), 10),
+        "native_fwd": None, "native_bwd": None}
+    # context only: batch_norm -> relu -> max_pool2d on the NCHW conv output
+    y4 = torch.stack([ye.view(b, h2, wp, c), yo.view(b, h2, wp, c)], dim=2)
+    xin = y4.view(b, 2 * h2, wp, c)[:, :, :wreal].permute(0, 3, 1, 2).contiguous()
+    xin.requires_grad_(True)
+
+    def composed():
+        z = F.batch_norm(xin, None, None, scale, bias, True, 0.0, 1e-5)
+        return F.max_pool2d(F.relu(z), 3, 2, 1)
+
+    with torch.no_grad():
+        comp_fwd = _sync_ms(composed, 10)
+    gcomp = gout.permute(0, 3, 1, 2)
+    comp_fwd_bwd = _sync_ms(lambda: torch.autograd.grad(composed(), xin, gcomp), 10)
+    del both, y4, xin
+    el = ye.element_size()
+    # the functions need only the real columns of ye and yo (the pad column
+    # is masked out); dye and dyo are written at full width
+    n_y, n_real, n_pool = 2 * ye.numel(), 2 * b * h2 * wreal * c, gout.numel()
+    bytes_ = {"native_stats": el * n_real + 8 * wreal * c,
+              "native_fwd": el * (n_real + n_pool) + 8 * c,
+              "native_bwd": el * (n_real + n_pool + n_y) + 8 * c + 8 * wreal * c}
+    ops = {"native_stats": 3 * n_real, "native_fwd": 3 * n_real + 8 * n_pool,
+           "native_bwd": 7 * n_real + 17 * n_pool}  # as the stem rows count them
+    rows = {}
+    for name in ("native_stats", "native_fwd", "native_bwd"):
+        bytes_s, ops_s = bytes_[name] / PEAK_BYTES_PER_S, ops[name] / PEAK_FLOPS["fp32"]
+        rows[name] = {
+            "max_abs_err": errs[name], "ms": ms[name][0], "plain_ms": ms[name][1],
+            "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "library_ms": library[name], "bytes": bytes_[name],
+        }
+    context = {"batch_norm_relu_maxpool_fwd_ms": comp_fwd,
+               "batch_norm_relu_maxpool_fwd_bwd_ms": comp_fwd_bwd,
+               "var_mean_ms": library["native_stats"]}
+    print("native stem kernel rows, bf16 ye/yo [4096, 24, 384]: " + json.dumps(rows), flush=True)
+    print("native stem yardsticks (composition, context only): " + json.dumps(context),
+          flush=True)
+    del inputs, ye, yo, gout, feats, model
+    torch.cuda.empty_cache()
+    return {"rows": rows, "checks": checks, "context": context}
+
+
+def native_fused_serving_phase(torch, mods, batch: int = 2048, n_batches: int = 4) -> dict:
+    """(d) native-best with stem_fusion="fused", bn_fusion="on" served
+    through Transcriber at batch 2048: native_fwd once a batch, no other
+    stem or BatchNorm kernel; windows/s; frets against the same weights
+    served unfused."""
+    recipe = mods["RECIPES"]["native-best"]()
+    cfg = recipe.cqt
+    fused_cfg = dataclasses.replace(recipe.model, stem_fusion="fused", bn_fusion="on")
+    t = mods["Transcriber"](None, model_cfg=fused_cfg, cqt_cfg=cfg, batch_size=batch,
+                            device="cuda", seed=0)
+    plain = mods["Transcriber"](None, model_cfg=recipe.model, cqt_cfg=cfg, batch_size=batch,
+                                device="cuda", seed=0)
+    # at init every BatchNorm is the identity in bf16 (rsqrt(1 + 1e-5)
+    # rounds to 1), which would make the comparison vacuous: move their
+    # parameters and running statistics off it, as the CPU tests do
+    gen = torch.Generator().manual_seed(25)
+    with torch.no_grad():
+        for m in t.model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                c = m.num_features
+                m.weight.mul_((0.5 + torch.rand(c, generator=gen)).cuda())
+                m.bias.add_((0.1 * torch.randn(c, generator=gen)).cuda())
+                m.running_mean.add_((0.1 * torch.randn(c, generator=gen)).cuda())
+                m.running_var.mul_((0.5 + torch.rand(c, generator=gen)).cuda())
+    plain.model.load_state_dict(t.model.state_dict(), strict=True)
+    windows = tone_windows(batch * n_batches, cfg.window_samples, cfg.sample_rate,
+                           seed=24).cpu().numpy()
+    t.predict_windows(windows[:batch])  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts(mods)
+    logits = t.predict_windows(windows)
+    torch.cuda.synchronize()
+    counts = _counts(mods)
+    rates = []
+    for _ in range(2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        t.predict_windows(windows)
+        end.record()
+        torch.cuda.synchronize()
+        rates.append(1e3 * len(windows) / start.elapsed_time(end))
+    want_logits = plain.predict_windows(windows)
+    agree = float((logits.argmax(-1) == want_logits.argmax(-1)).mean())
+    out = {"batch": batch, "windows": len(windows), "windows_per_s": rates, "launches": counts,
+           "fret_agreement_with_unfused": agree,
+           "logit_max_abs_diff": float(np.abs(logits - want_logits).max()),
+           "logit_scale": float(np.abs(want_logits).max())}
+    print("serving native-best, stem_fusion=fused bn_fusion=on: " + json.dumps(out), flush=True)
+    want = {key: 0 for key in counts}
+    want.update(cqt_fused=n_batches, native_fwd=n_batches)
+    if counts != want:
+        raise AssertionError(f"fused native serving launches {counts}, expected {want}")
+    # bf16 model tolerance of the repo (tests/test_torch_models.py): 5e-2 of
+    # the logits' scale
+    if (not np.isfinite(logits).all() or agree < FRET_AGREEMENT_MIN
+            or out["logit_max_abs_diff"] > 5e-2 * out["logit_scale"]):
+        raise AssertionError(f"fused native serving disagrees with unfused: {out}")
+    del t, plain
+    torch.cuda.empty_cache()
+    return out
+
+
 def port_modules() -> dict:
     """The port's modules and entry points this script drives."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1008,12 +1443,20 @@ def port_modules() -> dict:
     )
     from guitar_tablature_classification_tpu_torch.infer import Transcriber, cli
     from guitar_tablature_classification_tpu_torch.models import build_model
+    from guitar_tablature_classification_tpu_torch.models.resnet import (
+        FlaxBatchNorm,
+        FusedBatchNorm,
+    )
     from guitar_tablature_classification_tpu_torch.ops import (
         attention,
         attention_cuda,
+        bn_cuda,
+        bn_fused,
         cqt_cuda,
         stem_cuda,
         stem_fusion,
+        stem_native,
+        stem_native_cuda,
         stem_tail,
     )
     from guitar_tablature_classification_tpu_torch.ops.cqt import CQTFrontend
@@ -1031,6 +1474,9 @@ def port_modules() -> dict:
         build_model=build_model, cqt_cuda=cqt_cuda, stem_cuda=stem_cuda,
         attention=attention, attention_cuda=attention_cuda,
         stem_fusion=stem_fusion, stem_tail=stem_tail, CQTFrontend=CQTFrontend,
+        bn_cuda=bn_cuda, bn_fused=bn_fused, stem_native=stem_native,
+        stem_native_cuda=stem_native_cuda, FlaxBatchNorm=FlaxBatchNorm,
+        FusedBatchNorm=FusedBatchNorm,
         frame_track=frame_track, db_to_unit=db_to_unit,
         create_train_state=create_train_state, make_preprocess=make_preprocess,
         make_train_step=make_train_step,
@@ -1059,7 +1505,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = (("cqt_fused", cqt_cuda), ("stem", stem_cuda),
-               ("attention", mods["attention_cuda"]))
+               ("attention", mods["attention_cuda"]), ("bn", mods["bn_cuda"]),
+               ("stem_native", mods["stem_native_cuda"]))
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:  # one nvcc per source
         builds = {name: pool.submit(mod.build) for name, mod in sources}
         builds = {name: fut.result() for name, fut in builds.items()}
@@ -1088,7 +1535,7 @@ def main() -> int:
     flagship = timed(
         "flagship_train", train_phase, torch, mods, "flagship resnet18+fused",
         ModelConfig(arch="resnet18", stem_fusion="fused"), CQTConfig(), 256,
-        expect=one_each, profile="stem_",
+        expect=one_each, profile={"stem": ("stem_", "reduce_partials")},
         compare=dict(plain_ctx=lambda model: plain_stem(mods["stem_tail"]),
                      bn=lambda model: model.resnet.bn1),
     )
@@ -1107,7 +1554,7 @@ def main() -> int:
         "vit_s8_train", train_phase, torch, mods, "vit_s8 (vit-reference)",
         vit_recipe.model, vit_recipe.cqt, vit_recipe.data.batch_size,
         expect=vit_expect, optim_cfg=vit_recipe.optim,
-        smoothing=vit_recipe.optim.label_smoothing, profile="attn_",
+        smoothing=vit_recipe.optim.label_smoothing, profile={"attention": ("attn_",)},
         compare=dict(plain_ctx=lambda model: plain_attention(model, mods["attention"])),
     )
     timed("vit_s8_serving", vit_serving_phase, torch, mods)
@@ -1115,6 +1562,29 @@ def main() -> int:
     timed("vit_small_data_train", train_phase, torch, mods, "vit_native (vit-small-data)",
           small.model, small.cqt, small.data.batch_size, expect={"cqt_fused": 1},
           optim_cfg=small.optim, smoothing=small.optim.label_smoothing, steps=5)
+
+    bn = timed("bn_kernels", bn_kernel_phase, torch, mods)
+    native_stem = timed("native_stem_kernels", native_stem_kernel_phase, torch, mods)
+    sums_kernels = ("col_sums", "fold_partials")  # csrc/bn.cu
+    trunk = {"bn_sums": 19, "bn_grad_sums": 19}  # 20 BatchNorms, bn1 in the fused stem
+    plain_all = dict(plain_ctx=lambda model: plain_trunk_and_stems(mods),
+                     bn=lambda model: model.resnet.bn1,
+                     trunk_bn=lambda model: model.resnet.layer1[0].bn1)
+    path_a = timed(
+        "path_a_train", train_phase, torch, mods, "path A: resnet18+fused+bn_fusion",
+        ModelConfig(arch="resnet18", stem_fusion="fused", bn_fusion="on"), CQTConfig(), 256,
+        expect={**one_each, **trunk}, trunk_bn=True, compare=plain_all,
+        profile={"column_sums": sums_kernels, "stem": ("stem_", "reduce_partials")},
+    )
+    native_fused = dataclasses.replace(native_recipe.model, stem_fusion="fused", bn_fusion="on")
+    path_b = timed(
+        "path_b_train", train_phase, torch, mods, "path B: native-best+fused+bn_fusion",
+        native_fused, native_recipe.cqt, 4096,
+        expect={"cqt_fused": 1, "native_stats": 1, "native_fwd": 1, "native_bwd": 1, **trunk},
+        trunk_bn=True, compare={**plain_all, "plain_cqt": False},
+        profile={"column_sums": sums_kernels, "native_stem": ("native_", "reduce_parts")},
+    )
+    timed("path_b_serving", native_fused_serving_phase, torch, mods)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernel_sources = {  # name -> (source, TPU kernel, rows, the main path's run)
@@ -1124,6 +1594,11 @@ def main() -> int:
         "stem_bwd": ("stem.cu", "stem_pallas.py:262", stem["rows"], flagship),
         "attn_fwd": ("attention.cu", "attention_pallas.py:70", attn["rows"], vit),
         "attn_bwd": ("attention.cu", "attention_pallas.py:138", attn["rows"], vit),
+        "bn_sums": ("bn.cu", "bn_pallas.py:71", bn["rows"], path_a),
+        "bn_grad_sums": ("bn.cu", "bn_pallas.py:109", bn["rows"], path_a),
+        "native_stats": ("bn.cu", "stem_native.py:347", native_stem["rows"], path_b),
+        "native_fwd": ("stem_native.cu", "stem_native.py:232", native_stem["rows"], path_b),
+        "native_bwd": ("stem_native.cu", "stem_native.py:280", native_stem["rows"], path_b),
     }
     kernels = [{
         "name": name,

@@ -53,108 +53,15 @@
 //   inside the kernel) and a second pass, one CTA per (statistic, channel),
 //   adds them in a fixed order.  Runs are deterministic.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "vec_io.cuh"
 
 namespace {
 
+using vec_io::bn_relu;
+using vec_io::Io;
+using vec_io::max_nan;
+
 constexpr int kThreads = 256;  // threads per CTA (ops/stem_cuda.THREADS)
-
-// --------------------------------------------------------------- vector io
-
-template <typename T>
-struct Io;
-
-template <>
-struct Io<float> {
-  template <int V>
-  static __device__ __forceinline__ void load(const float* p, float (&v)[V]) {
-    if constexpr (V % 4 == 0) {
-#pragma unroll
-      for (int k = 0; k < V / 4; ++k) {
-        const float4 q = reinterpret_cast<const float4*>(p)[k];
-        v[4 * k] = q.x;
-        v[4 * k + 1] = q.y;
-        v[4 * k + 2] = q.z;
-        v[4 * k + 3] = q.w;
-      }
-    } else {
-      static_assert(V == 2, "vector width");
-      const float2 q = *reinterpret_cast<const float2*>(p);
-      v[0] = q.x;
-      v[1] = q.y;
-    }
-  }
-  template <int V>
-  static __device__ __forceinline__ void store(float* p, const float (&v)[V]) {
-    if constexpr (V % 4 == 0) {
-#pragma unroll
-      for (int k = 0; k < V / 4; ++k) {
-        reinterpret_cast<float4*>(p)[k] =
-            make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
-      }
-    } else {
-      static_assert(V == 2, "vector width");
-      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-    }
-  }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  template <int V>
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&v)[V]) {
-    if constexpr (V % 8 == 0) {
-#pragma unroll
-      for (int k = 0; k < V / 8; ++k) {
-        const uint4 q = reinterpret_cast<const uint4*>(p)[k];
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h[e]);
-          v[8 * k + 2 * e] = f.x;
-          v[8 * k + 2 * e + 1] = f.y;
-        }
-      }
-    } else {
-      static_assert(V == 2, "vector width");
-      const float2 f =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-      v[0] = f.x;
-      v[1] = f.y;
-    }
-  }
-  template <int V>
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float (&v)[V]) {
-    if constexpr (V % 8 == 0) {
-#pragma unroll
-      for (int k = 0; k < V / 8; ++k) {
-        uint4 q;
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          h[e] = __floats2bfloat162_rn(v[8 * k + 2 * e], v[8 * k + 2 * e + 1]);
-        }
-        reinterpret_cast<uint4*>(p)[k] = q;
-      }
-    } else {
-      static_assert(V == 2, "vector width");
-      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-    }
-  }
-};
-
-// jnp.maximum / torch.maximum: NaN in either operand gives NaN.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ float bn_relu(float y, float se, float oe) {
-  return max_nan(__fadd_rn(__fmul_rn(y, se), oe), 0.0f);
-}
 
 // Offset of (b, rp, h, cp, w, c) in the quadrant layout.
 __device__ __forceinline__ long long quad_offset(int b, int rp, int h, int cp,
@@ -486,7 +393,8 @@ constexpr int kVecStats = 8;  // ops/stem_cuda.VEC_STATS
 constexpr int kVecFwd = 8;    // ops/stem_cuda.VEC_FWD
 constexpr int kVecBwd = 2;    // ops/stem_cuda.VEC_BWD
 
-enum Dtype { kFloat32 = 0, kBfloat16 = 1 };
+using vec_io::kBfloat16;
+using vec_io::kFloat32;
 
 bool shape_ok(int C, int V) {
   return C > 0 && C % V == 0 && kThreads % (C / V) == 0;

@@ -15,3 +15,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a kernel wrapper sends ``t`` to its CUDA kernel (True) or to
+    its plain PyTorch version (False, a CPU tensor); any other device
+    raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        return True
+    raise ValueError(f"unsupported device {t.device}")

@@ -22,6 +22,17 @@ tail (:mod:`..ops.stem_tail`, the Hopper kernels of ``csrc/stem.cu`` on the
 card).  The fused stem keeps the keys ``conv1.weight`` and ``bn1.*``, so a
 checkpoint loads into either stem.
 
+``fused_native_stem`` is ``resnet18_native`` with ``stem_fusion="fused"``
+(``models/resnet.py:315-369,453-473`` of the JAX package): conv1 runs as two
+stride-(4, 2) convolutions giving the row-parity planes of its output, and
+bn1 + ReLU + max-pool as the native fused stem tail (:mod:`..ops.stem_native`,
+the Hopper kernels of ``csrc/stem_native.cu`` and ``csrc/bn.cu`` on the
+card), with the same keys.  ``fused_bn`` is ``bn_fusion="on"``: every trunk
+BatchNorm, and bn1 where no fused stem tail handles it, is a
+:class:`FusedBatchNorm` (``models/resnet.py:25-80`` of the JAX package),
+whose train-mode reductions run as the column-sum kernels of
+``csrc/bn.cu``; the state dict is unchanged.
+
 The JAX model's ``w1_conv`` modes only change how a 3x3 conv on a width-1
 feature map is contracted (its side columns multiply zero padding), never
 its output; here every mode runs the plain 3x3 convolution.
@@ -33,7 +44,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bn_fused import batch_norm_eval, batch_norm_train
 from ..ops.stem_fusion import precomposed_conv1_quadrant
+from ..ops.stem_native import (
+    conv1_parity_native,
+    native_bn_relu_pool,
+    native_bn_relu_pool_train,
+    stem_geometry,
+)
 from ..ops.stem_tail import bn_relu_pool, bn_relu_pool_train
 
 
@@ -148,24 +166,48 @@ class FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
 
-def _bn(channels: int) -> FlaxBatchNorm:
-    return FlaxBatchNorm(channels, eps=1e-5)
+class FusedBatchNorm(FlaxBatchNorm):
+    """:class:`FlaxBatchNorm` with the JAX package's ``FusedBatchNorm``
+    numerics (``models/resnet.py:25-80`` there), same state dict.
+
+    Train mode is :func:`..ops.bn_fused.batch_norm_train`: the batch
+    statistics in one pass (the ``bn_sums`` kernel on the card), the
+    normalize in the input's dtype, and the closed-form gradient from one
+    more pass (``bn_grad_sums``); then the Flax running-average update.
+    Eval mode is the JAX bf16 affine: ``mul = rsqrt(var + eps) * scale``
+    rounded to the input's dtype, then ``(x - mean) * mul + bias`` in that
+    dtype (not ``F.batch_norm``'s fp32 normalize)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_input_dim(x)
+        if self.training:
+            y, mean, var = batch_norm_train(x, self.weight, self.bias, self.eps)
+            self.update_running(mean, var)
+            return y
+        return batch_norm_eval(
+            x, self.running_mean, self.running_var, self.weight, self.bias, self.eps
+        )
+
+
+def _bn(channels: int, fused: bool = False) -> FlaxBatchNorm:
+    return (FusedBatchNorm if fused else FlaxBatchNorm)(channels, eps=1e-5)
 
 
 class BasicBlock(nn.Module):
     """torchvision BasicBlock: 3x3 conv-bn-relu, 3x3 conv-bn, residual."""
 
-    def __init__(self, in_channels: int, filters: int, stride: int = 1):
+    def __init__(self, in_channels: int, filters: int, stride: int = 1,
+                 fused_bn: bool = False):
         super().__init__()
         self.conv1 = Conv2d(in_channels, filters, 3, stride, 1, bias=False)
-        self.bn1 = _bn(filters)
+        self.bn1 = _bn(filters, fused_bn)
         self.conv2 = Conv2d(filters, filters, 3, 1, 1, bias=False)
-        self.bn2 = _bn(filters)
+        self.bn2 = _bn(filters, fused_bn)
         self.downsample = None
         if stride != 1 or in_channels != filters:
             self.downsample = nn.Sequential(
                 Conv2d(in_channels, filters, 1, stride, 0, bias=False),
-                _bn(filters),
+                _bn(filters, fused_bn),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -185,19 +227,25 @@ class ResNet18(nn.Module):
         input_channels: int = 3,
         dtype: torch.dtype = torch.bfloat16,
         fused_stem: int | None = None,
+        fused_bn: bool = False,
+        fused_native_stem: bool = False,
     ):
         super().__init__()
+        if fused_stem is not None and fused_native_stem:
+            raise ValueError("fused_stem and fused_native_stem are two different stems")
         self.input_channels = input_channels
         self.dtype = dtype
         self.fused_stem = fused_stem
+        self.fused_native_stem = fused_native_stem
         self.conv1 = Conv2d(input_channels, 64, 7, 2, 3, bias=False)
-        self.bn1 = _bn(64)
+        self.bn1 = _bn(64, fused_bn)
         in_ch = 64
         for stage in range(4):  # two BasicBlocks per stage
             filters = 64 * 2**stage
             stride = 2 if stage > 0 else 1
             self.add_module(f"layer{stage + 1}", nn.Sequential(
-                BasicBlock(in_ch, filters, stride), BasicBlock(filters, filters)
+                BasicBlock(in_ch, filters, stride, fused_bn),
+                BasicBlock(filters, filters, fused_bn=fused_bn),
             ))
             in_ch = filters
         self.fc = Linear(in_ch, num_features)
@@ -218,16 +266,32 @@ class ResNet18(nn.Module):
             )
         return pooled.to(self.dtype).permute(0, 3, 1, 2)
 
+    def _native_stem(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, Cin, H, W] -> pooled stem output [B, 64, H2, Wout] (a
+        channels-last view of the native tail's NHWC result)."""
+        _, wreal = stem_geometry(x.shape[2], x.shape[3])
+        ye, yo = conv1_parity_native(x.permute(0, 2, 3, 1), self.conv1.weight, dtype=self.dtype)
+        bn = self.bn1
+        if self.training:
+            pooled, mean, var = native_bn_relu_pool_train(ye, yo, bn.weight, bn.bias,
+                                                          wreal, bn.eps)
+            bn.update_running(mean, var)
+        else:
+            pooled = native_bn_relu_pool(ye, yo, bn.running_mean, bn.running_var,
+                                         bn.weight, bn.bias, wreal, bn.eps)
+        return pooled.to(self.dtype).permute(0, 3, 1, 2)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         size = self.fused_stem
         if size is not None and x.shape[1] == 1 and tuple(x.shape[2:]) != (size, size):
             x = self._fused_stem(x)
+        elif x.shape[1] != self.input_channels:
+            raise ValueError(
+                f"expected {self.input_channels} channels (NCHW), got {tuple(x.shape)}"
+            )
+        elif self.fused_native_stem:
+            x = self._native_stem(x)
         else:
-            if x.shape[1] != self.input_channels:
-                raise ValueError(
-                    f"expected {self.input_channels} channels (NCHW), "
-                    f"got {tuple(x.shape)}"
-                )
             x = x.to(self.dtype)
             x = F.relu(self.bn1(self.conv1(x)))
             x = F.max_pool2d(x, 3, 2, 1)

@@ -41,11 +41,13 @@ class GuitarTabNet(nn.Module):
         input_channels: int = 3,
         dtype: torch.dtype = torch.bfloat16,
         fused_stem: int | None = None,
+        fused_bn: bool = False,
+        fused_native_stem: bool = False,
     ):
         super().__init__()
         self.resnet = ResNet18(
             num_features=256, input_channels=input_channels, dtype=dtype,
-            fused_stem=fused_stem,
+            fused_stem=fused_stem, fused_bn=fused_bn, fused_native_stem=fused_native_stem,
         )
         self.branches = StringBranchHeads(
             256, num_frets=num_frets, num_strings=num_strings
@@ -182,19 +184,24 @@ def build_model(
     ``vit_native`` (the raw CQT, with the conv stem under
     ``vit_conv_stem``).
 
-    ``resnet18`` with ``stem_fusion="fused"`` builds the fused 224^2 stem
-    (precomposed quadrant conv1 GEMM + the stem-tail kernels of
-    ``csrc/stem.cu``).  The ViT archs' attention follows
-    ``attention_impl`` (:func:`..ops.attention.resolve_attention`): the
-    fused kernels of ``csrc/attention.cu`` above 128 tokens under
-    ``"auto"``.  Knobs that only choose how the JAX package computes the
-    same output map to the plain formulation: every ``w1_conv`` mode,
-    ``stem_fusion="on"`` (its precomposed resize/conv1 GEMMs equal resize ->
-    conv1) and ``remat`` (rematerialization only matters for training
-    memory).  ``stem_fusion``, ``bn_fusion`` and ``w1_conv`` are validated
-    and then ignored for the ViT archs, as in the JAX package.  Knobs that
-    select a TPU kernel this port does not have yet raise
-    ``NotImplementedError`` naming the ROADMAP item.
+    ``stem_fusion="fused"`` builds the fused stem of the arch, as the JAX
+    ``build_model`` does (``models/tabnet.py:151-159,197-209`` there): on
+    ``resnet18`` the 224^2 stem (precomposed quadrant conv1 GEMM + the
+    stem-tail kernels of ``csrc/stem.cu``), on ``resnet18_native`` the
+    native stem (row-parity conv1 + the kernels of ``csrc/stem_native.cu``
+    and ``csrc/bn.cu``).  ``bn_fusion="on"`` makes every trunk BatchNorm a
+    ``FusedBatchNorm`` (the column-sum kernels of ``csrc/bn.cu`` in train
+    mode), with any stem.  Neither knob changes the state dict.  The ViT
+    archs' attention follows ``attention_impl``
+    (:func:`..ops.attention.resolve_attention`): the fused kernels of
+    ``csrc/attention.cu`` above 128 tokens under ``"auto"``.  Knobs that
+    only choose how the JAX package computes the same output map to the
+    plain formulation: every ``w1_conv`` mode, ``stem_fusion="on"`` (its
+    precomposed resize/conv1 GEMMs equal resize -> conv1) and ``remat``
+    (rematerialization only matters for training memory).
+    ``stem_fusion``, ``bn_fusion`` and ``w1_conv`` are validated and then
+    ignored for the ViT archs, as in the JAX package.  ``small_cnn`` is not
+    ported yet and raises ``NotImplementedError`` naming the ROADMAP item.
     """
     if cfg.stem_fusion not in ("on", "off", "fused"):
         raise ValueError(
@@ -214,16 +221,6 @@ def build_model(
             f"arch {cfg.arch!r} is not ported yet (ROADMAP A11 small_cnn); the "
             "port serves resnet18, resnet18_native, vit_s8 and vit_native"
         )
-    if cfg.stem_fusion == "fused" and cfg.arch == "resnet18_native":
-        raise NotImplementedError(
-            "stem_fusion='fused' on resnet18_native needs the native fused "
-            "stem kernels (ROADMAP B6), not ported yet"
-        )
-    if cfg.bn_fusion == "on" and not vit:
-        raise NotImplementedError(
-            "bn_fusion='on' needs the fused BatchNorm kernel (ROADMAP B7), "
-            "not ported yet"
-        )
     if cfg.dtype not in _DTYPES or cfg.param_dtype != "float32":
         raise ValueError(
             f"dtype must be one of {tuple(_DTYPES)} with float32 params, "
@@ -238,6 +235,8 @@ def build_model(
         num_strings=cfg.num_strings,
         input_channels=cfg.input_channels if cfg.arch == "resnet18" else 1,
         dtype=_DTYPES[cfg.dtype],
-        fused_stem=224 if cfg.stem_fusion == "fused" else None,
+        fused_stem=224 if cfg.arch == "resnet18" and cfg.stem_fusion == "fused" else None,
+        fused_bn=cfg.bn_fusion == "on",
+        fused_native_stem=cfg.arch == "resnet18_native" and cfg.stem_fusion == "fused",
     )
     return init_weights(model, generator)

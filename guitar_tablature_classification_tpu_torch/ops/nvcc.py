@@ -2,9 +2,9 @@
 with a plain C interface, loaded through ``ctypes``.
 
 Each source is compiled at first use into ``_build/`` beside the package
-(listed in ``.gitignore``), under a name that hashes the source and its
-flags, so an edited source is rebuilt and an unchanged one is not.  Nothing
-is compiled when a module is imported.
+(listed in ``.gitignore``), under a name that hashes the source, its flags
+and the shared headers, so an edited source is rebuilt and an unchanged one
+is not.  Nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -39,8 +39,13 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str, flags: tuple[str, ...]) -> str:
-    with open(source, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(flags).encode())
+    """The library's path, named by a hash of the source, the flags and
+    every shared header (``*.cuh``) beside the sources."""
+    tag = hashlib.sha256(" ".join(flags).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for path in [source] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, "rb") as f:
+            tag.update(f.read())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{tag.hexdigest()[:16]}.so")
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import on_card
 from . import stem_cuda
 
 
@@ -160,28 +161,20 @@ def bwd_plain(
 # ----------------------------------------------------------------- dispatch
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type == "cuda":
-        return True
-    raise ValueError(f"unsupported device {t.device}")
-
-
 def stats(yq: torch.Tensor) -> torch.Tensor:
-    if _on_card(yq):
+    if on_card(yq):
         return stem_cuda.stats(yq)
     return stats_plain(yq)
 
 
 def fwd(yq: torch.Tensor, se: torch.Tensor, oe: torch.Tensor) -> torch.Tensor:
-    if _on_card(yq):
+    if on_card(yq):
         return stem_cuda.fwd(yq, se, oe)
     return fwd_plain(yq, se, oe)
 
 
 def bwd(yq, g, se, oe):
-    if _on_card(yq):
+    if on_card(yq):
         return stem_cuda.bwd(yq, g, se, oe)
     return bwd_plain(yq, g, se, oe)
 

@@ -18,8 +18,12 @@ from guitar_tablature_classification_tpu_torch.infer import Transcriber
 from guitar_tablature_classification_tpu_torch.ops import (
     attention,
     attention_cuda,
+    bn_cuda,
+    bn_fused,
     cqt_cuda,
     stem_cuda,
+    stem_native,
+    stem_native_cuda,
     stem_tail,
 )
 from guitar_tablature_classification_tpu_torch.ops.cqt import CQTFrontend
@@ -296,3 +300,145 @@ def test_vit_s8_serving_launches_the_attention_kernel(card):
     assert attention_cuda.launches["attn_fwd"] - before["attn_fwd"] == 2 * batches
     assert attention_cuda.launches["attn_bwd"] == before["attn_bwd"]
     assert out.logits.shape == (windows, 6, 19) and np.isfinite(out.logits).all()
+
+
+def _trunk_case(shape, dtype, device, channels_last, seed=0):
+    """A trunk activation [B, C, H, W] and its gradient in one memory format."""
+    rng = np.random.default_rng(seed)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    y, g = (torch.from_numpy(rng.standard_normal(shape, np.float32) * 2 + 0.5)
+            .to(device, dtype).contiguous(memory_format=fmt) for _ in range(2))
+    return y, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(16, 64, 56, 56), (32, 128, 24, 3), (64, 512, 3, 1)])
+def test_bn_sums_kernels_match_plain(card, shape, dtype, channels_last):
+    """bn_sums and bn_grad_sums against their plain versions on the same
+    card tensors, read through either memory format with no copy: rtol 1e-5
+    (fp32 summation order), two runs identical, each launch counted."""
+    y, g = _trunk_case(shape, dtype, card, channels_last)
+    before = dict(bn_cuda.launches)
+    sums, gsums = bn_fused.sums(y), bn_fused.grad_sums(y, g)
+    torch.cuda.synchronize()
+    assert {k: bn_cuda.launches[k] - before[k] for k in before} == {
+        "bn_sums": 1, "bn_grad_sums": 1}
+    scale = lambda t: 1e-5 * float(t.abs().max())  # noqa: E731
+    want, gwant = bn_fused.sums_plain(y), bn_fused.grad_sums_plain(y, g)
+    torch.testing.assert_close(sums, want, rtol=1e-5, atol=scale(want))
+    torch.testing.assert_close(gsums, gwant, rtol=1e-5, atol=scale(gwant))
+    assert torch.equal(bn_cuda.sums(y), sums) and torch.equal(bn_cuda.grad_sums(y, g), gsums)
+
+
+@pytest.mark.cuda
+def test_batch_norm_train_on_card_matches_cpu(card):
+    """batch_norm_train through its autograd.Function, card (kernels)
+    against CPU (plain versions), bf16 channels-last input: outputs and dy
+    to one bf16 ulp of their scale (the statistics' summation order may
+    move a rounding), mean and var to 1e-5, dscale and dbias to 1e-3."""
+    y, g = _trunk_case((8, 64, 28, 28), torch.bfloat16, "cpu", True, seed=1)
+    scale, bias = torch.linspace(0.5, 1.5, 64), torch.linspace(-0.1, 0.1, 64)
+    outs = {}
+    for dev in ("cpu", card):
+        y_, s_, b_ = (t.to(dev).clone().requires_grad_(True) for t in (y, scale, bias))
+        out, mean, var = bn_fused.batch_norm_train(y_, s_, b_)
+        out.backward(g.to(dev))
+        outs[str(dev)] = [t.detach().float().cpu() for t in (out, mean, var, y_.grad, s_.grad, b_.grad)]
+    for name, a, b, tol in zip(("out", "mean", "var", "dy", "dscale", "dbias"),
+                               outs[str(card)], outs["cpu"], (1e-2, 1e-5, 1e-5, 1e-2, 1e-3, 1e-3)):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol * max(1.0, float(b.abs().max())),
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_bn_wrappers_reject_what_the_kernel_does_not_take(card):
+    y, g = _trunk_case((2, 64, 4, 4), torch.bfloat16, card, False)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bn_cuda.sums(y.half())
+    with pytest.raises(ValueError, match="channels-last"):
+        bn_cuda.sums(y.transpose(0, 1))
+    with pytest.raises(ValueError, match="memory layout"):
+        bn_cuda.grad_sums(y, g.contiguous(memory_format=torch.channels_last))
+    with pytest.raises(ValueError, match="lanes"):
+        bn_cuda.sums(torch.zeros(4, 3, device=card))
+
+
+def _native_case(dtype, device, batch=64, seed=0):
+    """Parity planes [B, 24, 6*64] on a quarter grid (many exact ties in
+    the pooling windows), a pad column of 7.7, BN affine terms and a pooled
+    gradient [B, 24, 3, 64]."""
+    rng = np.random.default_rng(seed)
+    planes = np.round(rng.standard_normal((2, batch, 24, 6, 64)) * 4) / 4
+    planes[:, :, :, 5] = 7.7
+    se = rng.uniform(0.5, 1.5, 64).astype(np.float32)
+    oe = (rng.standard_normal(64) * 0.1).astype(np.float32)
+    g = rng.standard_normal((batch, 24, 3, 64))
+    to = lambda a, dt: torch.from_numpy(np.asarray(a)).to(device, dt)  # noqa: E731
+    ye, yo = (to(p.reshape(batch, 24, 384), dtype) for p in planes)
+    return ye, yo, to(se, torch.float32), to(oe, torch.float32), to(g, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_native_stem_kernels_match_plain(card, dtype):
+    """native_stats, native_fwd and native_bwd against their plain versions
+    on tie-rich card tensors: pooled output, dye and dyo bit for bit (same
+    fp32 rounding and tie-break, no FMA contraction), per-lane sums to rtol
+    1e-5, two runs identical, each launch counted."""
+    ye, yo, se, oe, g = _native_case(dtype, card)
+    before = dict(stem_native_cuda.launches)
+    sums = stem_native.stats(ye, yo)
+    pooled = stem_native.fwd(ye, yo, se, oe, 5)
+    dye, dyo, sdz, sdzy = stem_native.bwd(ye, yo, g, se, oe, 5)
+    torch.cuda.synchronize()
+    assert {k: stem_native_cuda.launches[k] - before[k] for k in before} == {
+        "native_stats": 1, "native_fwd": 1, "native_bwd": 1}
+    want = stem_native.stats_plain(ye, yo)
+    torch.testing.assert_close(sums, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(pooled, stem_native.fwd_plain(ye, yo, se, oe, 5))
+    wdye, wdyo, wsdz, wsdzy = stem_native.bwd_plain(ye, yo, g, se, oe, 5)
+    assert torch.equal(dye, wdye) and torch.equal(dyo, wdyo)
+    for got, ref in ((sdz, wsdz), (sdzy, wsdzy)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    again = stem_native.bwd(ye, yo, g, se, oe, 5)
+    assert torch.equal(again[2], sdz) and torch.equal(again[3], sdzy)
+    assert torch.equal(stem_native.stats(ye, yo), sums)
+
+
+@pytest.mark.cuda
+def test_native_stem_wrappers_reject_what_the_kernels_do_not_take(card):
+    ye, yo, se, oe, g = _native_case(torch.bfloat16, card, batch=2)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        stem_native_cuda.fwd(ye.half(), yo.half(), se, oe, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        stem_native_cuda.fwd(ye.transpose(0, 1).contiguous().transpose(0, 1), yo, se, oe, 5)
+    with pytest.raises(ValueError, match="wreal"):
+        stem_native_cuda.fwd(ye, yo, se, oe, 7)
+    with pytest.raises(ValueError, match="se must be"):
+        stem_native_cuda.fwd(ye, yo, se.double(), oe, 5)
+    with pytest.raises(ValueError, match="g must be"):
+        stem_native_cuda.bwd(ye, yo, g[:, :1], se, oe, 5)
+
+
+@pytest.mark.cuda
+def test_native_fused_serving_launches_the_stem_kernel(card):
+    """native-best with stem_fusion="fused", bn_fusion="on" through
+    Transcriber on the card: each batch launches native_fwd once, and no
+    train-mode kernel (the fused BatchNorm has none in eval mode)."""
+    cfg = RECIPES["native-best"]()
+    model_cfg = dataclasses.replace(cfg.model, stem_fusion="fused", bn_fusion="on")
+    t = Transcriber(None, model_cfg=model_cfg, cqt_cfg=cfg.cqt, batch_size=16)
+    windows = _windows(cfg.cqt, 40, seed=5, device="cpu").numpy()
+    before = dict(stem_native_cuda.launches), dict(bn_cuda.launches)
+    logits = t.predict_windows(windows)
+    batches, lo = 0, 0  # the transcriber's bucketed batches
+    while lo < len(windows):
+        lo += min(t._bucket_for(len(windows) - lo), len(windows) - lo)
+        batches += 1
+    assert stem_native_cuda.launches["native_fwd"] - before[0]["native_fwd"] == batches
+    assert stem_native_cuda.launches["native_stats"] == before[0]["native_stats"]
+    assert stem_native_cuda.launches["native_bwd"] == before[0]["native_bwd"]
+    assert bn_cuda.launches == before[1]
+    assert logits.shape == (40, 6, 19) and np.isfinite(logits).all()

@@ -106,13 +106,43 @@ def test_save_torch_checkpoint_loads_strict(tmp_path, arch):
 
 
 @pytest.mark.parametrize("overrides, match", [
-    (dict(arch="resnet18_native", stem_fusion="fused"), "B6"),
-    (dict(arch="resnet18_native", bn_fusion="on"), "B7"),
     (dict(arch="small_cnn"), "A11"),
 ])
 def test_unported_knobs_raise(overrides, match):
     with pytest.raises(NotImplementedError, match=match):
         build_model(ModelConfig(**overrides))
+
+
+@pytest.mark.parametrize("arch, stem_fusion, bn_fusion", [
+    ("resnet18_native", "fused", "off"),
+    ("resnet18_native", "fused", "on"),
+    ("resnet18_native", "off", "on"),
+    ("resnet18", "off", "on"),
+    ("resnet18", "fused", "on"),
+])
+def test_fusion_knobs_keep_the_state_dict(arch, stem_fusion, bn_fusion):
+    """The native fused stem and the fused BatchNorms build, keep the plain
+    model's state-dict keys, and load, strictly, the converted variables of
+    the Flax model built with the same knobs (its tree from eval_shape)."""
+    from guitar_tablature_classification_tpu_torch.models.resnet import FusedBatchNorm
+
+    cfg = dict(arch=arch, stem_fusion=stem_fusion, bn_fusion=bn_fusion)
+    model = build_model(ModelConfig(**cfg))
+    plain = build_model(ModelConfig(arch=arch))
+    assert list(model.state_dict()) == list(plain.state_dict())
+    assert model.resnet.fused_native_stem == (arch == "resnet18_native" and stem_fusion == "fused")
+    fused = sum(isinstance(m, FusedBatchNorm) for m in model.modules())
+    assert fused == (20 if bn_fusion == "on" else 0)
+    x = jnp.zeros((1,) + INPUT_SHAPES[arch], jnp.float32)
+    shapes = jax.eval_shape(
+        lambda x: jax_build_model(JaxModelConfig(**cfg)).init(jax.random.PRNGKey(0), x,
+                                                              train=False), x)
+    rng = np.random.default_rng(0)
+    variables = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    sd = state_dict_from_flax(variables)
+    model.load_state_dict(sd, strict=True)
+    assert torch.equal(model.resnet.layer4[1].bn2.running_var,
+                       sd["resnet.layer4.1.bn2.running_var"])
 
 
 @pytest.mark.parametrize("w1_conv", ["dense", "slim", "gemm", "full"])
