@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 1. Set-up: the card's name and power limit, torch and CUDA versions, and
-   the build of the port's five kernel sources (``csrc/cqt.cu``,
+   the build of the port's eight kernel sources (``csrc/cqt.cu``,
    ``csrc/stem.cu``, ``csrc/attention.cu``, ``csrc/bn.cu``,
-   ``csrc/stem_native.cu``: one ``nvcc`` each, started together).
+   ``csrc/stem_native.cu``, ``csrc/cqt_frame_gemm.cu``,
+   ``csrc/stem_gemm.cu``, ``csrc/conv3x3.cu``: one ``nvcc`` each, started
+   together).
 2. Kernel against plain version (TF32 off): the fused CQT kernel at every
    precision tier on the training recipe (B=4096), the 3 s serving recipe,
    a reflect-padded recipe and a hop-1000 recipe, each against its plain
@@ -67,9 +69,23 @@
    the same checks.  (d) Path B served through ``Transcriber`` at batch 2048
    (``native_fwd`` +1 a batch, no train-mode kernel), its frets against the
    same weights served unfused.
+13. The raw CQT frame GEMM (B9) through its entry point
+   ``cqt_cuda.cqt_frame_gemm``: the training recipe at B=256 at every tier
+   and ``serving_cnn`` at B=64, ``default``, one launch each; each against
+   ``frame_gemm_plain``, deterministic, and through the plain epilogue
+   against the fused B1 kernel's dB; times, bound, frame-GEMM yardstick.
+14. The stem front's GEMM with statistics (B8) against its plain version on
+   random operands and on the real 224^2 front at B=256 (y against
+   ``precomposed_conv1_quadrant``, channel sums against B2's
+   ``stem_stats``); then its entry point, the ported
+   ``tools/profile_stem_pieces``, with its launches counted.
+15. The 3x3 conv with a fused ReLU-affine (B10) against its plain version at
+   the probe's three shapes and two odd ones; then its entry point, the
+   ported ``tools/probe_conv``, with cuDNN's times, the parity figures and
+   its launches counted.
 
-Then one JSON line of the eleven kernels' measurements, and the status line
-last.
+Then one JSON line of the fourteen kernels' measurements, and the status
+line last.
 Any failed check raises, which exits non-zero.  Needs one CUDA card.
 """
 
@@ -138,22 +154,30 @@ TRUNK_BN_TOL = {"float32": 1e-4, "bfloat16": LOGIT_REL_TOL}
 #   The first reading on the card was 0.9974 (PERF.md section 6); the
 #   limit allows four times its disagreement.
 FRET_AGREEMENT_MIN = 0.99
+# - the raw frame GEMM (B9) against its plain version: the same fp32
+#   products (exact for the bf16 operands of the lower tiers), another fp32
+#   summation order over up to 23,552 filter rows: per window, max|err| <=
+#   1e-4 max|ref|.
+FRAME_GEMM_REL_TOL = 1e-4
+# - bf16 outputs of the GEMM kernels (B8, B10) against their plain
+#   versions: both round once from fp32 sums of the same exact products in
+#   another order, so within one bf16 ulp of the larger magnitude; plus
+#   this share of max|ref| for outputs near zero, where the fp32 order's
+#   error exceeds a tiny value's ulp.
+BF16_FLOOR = 1e-5
+TOOL_ITERS = 20  # timed calls of each piece in the two ported tools
 LR = 5e-4  # bench.py's learning rate
 TRAIN_STEPS = 20
 
 
 def _sync_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of ``fn()`` on the card (the port's tools'
+    CUDA-event timer)."""
     import torch
 
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    from guitar_tablature_classification_tpu_torch.tools.timing import time_ms
+
+    return time_ms(fn, iters, torch.device("cuda"))
 
 
 def tone_windows(batch: int, num_samples: int, sample_rate: int, seed: int):
@@ -561,11 +585,12 @@ def stem_kernel_phase(torch, mods, batch: int = 256) -> dict:
     return {"rows": rows, "context": context}
 
 
-COUNTED = ("stem_cuda", "attention_cuda", "bn_cuda", "stem_native_cuda")
+COUNTED = ("stem_cuda", "attention_cuda", "bn_cuda", "stem_native_cuda", "conv3x3_cuda")
 
 
 def _counts(mods) -> dict:
-    out = {"cqt_fused": mods["cqt_cuda"].launches}
+    out = {"cqt_fused": mods["cqt_cuda"].launches,
+           "cqt_frame_gemm": mods["cqt_cuda"].frame_gemm_launches}
     for name in COUNTED:
         out.update(mods[name].launches)
     return out
@@ -573,6 +598,7 @@ def _counts(mods) -> dict:
 
 def _reset_counts(mods) -> None:
     mods["cqt_cuda"].launches = 0
+    mods["cqt_cuda"].frame_gemm_launches = 0
     for name in COUNTED:
         counts = mods[name].launches
         for key in counts:
@@ -1432,6 +1458,263 @@ def native_fused_serving_phase(torch, mods, batch: int = 2048, n_batches: int = 
     return out
 
 
+def _within_one_bf16_ulp(torch, got, want) -> dict:
+    """Per element, |got - want| against one bf16 ulp of the larger
+    magnitude plus 1e-5 of max|want| (outputs near zero: the fp32 order's
+    error exceeds a tiny value's ulp); the share of equal bits."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    limit = torch.ldexp(torch.ones_like(got), e - 8) + BF16_FLOOR * want.abs().max()
+    return {"within_one_ulp": bool((diff <= limit).all()),
+            "equal_share": float((diff == 0).float().mean()),
+            "max_abs_err": float(diff.max()), "scale": float(want.abs().max())}
+
+
+def _row(ms, plain_ms, library_ms, nbytes, ops, peak, max_abs_err, **extra) -> dict:
+    bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[peak]
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "library_ms": library_ms, "bytes": nbytes, "ops": ops, "ops_peak": peak, **extra}
+
+
+def frame_gemm_phase(torch, mods) -> dict:
+    """B9, the raw CQT frame GEMM, through its entry point
+    ``cqt_cuda.cqt_frame_gemm``: the training recipe at B=256 at all three
+    tiers and ``serving_cnn`` (hop 512, 130 frames, Kw=6,144) at B=64,
+    ``default``.  The counters are set to 0 before the four calls and read
+    after them (one launch each).  Then, per case: the kernel against
+    ``frame_gemm_plain`` (TF32 off), per window max|err| <= 1e-4 max|ref|;
+    two runs identical; ``cqt_epilogue`` of the kernel's output against the
+    fused B1 kernel's dB under the CQT limits; times, bound and the
+    ``unfold`` + ``torch.matmul`` yardstick.  The row is the training recipe
+    at ``highest`` (the flagship's tier)."""
+    cqt_cuda, cqt = mods["cqt_cuda"], mods["cqt"]
+    CQTConfig = mods["CQTConfig"]
+    F = torch.nn.functional
+    cases = [("train", CQTConfig(), 256, p) for p in ("highest", "bf16x3", "default")]
+    cases.append(("serving_cnn", CQTConfig.serving_cnn(), 64, "default"))
+    inputs = []
+    for name, base, batch, prec in cases:
+        fe = mods["CQTFrontend"](dataclasses.replace(base, precision=prec))
+        x = tone_windows(batch, base.window_samples, base.sample_rate, seed=31)
+        kern = fe.kernels_on(x.device)
+        kw = kern.shape[0]
+        inputs.append((fe, x, F.pad(x, (kw // 2, kw // 2)), kern))
+    torch.cuda.synchronize()
+
+    def call(i):
+        fe, _, padded, kern = inputs[i]
+        return cqt_cuda.cqt_frame_gemm(padded, kern, hop_length=fe.cfg.hop_length,
+                                       n_frames=fe.cfg.n_frames, precision=fe.cfg.precision)
+
+    _reset_counts(mods)
+    outs = [call(i) for i in range(len(cases))]
+    torch.cuda.synchronize()
+    counts = _counts(mods)
+    want_counts = {key: 0 for key in counts}
+    want_counts["cqt_frame_gemm"] = len(cases)
+    if counts != want_counts:
+        raise AssertionError(f"frame GEMM phase launches {counts}, expected {want_counts}")
+
+    rows = {}
+    for i, ((name, base, batch, prec), (fe, x, padded, kern)) in enumerate(zip(cases, inputs)):
+        cfg = fe.cfg
+        got = outs[i]
+        want = cqt.frame_gemm_plain(padded, kern, hop_length=cfg.hop_length,
+                                    n_frames=cfg.n_frames, precision=prec)
+        again = torch.equal(call(i), got)
+        per_window = ((got - want).abs().amax(dim=(1, 2))
+                      / want.abs().amax(dim=(1, 2)).clamp_min(1e-30))
+        db = cqt.cqt_epilogue(got, n_bins=cfg.n_bins, magnitude_power=cfg.magnitude_power,
+                              amin=cfg.amin, top_db=cfg.top_db,
+                              gate_threshold_db=cfg.gate_threshold_db,
+                              gate_floor_db=cfg.gate_floor_db)
+        vs_b1 = compare_db(db, fe(x), cfg.gate_floor_db, cfg.gate_threshold_db)
+        ms = _sync_ms(lambda: call(i), 10)
+        plain_ms = _sync_ms(lambda: cqt.frame_gemm_plain(
+            padded, kern, hop_length=cfg.hop_length, n_frames=cfg.n_frames, precision=prec), 3)
+        library_ms = None  # one torch.matmul of the prebuilt frames, fp32 or bf16
+        if prec != "bf16x3":
+            dt = torch.bfloat16 if prec == "default" else torch.float32
+            frames = padded.unfold(-1, kern.shape[0], cfg.hop_length)[:, :cfg.n_frames]
+            frames = frames.reshape(-1, kern.shape[0]).to(dt).contiguous()
+            kern_dt = kern.to(dt)
+            library_ms = _sync_ms(lambda: torch.matmul(frames, kern_dt), 10)
+            del frames, kern_dt
+        # bound: the fp32 inputs read once and the output written once; the
+        # dense products at highest on the FP32 pipes, at default one bf16
+        # tensor-core pass, at bf16x3 three
+        products = 2 * got.shape[0] * got.shape[1] * got.shape[2] * kern.shape[0]
+        ops, peak = {"highest": (products, "fp32"), "bf16x3": (3 * products, "bf16"),
+                     "default": (products, "bf16")}[prec]
+        row = _row(ms, plain_ms, library_ms, 4 * (padded.numel() + kern.numel() + got.numel()),
+                   ops, peak, float((got - want).abs().max()),
+                   max_rel_err_per_window=float(per_window.max()), deterministic=again,
+                   splits=cqt_cuda.frame_gemm_splits(got.shape[0] * got.shape[1], got.shape[2],
+                                                     kern.shape[0]),
+                   epilogue_vs_b1=vs_b1)
+        print(f"cqt_frame_gemm {name} {prec} B={batch}: " + json.dumps(row), flush=True)
+        if (per_window.max() > FRAME_GEMM_REL_TOL or not again or vs_b1["bad_flips"]
+                or vs_b1["max_err_db"] > DB_TOL):
+            raise AssertionError(f"frame GEMM kernel disagrees on {name}/{prec}: {row}")
+        rows[(name, prec)] = row
+        del got, want, db
+    del outs, inputs
+    torch.cuda.empty_cache()
+    return {"rows": {"cqt_frame_gemm": rows[("train", "highest")]}, "launches": counts}
+
+
+def gemm_stats_phase(torch, mods, batch: int = 256) -> dict:
+    """B8, the stem front's GEMM with statistics: the kernel against
+    ``gemm_stats_plain`` on random operands at the tool's shape (hq [28672,
+    70], sq [70, 7168] bf16) and on the real 224^2 front's operands at
+    B=256 (``quadrant_operands`` of CQT-kernel features and a seeded conv1):
+    y within one bf16 ulp of plain (share of equal bits printed), and on the
+    front equal to ``precomposed_conv1_quadrant`` within one ulp; sums
+    within 1e-5 of max|sum| of the float64 column sums of the kernel's own
+    y, and folded to channels against B2's ``stem_stats`` kernel on that y;
+    two runs identical.  Then the entry point: the ported
+    ``profile_stem_pieces`` run once in this process, counters set to 0
+    before it and read after (one launch a call of each piece).  The row
+    takes the kernel's time and the bare GEMM's as the tool timed them."""
+    stem_cuda, stem_tail, stem_fusion = mods["stem_cuda"], mods["stem_tail"], mods["stem_fusion"]
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    m = batch * 112
+    hq = torch.randn((m, 70), generator=gen, device="cuda").to(torch.bfloat16)
+    sq = (0.05 * torch.randn((70, 7168), generator=gen, device="cuda")).to(torch.bfloat16)
+
+    def sums_err(y, sums):
+        y64 = y.double()
+        ref = torch.stack([y64.sum(0), (y64 * y64).sum(0)])
+        return float(((sums.double() - ref).abs().amax(1) / ref.abs().amax(1)).max())
+
+    checks = {}
+    y, sums = stem_cuda.gemm_stats(hq, sq)
+    y_plain, sums_plain = stem_tail.gemm_stats_plain(hq, sq)
+    y2, sums2 = stem_cuda.gemm_stats(hq, sq)
+    torch.cuda.synchronize()
+    checks["random"] = {**_within_one_bf16_ulp(torch, y, y_plain),
+                        "sums_rel_err": sums_err(y, sums),
+                        "sums_vs_plain_rel_err": _rel(sums, sums_plain),
+                        "deterministic": torch.equal(y2, y) and torch.equal(sums2, sums)}
+    err = float((y.float() - y_plain.float()).abs().max())
+    del y_plain, y2
+
+    # the real front at B=256, as the flagship's stem phase builds it
+    cfg = mods["CQTConfig"]()
+    model = mods["build_model"](mods["ModelConfig"](arch="resnet18", stem_fusion="fused"),
+                                generator=torch.Generator().manual_seed(0)).cuda()
+    x = tone_windows(batch, cfg.window_samples, cfg.sample_rate, seed=42)
+    with torch.no_grad():
+        feats = mods["db_to_unit"](mods["CQTFrontend"](cfg)(x))
+        w = model.resnet.conv1.weight
+        hq_f, sq_f = stem_fusion.quadrant_operands(feats, w, dtype=torch.bfloat16)
+        yq = stem_fusion.precomposed_conv1_quadrant(feats, w, dtype=torch.bfloat16)
+    y_f, sums_f = stem_cuda.gemm_stats(hq_f.reshape(-1, hq_f.shape[-1]).contiguous(),
+                                       sq_f.contiguous())
+    y_f2, sums_f2 = stem_cuda.gemm_stats(hq_f.reshape(-1, hq_f.shape[-1]).contiguous(),
+                                         sq_f.contiguous())
+    y_fq = y_f.reshape(yq.shape)
+    per_channel = sums_f.double().reshape(2, -1, 64).sum(1)
+    stem_stats = stem_cuda.stats(y_fq).double()
+    torch.cuda.synchronize()
+    checks["front"] = {**_within_one_bf16_ulp(torch, y_fq, yq),
+                       "sums_rel_err": sums_err(y_f, sums_f),
+                       "channels_vs_stem_stats_rel_err": _rel(per_channel, stem_stats),
+                       "deterministic": torch.equal(y_f2, y_f) and torch.equal(sums_f2, sums_f)}
+    del model, feats, yq, y_f, y_f2, y_fq, hq_f, sq_f
+    print(f"gemm_stats vs plain, M={m}: " + json.dumps(checks), flush=True)
+    for name, c in checks.items():
+        if (not c["within_one_ulp"] or not c["deterministic"] or c["sums_rel_err"] > SUM_REL_TOL
+                or c.get("channels_vs_stem_stats_rel_err", 0.0) > SUM_REL_TOL):
+            raise AssertionError(f"gemm_stats kernel disagrees ({name}): {c}")
+
+    plain_ms = _sync_ms(lambda: stem_tail.gemm_stats_plain(hq, sq), 3)
+    n, k = sq.shape[1], hq.shape[1]
+    del hq, sq, y, sums
+    torch.cuda.empty_cache()
+
+    _reset_counts(mods)
+    tool_rows = mods["profile_stem_pieces"].profile(batch=batch, iters=TOOL_ITERS)
+    torch.cuda.synchronize()
+    counts = _counts(mods)
+    calls = TOOL_ITERS + 1  # one warm-up, then the timed calls
+    want = {key: 0 for key in counts}
+    want.update(gemm_stats=calls, stem_stats=calls, stem_fwd=2 * calls, stem_bwd=2 * calls)
+    print("profile_stem_pieces: " + json.dumps({"launches": counts, "rows": tool_rows}), flush=True)
+    if counts != want:
+        raise AssertionError(f"profile_stem_pieces launches {counts}, expected {want}")
+    # the kernel's time and the bare-GEMM yardstick (no statistics), as the tool timed them
+    tool_ms = {r["piece"].split(" (")[0].split(" [")[0]: r["ms"] for r in tool_rows}
+    row = _row(tool_ms["GEMM+stats kernel"], plain_ms, tool_ms["bare GEMM"],
+               2 * (m * k + k * n + m * n) + 8 * n, 2 * m * n * k, "bf16", err)
+    print("gemm_stats row: " + json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+    return {"rows": {"gemm_stats": row}, "launches": counts, "checks": checks}
+
+
+def conv3x3_phase(torch, mods, batch: int = 256) -> dict:
+    """B10, the 3x3 conv with a fused ReLU-affine: the probe's three cases
+    at B=256 and two small odd ones ([3, 7, 7, 64] -> 64: ragged pixel
+    tiles and the halo of a small map; [2, 5, 9, 40] -> 136: C off the
+    32-channel step, F off the 64-column tile), each against
+    ``conv3x3_plain`` (TF32 off) within one bf16 ulp, and two runs
+    identical.  Then the entry point: the ported ``probe_conv`` run once in
+    this process, counters set to 0 before it and read after; every parity
+    figure within one bf16 ulp of max|ref|.  The row is the (56, 64 -> 64)
+    case: the kernel's time and cuDNN ``F.conv2d``'s on the same bf16
+    relu(x*s + o) as the probe timed them, the plain time from here."""
+    conv3x3, conv3x3_cuda = mods["conv3x3"], mods["conv3x3_cuda"]
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    cases = [(batch, 56, 56, 64, 64), (batch, 28, 28, 128, 128), (batch, 14, 14, 256, 256),
+             (3, 7, 7, 64, 64), (2, 5, 9, 40, 136)]
+    checks, first = {}, None
+    for b, h, w, c, f in cases:
+        x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+        w9 = (0.02 * torch.randn((9, c, f), generator=gen, device="cuda")).to(torch.bfloat16)
+        s = (0.5 + torch.rand(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        o = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        got = conv3x3_cuda.conv3x3(x, w9, s, o)
+        want = conv3x3.conv3x3_plain(x, w9, s, o)
+        again = torch.equal(conv3x3_cuda.conv3x3(x, w9, s, o), got)
+        torch.cuda.synchronize()
+        key = f"[{b}, {h}, {w}, {c}] -> {f}"
+        checks[key] = {**_within_one_bf16_ulp(torch, got, want), "deterministic": again}
+        if not checks[key]["within_one_ulp"] or not again:
+            raise AssertionError(f"conv3x3 kernel disagrees at {key}: {checks[key]}")
+        if first is None:  # the row's plain time, bytes, operations and error
+            plain_ms = _sync_ms(lambda: conv3x3.conv3x3_plain(x, w9, s, o), 3)
+            m = b * h * w
+            first = (plain_ms, 2 * (x.numel() + w9.numel() + 2 * c + m * f),
+                   2 * m * f * 9 * c, checks[key]["max_abs_err"])
+        del x, got, want
+    print("conv3x3 vs plain: " + json.dumps(checks), flush=True)
+    torch.cuda.empty_cache()
+
+    _reset_counts(mods)
+    probe_rows = mods["probe_conv"].probe(batch=batch, iters=TOOL_ITERS)
+    torch.cuda.synchronize()
+    counts = _counts(mods)
+    n_cases = len(mods["probe_conv"].CASES)
+    want = {key: 0 for key in counts}
+    # per case: the parity call, one call per further variant, one warm-up, the timed calls
+    want["conv3x3"] = n_cases * (len(conv3x3.VARIANTS) + 1 + TOOL_ITERS)
+    print("probe_conv: " + json.dumps({"launches": counts, "rows": probe_rows}), flush=True)
+    parities = [r["parity"] for r in probe_rows if "parity" in r]
+    if counts != want or max(parities) > 2.0**-7:
+        raise AssertionError(f"probe_conv launches {counts} (expected {want}), parity {parities}")
+    # the kernel's time and cuDNN's at the (56, 64 -> 64) case, as the probe timed them
+    tool_ms = {r["route"].split()[0]: r["ms"] for r in probe_rows
+               if r["case"] == probe_rows[0]["case"]}
+    plain_ms, n_bytes, ops, err = first
+    row = _row(tool_ms["kernel"], plain_ms, tool_ms["cuDNN"], n_bytes, ops, "bf16", err)
+    print(f"conv3x3 row, [{batch}, 56, 56, 64] -> 64: " + json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+    return {"rows": {"conv3x3": row}, "launches": counts, "checks": checks}
+
+
 def port_modules() -> dict:
     """The port's modules and entry points this script drives."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1452,6 +1735,9 @@ def port_modules() -> dict:
         attention_cuda,
         bn_cuda,
         bn_fused,
+        conv3x3,
+        conv3x3_cuda,
+        cqt,
         cqt_cuda,
         stem_cuda,
         stem_fusion,
@@ -1462,6 +1748,7 @@ def port_modules() -> dict:
     from guitar_tablature_classification_tpu_torch.ops.cqt import CQTFrontend
     from guitar_tablature_classification_tpu_torch.ops.framing import frame_track
     from guitar_tablature_classification_tpu_torch.ops.normalize import db_to_unit
+    from guitar_tablature_classification_tpu_torch.tools import probe_conv, profile_stem_pieces
     from guitar_tablature_classification_tpu_torch.train import (
         create_train_state,
         make_preprocess,
@@ -1479,7 +1766,9 @@ def port_modules() -> dict:
         FusedBatchNorm=FusedBatchNorm,
         frame_track=frame_track, db_to_unit=db_to_unit,
         create_train_state=create_train_state, make_preprocess=make_preprocess,
-        make_train_step=make_train_step,
+        make_train_step=make_train_step, cqt=cqt, conv3x3=conv3x3,
+        conv3x3_cuda=conv3x3_cuda, profile_stem_pieces=profile_stem_pieces,
+        probe_conv=probe_conv,
     )
 
 
@@ -1504,11 +1793,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    sources = (("cqt_fused", cqt_cuda), ("stem", stem_cuda),
-               ("attention", mods["attention_cuda"]), ("bn", mods["bn_cuda"]),
-               ("stem_native", mods["stem_native_cuda"]))
+    sources = (("cqt_fused", cqt_cuda.build), ("stem", stem_cuda.build),
+               ("attention", mods["attention_cuda"].build), ("bn", mods["bn_cuda"].build),
+               ("stem_native", mods["stem_native_cuda"].build),
+               ("cqt_frame_gemm", cqt_cuda.build_frame_gemm),
+               ("stem_gemm", stem_cuda.build_gemm_stats), ("conv3x3", mods["conv3x3_cuda"].build))
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:  # one nvcc per source
-        builds = {name: pool.submit(mod.build) for name, mod in sources}
+        builds = {name: pool.submit(build) for name, build in sources}
         builds = {name: fut.result() for name, fut in builds.items()}
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, (path, log) in builds.items():
@@ -1585,6 +1876,9 @@ def main() -> int:
         profile={"column_sums": sums_kernels, "native_stem": ("native_", "reduce_parts")},
     )
     timed("path_b_serving", native_fused_serving_phase, torch, mods)
+    frame_gemm = timed("frame_gemm", frame_gemm_phase, torch, mods)
+    gemm_stats = timed("gemm_stats", gemm_stats_phase, torch, mods)
+    conv = timed("conv3x3", conv3x3_phase, torch, mods)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernel_sources = {  # name -> (source, TPU kernel, rows, the main path's run)
@@ -1599,12 +1893,17 @@ def main() -> int:
         "native_stats": ("bn.cu", "stem_native.py:347", native_stem["rows"], path_b),
         "native_fwd": ("stem_native.cu", "stem_native.py:232", native_stem["rows"], path_b),
         "native_bwd": ("stem_native.cu", "stem_native.py:280", native_stem["rows"], path_b),
+        "cqt_frame_gemm": ("cqt_frame_gemm.cu", "cqt_pallas.py:153", frame_gemm["rows"],
+                           frame_gemm),
+        "gemm_stats": ("stem_gemm.cu", "stem_pallas.py:326", gemm_stats["rows"], gemm_stats),
+        "conv3x3": ("conv3x3.cu", "tools/probe_pallas_conv.py:53", conv["rows"], conv),
     }
     kernels = [{
         "name": name,
         "route": "cuda",
         "source": f"guitar_tablature_classification_tpu_torch/csrc/{src}",
-        "replaces": f"guitar_tablature_classification_tpu/ops/{tpu}",
+        # the JAX package's ops/, or a path from the repo root
+        "replaces": tpu if "/" in tpu else f"guitar_tablature_classification_tpu/ops/{tpu}",
         "launches": run["launches"][name],
         **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},

@@ -131,6 +131,39 @@ def cqt_epilogue(
     return db.transpose(1, 2).contiguous()
 
 
+def frame_gemm_plain(
+    padded: torch.Tensor,
+    kernels: torch.Tensor,
+    *,
+    hop_length: int,
+    n_frames: int,
+    precision: str,
+) -> torch.Tensor:
+    """Raw CQT coefficients: padded [B, P] fp32, kernels [Kw, 2F] fp32 ->
+    [B, n_frames, 2F] fp32, ``out[b, t] = padded[b, t*hop : t*hop+Kw] @
+    kernels`` at the precision tier.
+
+    Materializes the [B, T, Kw] frame stack and contracts it in one fp32
+    matmul (three for ``bf16x3``).  A ``P`` shorter than
+    ``(n_frames-1)*hop + Kw`` reads zeros past its end, as the JAX
+    package's ``cqt_frame_gemm`` does (``cqt_pallas.py:174-179``)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    kernel_width = kernels.shape[0]
+    need = (n_frames - 1) * hop_length + kernel_width
+    if padded.shape[-1] < need:
+        padded = F.pad(padded, (0, need - padded.shape[-1]))
+    frames = padded.unfold(-1, kernel_width, hop_length)[:, :n_frames]  # [B, T, K]
+    with fp32_matmul():
+        if precision == "bf16x3":
+            f_hi, f_lo = split_bf16(frames)
+            k_hi, k_lo = split_bf16(kernels)
+            return f_hi @ k_hi + f_hi @ k_lo + f_lo @ k_hi
+        if precision == "default":
+            return round_bf16(frames) @ round_bf16(kernels)
+        return frames @ kernels  # [B, T, 2F]
+
+
 def cqt_plain(
     x: torch.Tensor,
     kernels: torch.Tensor,
@@ -145,28 +178,17 @@ def cqt_plain(
     gate_floor_db: float,
     precision: str,
 ) -> torch.Tensor:
-    """Plain version of the fused CQT: [B, N] fp32 -> [B, n_bins, T] dB.
-
-    Materializes the [B, T, K] frame stack and contracts it with the
-    [K, 2F] filterbank in one fp32 matmul (three for ``bf16x3``)."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    """Plain version of the fused CQT: [B, N] fp32 -> [B, n_bins, T] dB,
+    :func:`frame_gemm_plain` followed by :func:`cqt_epilogue`."""
     kernel_width = kernels.shape[0]
-    t = n_frames_for(x.shape[-1], hop_length)
     if pad_index is None:  # pad_mode='constant' (librosa 0.10 default)
         padded = F.pad(x, (kernel_width // 2, kernel_width // 2))
     else:  # pad_mode='reflect' via gather indices
         padded = x[:, pad_index]
-    frames = padded.unfold(-1, kernel_width, hop_length)[:, :t]  # [B, T, K]
-    with fp32_matmul():
-        if precision == "bf16x3":
-            f_hi, f_lo = split_bf16(frames)
-            k_hi, k_lo = split_bf16(kernels)
-            coeff = f_hi @ k_hi + f_hi @ k_lo + f_lo @ k_hi
-        elif precision == "default":
-            coeff = round_bf16(frames) @ round_bf16(kernels)
-        else:
-            coeff = frames @ kernels  # [B, T, 2F]
+    coeff = frame_gemm_plain(
+        padded, kernels, hop_length=hop_length,
+        n_frames=n_frames_for(x.shape[-1], hop_length), precision=precision,
+    )
     return cqt_epilogue(
         coeff, n_bins=n_bins, magnitude_power=magnitude_power, amin=amin,
         top_db=top_db, gate_threshold_db=gate_threshold_db,

@@ -1,5 +1,5 @@
-"""The fused CQT kernel for Hopper (``csrc/cqt.cu``): host plan, build and
-wrapper.
+"""The CQT kernels for Hopper: the fused CQT (``csrc/cqt.cu``: host plan,
+build and wrapper) and the raw frame GEMM (``csrc/cqt_frame_gemm.cu``).
 
 The kernel replaces the JAX package's TPU kernel
 ``ops/cqt_pallas.py::cqt_fused_split_chunked``; it takes any hop and either
@@ -17,6 +17,12 @@ module is imported.
 cannot launch.  ``launches`` counts the wrapper's launches of the fused
 transform; each is one call of ``cqt_fused_launch``, which enqueues two
 kernels (the coefficients, then the per-window dB epilogue).
+
+:func:`cqt_frame_gemm` is the port of the TPU kernel
+``ops/cqt_pallas.py::cqt_frame_gemm`` and, as there, its own entry point:
+raw coefficients ``[B, T, 2F]`` with no epilogue, for any filterbank.  It
+is built from its own source (``build_frame_gemm``) and counted in
+``frame_gemm_launches``.
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ import numpy as np
 import torch
 
 from ..config import CQTConfig
+from ..device import on_card
 from . import nvcc
+from .cqt import frame_gemm_plain
 from .cqt_kernels import CQTFilterbank, n_frames_for
 
 GROUP = 4  # bins per work item; csrc/cqt.cu kGroup
@@ -39,10 +47,16 @@ PRECISION_CODES = {"highest": 0, "bf16x3": 1, "default": 2}
 MAX_SMEM_BYTES = 232448  # dynamic shared memory a Hopper CTA may use
 
 SOURCE = os.path.join(nvcc.CSRC_DIR, "cqt.cu")
+FRAME_GEMM_SOURCE = os.path.join(nvcc.CSRC_DIR, "cqt_frame_gemm.cu")
 NVCC_FLAGS = nvcc.BASE_FLAGS
+FRAME_GEMM_TILE = 64  # output rows and columns per CTA; csrc/cqt_frame_gemm.cu kBM, kBN
+FRAME_GEMM_STEP = 16  # filter rows per step; kBK
+TARGET_CTAS = 2 * 132  # two CTAs on each of the H100's SMs
 
 launches = 0  # fused launches since import (or since a caller reset it)
+frame_gemm_launches = 0  # cqt_frame_gemm launches, counted the same way
 _lib = None
+_frame_gemm_lib = None
 
 
 # ----------------------------------------------------------------- geometry
@@ -320,4 +334,105 @@ def cqt_fused(x: torch.Tensor, frontend) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"CQT kernel launch failed: CUDA error {rc}")
     launches += 1
+    return out
+
+
+# -------------------------------------------------------- raw frame GEMM (B9)
+
+
+def build_frame_gemm() -> tuple[str, str]:
+    """Compile ``csrc/cqt_frame_gemm.cu`` unless this source is built
+    already.  Returns the library path and the compiler's ``-Xptxas -v``
+    log."""
+    return nvcc.build(FRAME_GEMM_SOURCE, NVCC_FLAGS)
+
+
+def _frame_gemm_library():
+    global _frame_gemm_lib
+    if _frame_gemm_lib is None:
+        path, _ = build_frame_gemm()
+        lib = ctypes.CDLL(path)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn = lib.cqt_frame_gemm_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, p]
+        _frame_gemm_lib = lib
+    return _frame_gemm_lib
+
+
+def frame_gemm_splits(rows: int, cols: int, depth: int) -> int:
+    """Ranges the kernel cuts the depth into, so that about TARGET_CTAS
+    CTAs run; fixed by the shape (two runs add in the same order)."""
+    tiles = -(-rows // FRAME_GEMM_TILE) * -(-cols // FRAME_GEMM_TILE)
+    most = max(1, depth // (32 * FRAME_GEMM_STEP))  # at least 512 rows a range
+    return max(1, min(-(-TARGET_CTAS // tiles), most))
+
+
+def cqt_frame_gemm(
+    padded: torch.Tensor,
+    kernels: torch.Tensor,
+    *,
+    hop_length: int,
+    n_frames: int,
+    batch_block: int = 16,
+    k_tile: int = 2048,
+    precision: str = "highest",
+) -> torch.Tensor:
+    """padded [B, P] fp32, kernels [Kw, 2F] fp32 -> raw coefficients
+    [B, n_frames, 2F] fp32 (real block | imag block):
+    ``out[b, t] = padded[b, t*hop : t*hop + Kw] @ kernels``, zeros read past
+    ``P``.  The port of ``ops/cqt_pallas.py::cqt_frame_gemm``, with its
+    signature and its ``ValueError`` when ``B % batch_block``.
+
+    ``batch_block`` and ``k_tile`` are the TPU kernel's VMEM tiling; they
+    change nothing on the GPU (``batch_block`` is still checked as there).
+    A CPU tensor goes to :func:`.cqt.frame_gemm_plain`; a CUDA tensor to the
+    kernel of ``csrc/cqt_frame_gemm.cu``, which raises if it cannot launch.
+    Each launch adds one to ``frame_gemm_launches``."""
+    global frame_gemm_launches
+    if padded.ndim != 2 or kernels.ndim != 2:
+        raise ValueError(
+            f"expected padded [B, P] and kernels [Kw, 2F], got "
+            f"{tuple(padded.shape)} and {tuple(kernels.shape)}"
+        )
+    b, p = padded.shape
+    kw, two_f = kernels.shape
+    if b % batch_block:
+        raise ValueError(f"batch {b} not divisible by block {batch_block}")
+    if precision not in PRECISION_CODES:
+        raise ValueError(
+            f"precision must be one of {tuple(PRECISION_CODES)}, got {precision!r}"
+        )
+    if hop_length < 1 or n_frames < 1 or k_tile < 1:
+        raise ValueError("hop_length, n_frames and k_tile must be positive")
+    if not on_card(padded):
+        return frame_gemm_plain(
+            padded, kernels, hop_length=hop_length, n_frames=n_frames,
+            precision=precision,
+        )
+    for name, t in (("padded", padded), ("kernels", kernels)):
+        if t.device != padded.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"the frame GEMM kernel takes contiguous float32 {name} on "
+                f"{padded.device}, got {t.dtype} on {t.device} "
+                f"contiguous={t.is_contiguous()}"
+            )
+    rows = b * n_frames
+    if b == 0 or rows > 65535 * FRAME_GEMM_TILE:
+        raise ValueError(f"the frame GEMM kernel takes 1 to {65535 * FRAME_GEMM_TILE} "
+                         f"rows (B * n_frames), got {rows}")
+    out = torch.empty((b, n_frames, two_f), device=padded.device, dtype=torch.float32)
+    splits = frame_gemm_splits(rows, two_f, kw)
+    partial = (torch.empty((splits, rows, two_f), device=padded.device,
+                           dtype=torch.float32) if splits > 1 else None)
+    with torch.cuda.device(padded.device):
+        rc = _frame_gemm_library().cqt_frame_gemm_launch(
+            padded.data_ptr(), kernels.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(), b, p, n_frames,
+            hop_length, kw, two_f, splits, PRECISION_CODES[precision],
+            torch.cuda.current_stream(padded.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"CQT frame GEMM kernel launch failed: CUDA error {rc}")
+    frame_gemm_launches += 1
     return out

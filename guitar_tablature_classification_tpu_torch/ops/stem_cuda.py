@@ -1,19 +1,21 @@
-"""The fused stem-tail kernels for Hopper (``csrc/stem.cu``): build and
-wrappers.
+"""The fused stem-tail kernels for Hopper (``csrc/stem.cu``) and the stem
+front's GEMM with statistics (``csrc/stem_gemm.cu``): builds and wrappers.
 
-They replace the JAX package's three TPU kernels of
+They replace the JAX package's four TPU kernels of
 ``ops/stem_pallas.py``: ``_stats_pallas`` (:func:`stats`), ``_fwd_pallas``
-(:func:`fwd`) and ``_bwd_pallas`` (:func:`bwd`).  ``csrc/stem.cu`` explains
+(:func:`fwd`), ``_bwd_pallas`` (:func:`bwd`) and ``_gemm_stats_pallas``
+(:func:`gemm_stats`, built by ``build_gemm_stats``).  The sources explain
 their design and bound; :mod:`.stem_tail` holds the plain versions and the
 ``autograd.Function``s that call these wrappers for CUDA tensors.
 
-The source is built with ``nvcc`` on first use (:mod:`.nvcc`), with
-``-fmad=false`` so that no multiply-add is contracted, and loaded through
-``ctypes``.  Nothing is compiled or loaded when this module is imported.
+Each source is built with ``nvcc`` on first use (:mod:`.nvcc`; ``stem.cu``
+with ``-fmad=false`` so that no multiply-add is contracted) and loaded
+through ``ctypes``.  Nothing is compiled or loaded when this module is
+imported.
 
-``launches`` counts each wrapper's launches.  :func:`stats` and :func:`bwd`
-enqueue two kernels per launch (the per-CTA partial sums, then their
-fixed-order reduction); each counts as one.
+``launches`` counts each wrapper's launches.  :func:`stats`, :func:`bwd`
+and :func:`gemm_stats` enqueue two kernels per launch (the per-CTA partial
+sums, then their fixed-order reduction); each counts as one.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ from . import nvcc
 
 SOURCE = os.path.join(nvcc.CSRC_DIR, "stem.cu")
 NVCC_FLAGS = nvcc.BASE_FLAGS + ("-fmad=false",)
+GEMM_SOURCE = os.path.join(nvcc.CSRC_DIR, "stem_gemm.cu")
+GEMM_TILE = 128  # rows and columns of y per CTA; csrc/stem_gemm.cu kTile
+GEMM_MAX_K = 128  # csrc/stem_gemm.cu kMaxK
 THREADS = 256  # csrc/stem.cu kThreads
 VEC_STATS, VEC_FWD, VEC_BWD = 8, 8, 2  # channels per thread of each kernel
 MAX_PARTS = 1024  # CTAs that write partial sums (fixed: deterministic sums)
@@ -34,8 +39,9 @@ MAX_FWD_CTAS = 132 * 16
 BWD_RUN = 8  # quad rows a backward thread walks down
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = {"stem_stats": 0, "stem_fwd": 0, "stem_bwd": 0}
+launches = {"stem_stats": 0, "stem_fwd": 0, "stem_bwd": 0, "gemm_stats": 0}
 _lib = None
+_gemm_lib = None
 
 
 def build() -> tuple[str, str]:
@@ -179,3 +185,61 @@ def bwd(
     _raise_if(rc, "stem backward")
     launches["stem_bwd"] += 1
     return dy, sums[0], sums[1]
+
+
+# ------------------------------------------------- front GEMM + stats (B8)
+
+
+def build_gemm_stats() -> tuple[str, str]:
+    """Compile ``csrc/stem_gemm.cu`` unless this source is built already.
+    Returns the library path and the compiler's ``-Xptxas -v`` log."""
+    return nvcc.build(GEMM_SOURCE, nvcc.BASE_FLAGS)
+
+
+def _gemm_library():
+    global _gemm_lib
+    if _gemm_lib is None:
+        path, _ = build_gemm_stats()
+        lib = ctypes.CDLL(path)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gemm_stats_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.gemm_stats_launch.restype = ctypes.c_int
+        _gemm_lib = lib
+    return _gemm_lib
+
+
+def check_gemm_shapes(hq: torch.Tensor, sq: torch.Tensor) -> None:
+    """hq [M, K] and sq [K, N]."""
+    if hq.ndim != 2 or sq.ndim != 2 or hq.shape[1] != sq.shape[0]:
+        raise ValueError(f"expected hq [M, K] and sq [K, N], got {tuple(hq.shape)} "
+                         f"and {tuple(sq.shape)}")
+
+
+def gemm_stats(hq: torch.Tensor, sq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """hq [M, K] bf16, sq [K, N] bf16 -> (y = bf16(hq @ sq) [M, N], sums
+    [2, N] fp32: per column, sum y and sum y*y of the rounded y).
+
+    The kernel takes any M and needs K <= GEMM_MAX_K, N % 8 == 0, sq
+    16-byte aligned and hq 4-byte aligned."""
+    check_gemm_shapes(hq, sq)
+    _check(hq, "hq", dtype=torch.bfloat16, vec=2)
+    _check(sq, "sq", dtype=torch.bfloat16, vec=8)
+    if sq.device != hq.device:
+        raise ValueError(f"sq must lie on {hq.device}, got {sq.device}")
+    m, k = hq.shape
+    n = sq.shape[1]
+    if k > GEMM_MAX_K or n % 8 or m < 1:
+        raise ValueError(f"the GEMM kernel needs K <= {GEMM_MAX_K}, N % 8 == 0 and M >= 1, "
+                         f"got M={m}, K={k}, N={n}")
+    parts = -(-m // GEMM_TILE)
+    y = torch.empty((m, n), device=hq.device, dtype=torch.bfloat16)
+    partial = torch.empty((parts, 2, n), device=hq.device, dtype=torch.float32)
+    sums = torch.empty((2, n), device=hq.device, dtype=torch.float32)
+    with torch.cuda.device(hq.device):
+        rc = _gemm_library().gemm_stats_launch(
+            hq.data_ptr(), sq.data_ptr(), y.data_ptr(), partial.data_ptr(),
+            sums.data_ptr(), m, n, k, _stream(hq.device),
+        )
+    _raise_if(rc, "stem GEMM + stats")
+    launches["gemm_stats"] += 1
+    return y, sums

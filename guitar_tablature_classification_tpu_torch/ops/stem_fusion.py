@@ -119,24 +119,23 @@ def precomposed_conv1(
     return (y.reshape(b, oh, oh, feats) + bias).to(dtype)
 
 
-def precomposed_conv1_quadrant(
+def quadrant_operands(
     x: torch.Tensor,
     conv1_weight: torch.Tensor,
     *,
     out_size: int = 224,
     stride: int = 2,
     dtype: torch.dtype = torch.bfloat16,
-) -> torch.Tensor:
-    """The same map as :func:`precomposed_conv1`, emitted in quadrant layout
-    ``[B, 2, OH//2, OH*F]``::
-
-        yq[b, p%2, p//2, (q%2)*(OH//2)*F + (q//2)*F + f] == y[b, p, q, f]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two operands of :func:`precomposed_conv1_quadrant`'s GEMM, in
+    ``dtype``: patches hq [B, 2, OH//2, K] and weights sq [K, OH*F] (K = 70
+    for the 224^2 stem: 7 taps x 9 CQT frames, plus the 7 bias rows).
 
     The -mu/sigma bias field enters as ``k`` extra GEMM rows (the per-row
     inside-image indicators join the patch vector, the per-(q, f) bias
     factors join the weight matrix), and the weight columns and patch rows
-    are permuted into parity order, so one GEMM writes the layout directly
-    (``stem_fusion.py:114-177``)."""
+    are permuted into parity order, so one GEMM writes the quadrant layout
+    directly (``stem_fusion.py:114-177``)."""
     b = x.shape[0]
     feats = conv1_weight.shape[0]
     _, rw, inh, inw, w1, wmu, h = _front_terms(x, conv1_weight, out_size, stride, dtype)
@@ -154,4 +153,22 @@ def precomposed_conv1_quadrant(
     sq = torch.cat([sall[:, 0::2], sall[:, 1::2]], dim=1).reshape(
         sall.shape[0], oh * feats
     )  # columns in (col parity, q half, f) order
+    return hq, sq
+
+
+def precomposed_conv1_quadrant(
+    x: torch.Tensor,
+    conv1_weight: torch.Tensor,
+    *,
+    out_size: int = 224,
+    stride: int = 2,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The same map as :func:`precomposed_conv1`, emitted in quadrant layout
+    ``[B, 2, OH//2, OH*F]``::
+
+        yq[b, p%2, p//2, (q%2)*(OH//2)*F + (q//2)*F + f] == y[b, p, q, f]
+
+    One GEMM of the :func:`quadrant_operands`."""
+    hq, sq = quadrant_operands(x, conv1_weight, out_size=out_size, stride=stride, dtype=dtype)
     return _einsum("brhk,kn->brhn", hq, sq, dtype)

@@ -19,7 +19,11 @@ hand-written Hopper kernel in ``csrc/stem.cu`` (:mod:`.stem_cuda`):
 - :func:`fwd` — BN affine, ReLU, max-pool (``_fwd_pallas``);
 - :func:`bwd` — recompute the window max, route the pooled gradient to the
   first max tap in row-major window order, ReLU mask, ``dy = dz*se`` and
-  the per-channel sums of dz and dz*y (``_bwd_pallas``).
+  the per-channel sums of dz and dz*y (``_bwd_pallas``);
+- :func:`gemm_stats` — the quadrant front's GEMM with the per-column sum
+  and sum of squares of its rounded output (``_gemm_stats_pallas``, kernel
+  in ``csrc/stem_gemm.cu``).  No model path calls it, as in the JAX
+  package: its entry point is ``tools/profile_stem_pieces.py``.
 
 The plain versions follow the Pallas kernel bodies, not the XLA twin: the
 kernels upcast y and g to fp32, compute in fp32 and round once at the end
@@ -37,6 +41,7 @@ import torch
 
 from ..device import on_card
 from . import stem_cuda
+from .cqt import fp32_matmul
 
 
 def quadrant_pack(y: torch.Tensor) -> torch.Tensor:
@@ -158,6 +163,17 @@ def bwd_plain(
     return dy, dz.reshape(-1, c).sum(dim=0), (dz * yf).reshape(-1, c).sum(dim=0)
 
 
+def gemm_stats_plain(hq: torch.Tensor, sq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """hq [M, K] bf16, sq [K, N] bf16 -> (y [M, N] bf16, sums [2, N] fp32):
+    y = bf16(hq @ sq) from fp32 products and sums (the operands upcast
+    exactly to fp32, TF32 off), rounded once; sums = per column (sum y,
+    sum y*y) of the rounded y in fp32."""
+    with fp32_matmul():
+        y = (hq.float() @ sq.float()).to(hq.dtype)
+    yf = y.float()
+    return y, torch.stack([yf.sum(dim=0), (yf * yf).sum(dim=0)])
+
+
 # ----------------------------------------------------------------- dispatch
 
 
@@ -177,6 +193,21 @@ def bwd(yq, g, se, oe):
     if on_card(yq):
         return stem_cuda.bwd(yq, g, se, oe)
     return bwd_plain(yq, g, se, oe)
+
+
+def gemm_stats(
+    hq: torch.Tensor, sq: torch.Tensor, *, m_tile: int = 256
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, sums) of :func:`gemm_stats_plain`, with ``_gemm_stats_pallas``'s
+    signature.  ``m_tile`` is the TPU grid's row tile: there the grid is
+    ``M // m_tile`` and the last ``M % m_tile`` rows are never written, so
+    here an ``M`` it does not divide raises.  It changes nothing else."""
+    stem_cuda.check_gemm_shapes(hq, sq)
+    if m_tile < 1 or hq.shape[0] % m_tile:
+        raise ValueError(f"M={hq.shape[0]} is not a multiple of m_tile={m_tile}")
+    if on_card(hq):
+        return stem_cuda.gemm_stats(hq, sq)
+    return gemm_stats_plain(hq, sq)
 
 
 # ------------------------------------------------------------ public ops

@@ -20,13 +20,15 @@ from guitar_tablature_classification_tpu_torch.ops import (
     attention_cuda,
     bn_cuda,
     bn_fused,
+    conv3x3,
+    conv3x3_cuda,
     cqt_cuda,
     stem_cuda,
     stem_native,
     stem_native_cuda,
     stem_tail,
 )
-from guitar_tablature_classification_tpu_torch.ops.cqt import CQTFrontend
+from guitar_tablature_classification_tpu_torch.ops.cqt import CQTFrontend, frame_gemm_plain
 
 RECIPE_CFGS = {
     "train": CQTConfig(),
@@ -110,7 +112,7 @@ def test_stem_kernels_match_plain(card, dtype):
     dy, sdz, sdzy = stem_tail.bwd(yq, g, se, oe)
     torch.cuda.synchronize()
     assert {k: stem_cuda.launches[k] - before[k] for k in before} == {
-        "stem_stats": 1, "stem_fwd": 1, "stem_bwd": 1}
+        "stem_stats": 1, "stem_fwd": 1, "stem_bwd": 1, "gemm_stats": 0}
     torch.testing.assert_close(sums, stem_tail.stats_plain(yq), rtol=1e-5, atol=1e-2)
     assert torch.equal(pooled, stem_tail.fwd_plain(yq, se, oe))
     want_dy, want_sdz, want_sdzy = stem_tail.bwd_plain(yq, g, se, oe)
@@ -442,3 +444,152 @@ def test_native_fused_serving_launches_the_stem_kernel(card):
     assert stem_native_cuda.launches["native_bwd"] == before[0]["native_bwd"]
     assert bn_cuda.launches == before[1]
     assert logits.shape == (40, 6, 19) and np.isfinite(logits).all()
+
+
+def _assert_within_one_bf16_ulp(got, want):
+    """One bf16 ulp of the larger magnitude, plus 1e-5 of max|want| for
+    outputs near zero: both sides round once from fp32 sums of the same
+    exact products, in another order."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    limit = torch.ldexp(torch.ones_like(got), e - 8) + 1e-5 * want.abs().max()
+    assert bool(((got - want).abs() <= limit).all()), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "bf16x3", "default"])
+@pytest.mark.parametrize("shape", ["train", "ragged"])
+def test_frame_gemm_kernel_matches_plain(card, shape, precision):
+    """The raw frame GEMM against frame_gemm_plain (TF32 off): per window,
+    max|err| <= 1e-4 max|ref| (fp32 summation order); two runs identical;
+    one launch a call.  "ragged": any K, Kw and N off the tiles, P short,
+    the depth split into ranges."""
+    if shape == "train":
+        fe = CQTFrontend(CQTConfig())
+        cfg = fe.cfg
+        kernels = fe.kernels_on(card)
+        x = _windows(cfg, 16, seed=7, device=card)
+        kw = kernels.shape[0]
+        padded = torch.nn.functional.pad(x, (kw // 2, kw // 2))
+        hop, t = cfg.hop_length, cfg.n_frames
+    else:
+        gen = torch.Generator(device=card).manual_seed(8)
+        kernels = torch.randn((5000, 20), generator=gen, device=card)
+        padded = torch.randn((4, 6000), generator=gen, device=card)
+        hop, t = 333, 7  # P < 6*333 + 5000: zeros past the end; 9 depth ranges
+    before = cqt_cuda.frame_gemm_launches
+    got = cqt_cuda.cqt_frame_gemm(padded, kernels, hop_length=hop, n_frames=t,
+                                  batch_block=4, precision=precision)
+    torch.cuda.synchronize()
+    assert cqt_cuda.frame_gemm_launches == before + 1
+    want = frame_gemm_plain(padded, kernels, hop_length=hop, n_frames=t, precision=precision)
+    err = (got - want).abs().amax(dim=(1, 2))
+    assert bool((err <= 1e-4 * want.abs().amax(dim=(1, 2))).all()), err
+    again = cqt_cuda.cqt_frame_gemm(padded, kernels, hop_length=hop, n_frames=t,
+                                    batch_block=4, precision=precision)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_frame_gemm_wrapper_rejects_what_the_kernel_does_not_take(card):
+    padded = torch.zeros((4, 3000), device=card)
+    kernels = torch.zeros((1000, 20), device=card)
+    kw = dict(hop_length=333, n_frames=7, batch_block=4)
+    with pytest.raises(ValueError, match="float32"):
+        cqt_cuda.cqt_frame_gemm(padded.double(), kernels, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        cqt_cuda.cqt_frame_gemm(padded[:, ::2], kernels, **kw)
+    with pytest.raises(ValueError, match="kernels"):
+        cqt_cuda.cqt_frame_gemm(padded, kernels.cpu(), **kw)
+    with pytest.raises(ValueError, match="not divisible by block 3"):
+        cqt_cuda.cqt_frame_gemm(padded, kernels, hop_length=333, n_frames=7, batch_block=3)
+
+
+def _gemm_operands(card, m, k, n, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    hq = torch.randn((m, k), generator=gen, device=card).to(torch.bfloat16)
+    sq = (0.05 * torch.randn((k, n), generator=gen, device=card)).to(torch.bfloat16)
+    return hq, sq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n", [(600, 70, 200), (256, 33, 7168), (1, 128, 8)])
+def test_gemm_stats_kernel_matches_plain(card, m, k, n):
+    """y within one bf16 ulp of the plain version; sums within 1e-5 of
+    max|sum| of the float64 column sums of the kernel's own y; two runs
+    identical; one launch a call.  The shapes take ragged row and column
+    tiles, an odd K (the 2-byte staging path) and the largest K."""
+    hq, sq = _gemm_operands(card, m, k, n)
+    before = dict(stem_cuda.launches)
+    y, sums = stem_tail.gemm_stats(hq, sq, m_tile=m)
+    torch.cuda.synchronize()
+    assert {key: stem_cuda.launches[key] - before[key] for key in before} == {
+        "stem_stats": 0, "stem_fwd": 0, "stem_bwd": 0, "gemm_stats": 1}
+    want_y, _ = stem_tail.gemm_stats_plain(hq, sq)
+    _assert_within_one_bf16_ulp(y, want_y)
+    y64 = y.double()
+    ref = torch.stack([y64.sum(0), (y64 * y64).sum(0)])
+    assert bool(((sums.double() - ref).abs().amax(1) <= 1e-5 * ref.abs().amax(1)).all())
+    y2, sums2 = stem_cuda.gemm_stats(hq, sq)
+    assert torch.equal(y2, y) and torch.equal(sums2, sums)
+
+
+@pytest.mark.cuda
+def test_gemm_stats_wrapper_rejects_what_the_kernel_does_not_take(card):
+    hq, sq = _gemm_operands(card, 256, 70, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        stem_cuda.gemm_stats(hq.float(), sq)
+    with pytest.raises(ValueError, match="N % 8"):
+        stem_cuda.gemm_stats(hq, sq[:, :60].contiguous())
+    big_hq, big_sq = _gemm_operands(card, 256, 130, 64)
+    with pytest.raises(ValueError, match="K <= 128"):
+        stem_cuda.gemm_stats(big_hq, big_sq)
+    shifted = hq.reshape(-1)[1:1 + 255 * 70].view(255, 70)
+    with pytest.raises(ValueError, match="aligned"):
+        stem_cuda.gemm_stats(shifted, sq)
+    with pytest.raises(ValueError, match="m_tile"):  # the JAX signature's row tile
+        stem_tail.gemm_stats(hq[:200], sq)
+    with pytest.raises(ValueError, match="lie on a CUDA device"):
+        stem_cuda.gemm_stats(hq.cpu(), sq.cpu())
+
+
+def _conv_case(card, b, h, w, c, f, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((b, h, w, c), generator=gen, device=card).to(torch.bfloat16)
+    w9 = (0.05 * torch.randn((9, c, f), generator=gen, device=card)).to(torch.bfloat16)
+    s = (0.5 + torch.rand(c, generator=gen, device=card)).to(torch.bfloat16)
+    o = (0.1 * torch.randn(c, generator=gen, device=card)).to(torch.bfloat16)
+    return x, w9, s, o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16, 32), (3, 7, 7, 64, 64), (2, 5, 9, 40, 136),
+                                   (1, 14, 14, 256, 256)])
+def test_conv3x3_kernel_matches_plain(card, shape):
+    """The conv against conv3x3_plain (TF32 off): within one bf16 ulp;
+    two runs identical; one launch a call.  The shapes take ragged pixel
+    tiles, the halo of small maps, C not a multiple of 32 and F off the
+    64-column tile."""
+    x, w9, s, o = _conv_case(card, *shape)
+    before = conv3x3_cuda.launches["conv3x3"]
+    got = conv3x3.conv3x3_affine_relu(x, w9, s, o)
+    torch.cuda.synchronize()
+    assert conv3x3_cuda.launches["conv3x3"] == before + 1
+    _assert_within_one_bf16_ulp(got, conv3x3.conv3x3_plain(x, w9, s, o))
+    assert torch.equal(conv3x3_cuda.conv3x3(x, w9, s, o), got)
+
+
+@pytest.mark.cuda
+def test_conv3x3_wrapper_rejects_what_the_kernel_does_not_take(card):
+    x, w9, s, o = _conv_case(card, 2, 6, 6, 16, 16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv3x3_cuda.conv3x3(x.float(), w9, s, o)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3x3_cuda.conv3x3(x[..., :12].contiguous(), w9[:, :12].contiguous(), s[:12], o[:12])
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_cuda.conv3x3(x.transpose(1, 2), w9, s, o)
+    shifted = x.reshape(-1)[4:4 + 6 * 6 * 16].view(1, 6, 6, 16)  # 8 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        conv3x3_cuda.conv3x3(shifted, w9, s, o)
+    with pytest.raises(ValueError, match="must lie on"):
+        conv3x3_cuda.conv3x3(x, w9.cpu(), s, o)

@@ -49,8 +49,8 @@ def test_source_imports_no_jax(path):
 
 
 def test_port_runs_without_jax_in_sys_modules(tmp_path):
-    """Import the port, build a Transcriber and the CLI on the CPU, run one
-    short transcription, then check sys.modules."""
+    """Import the port and its tools, build a Transcriber and the CLI on the
+    CPU, run one short transcription, then check sys.modules."""
     script = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
@@ -59,7 +59,8 @@ import guitar_tablature_classification_tpu_torch
 from guitar_tablature_classification_tpu_torch.config import RECIPES
 from guitar_tablature_classification_tpu_torch.infer import Transcriber, cli
 from guitar_tablature_classification_tpu_torch.models import convert
-from guitar_tablature_classification_tpu_torch.ops import cqt_cuda
+from guitar_tablature_classification_tpu_torch.ops import conv3x3, cqt_cuda, stem_tail
+from guitar_tablature_classification_tpu_torch.tools import probe_conv, profile_stem_pieces
 cfg = RECIPES["native-best"]()
 t = Transcriber(None, model_cfg=cfg.model, cqt_cfg=cfg.cqt, batch_size=4,
                 device="cpu")
