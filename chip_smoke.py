@@ -8,7 +8,8 @@
    ``csrc/stem.cu``, ``csrc/attention.cu``, ``csrc/bn.cu``,
    ``csrc/stem_native.cu``, ``csrc/cqt_frame_gemm.cu``,
    ``csrc/stem_gemm.cu``, ``csrc/conv3x3.cu``: one ``nvcc`` each, started
-   together).
+   together); the attention kernels' ``-Xptxas -v`` lines (registers,
+   spills) and their occupancy on the card (shared bytes, CTAs per SM).
 2. Kernel against plain version (TF32 off): the fused CQT kernel at every
    precision tier on the training recipe (B=4096), the 3 s serving recipe,
    a reflect-padded recipe and a hop-1000 recipe, each against its plain
@@ -95,6 +96,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1772,6 +1774,23 @@ def port_modules() -> dict:
     )
 
 
+def attention_build_report(mods, log: str) -> None:
+    """The attention kernels' -Xptxas -v lines (stack, spills, registers,
+    static shared memory) from this run's build, and each kernel as the
+    card runs it (registers, local bytes, shared bytes with the dynamic
+    part, CTAs per SM)."""
+    from guitar_tablature_classification_tpu_torch.ops.nvcc import ptxas_report
+
+    print("attention build, -Xptxas -v:" + ("" if log else " (library already built: no log)"))
+    for entry, lines in ptxas_report(log).items():
+        found = re.search(r"attn_\w*?kernel", entry)
+        if found:
+            label = found.group(0) + ("<float>" if entry[found.end():].startswith("If") else "")
+            print(f"  {label}: {lines}")
+    print("attention kernels on the card: " + json.dumps(mods["attention_cuda"].kernel_info()),
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1805,6 +1824,7 @@ def main() -> int:
     for name, (path, log) in builds.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}: {os.path.relpath(path)} " + " | ".join(regs))
+    attention_build_report(mods, builds["attention"][1])
 
     phase_s = {}
 

@@ -13,47 +13,88 @@
 // q, k and v are read as strided views of the QKV projection's [B, N, 3*H*64]
 // output, with no copy.  Outputs (o, dq, dk, dv) are contiguous [B, N, H, 64]
 // in the input dtype; the log-sum-exp residual and the backward's row dots
-// are [B, H, N] fp32.
+// D = rowsum(dO * O) are [B, H, N] fp32.
 //
-// Numerics (attention_pallas.py:79-101, 159-197).  Every value is read as
-// fp32 (bf16 -> fp32 is exact), products accumulate in fp32 (SIMT FFMA at
-// both dtypes, so fp32 inputs get fp32-grade products), the softmax runs in
-// fp32, and the weights P and the score gradient dS are rounded to the input
-// dtype before they enter a product, as the TPU kernels round them before
-// their bf16 GEMMs.  Keys past N take no weight; query rows past N add
-// nothing to dk and dv.
+// Numerics (attention_pallas.py:79-101, 159-197).  Products accumulate in
+// fp32, the softmax runs in fp32, and the weights P and the score gradient
+// dS are rounded to the input dtype before they enter a product, as the TPU
+// kernels round them before their bf16 GEMMs; dq and dk are scaled after
+// their products (scale * dot(dS, .)).  Keys past N take no weight; query
+// rows past N add nothing to dk and dv.
 //
 // Bound (B=64, H=6, N=785, Dh=64, bf16; chip_smoke.py computes it per run):
 // operations on the tensor cores at 989 TFLOP/s.
-//   fwd: 4*B*H*N^2*Dh = 60.6 GFLOP -> 0.061 ms (bytes: 154 MB, 0.046 ms)
-//   bwd: 10*B*H*N^2*Dh = 151 GFLOP -> 0.153 ms
+//   fwd: 4*B*H*N^2*Dh = 60.6 GFLOP -> 0.0613 ms (bytes: 155 MB, 0.046 ms)
+//   bwd: 10*B*H*N^2*Dh = 151 GFLOP -> 0.153 ms (the JAX kernel's estimate;
+//        the deterministic split below issues 14*B*H*N^2*Dh = 211 GFLOP)
 // The B*H*N^2 = 237 M exponentials of each pass take ~0.06 ms on the SMs'
-// special-function units, the same order as the tensor-core bound.  These
-// kernels run on the FP32 pipes (SIMT), so they sit far above that bound:
-// this first version is simple and right; mma.sync / wgmma is later work.
+// special-function units, the same order as the tensor-core bound.  On the
+// card (PERF.md) these kernels are held back less by the tensor cores than
+// by the instructions around each score (scale, mask, max, exp, sum, pack),
+// so the score loops keep those few: one FFMA and one ex2.approx a score,
+// masks only on the last tile.
 //
-// Design.  The TPU kernel keeps one head's whole K and V resident in VMEM
-// and pads N to its 128-row tile; at fp32 that is ~400 KB, past a CTA's
-// 227 KB of shared memory, so here K and V stream through shared memory in
-// 64-row tiles with an online softmax (running max and sum in fp32).
-// * fwd: one CTA per (64-query tile, head, batch).  Per key tile the 256
-//   threads (16 x 16) each own a 4 x 4 block of scores (queries ty+16i,
-//   keys tx+16j), reduce the row max and sum across the 16 threads of a row
-//   with shuffles, and write the rounded weights to shared memory for the
-//   P V product, where each thread owns 4 queries x 4 head-dim columns.
-//   It also writes lse = max + log(sum) per (row, head).
-// * bwd: the TPU kernel adds dk and dv into output blocks that later grid
-//   steps revisit, which a GPU grid cannot do.  The deterministic form here
-//   uses no atomics: (1) one warp per (row, head) forms
-//   D = rowsum(dO * O) = rowsum(dP * P); (2) one CTA per (64-key tile, head,
-//   batch) loops over every query tile, recomputes S^T and dP^T for its keys
-//   and accumulates dV = P^T dO and dK = scale * dS^T Q in registers;
-//   (3) one CTA per (64-query tile, head, batch) loops over every key tile
-//   for dQ = scale * dS K.  Each output element is summed by one thread in a
-//   fixed order, so two runs give identical gradients.  The backward
-//   recomputes S with the forward's exact operation order (an fmaf chain
-//   over the head dim, then * scale), so exp(S - lse) sums to 1 as in the
-//   forward.
+// bf16: the tensor-core kernels (FlashAttention-2's scheme with mma.sync).
+// * Tiles of 64 tokens, 4 warps (128 threads) a CTA, each warp 16 rows of
+//   the CTA's tile.  Shared tiles are bf16 [64][64 + 8]: the 144-byte row
+//   keeps ldmatrix free of bank conflicts.  The streamed operand tiles go
+//   through a ring of kStages = 2 cp.async stages (16-byte copies, rows past
+//   N zero-filled by src-size 0): the copy of the next tile is in flight
+//   while the current one computes, with one barrier a tile.
+// * Products: mma.sync m16n8k16 bf16 x bf16 -> fp32 (bf16 products are
+//   exact in fp32).  A 16 x 64 accumulator block of one warp is 8 n-tiles
+//   of 4 registers, and its layout is that of the A operand of the next
+//   product: the rounded P (or dS) is packed to bf16 in registers and used
+//   as the A fragments directly; it never goes to shared memory.
+// * fwd (attn_fwd_mma_kernel): one CTA per (64-query tile, head, batch);
+//   Q's fragments stay in registers, K and V stream.  S = Q K^T; the online
+//   softmax on the accumulator fragments keeps the row max of the unscaled
+//   scores (reduced over the 4 lanes of a quad by shuffles) and forms
+//   P = 2^(S * scale * log2 e - max * scale * log2 e) with one FFMA; O +=
+//   bf16(P) V with P at the running max; O = acc / l in bf16 and lse =
+//   max * scale + log(l) leave through shared memory in 16-byte stores.
+//   Shared memory: Q 9 KB + 2 stages x (K, V) 36 KB = 45 KB a CTA.
+// * bwd: (1) attn_rowdot_mma_kernel forms D as the diagonal of dO O^T on
+//   the tensor cores, so D rounds as dP = dO V^T does (with one key, O = V
+//   and dS = P (dP - D) is exactly 0, as in the plain version).
+//   (2) attn_bwd_kv_mma_kernel, one CTA per (64-key tile, head, batch): K
+//   and V stay in shared memory (their fragments are read again per tile,
+//   which frees 32 registers a thread for a third CTA an SM); Q, dO, lse
+//   and D stream.  Per warp (16 keys) S^T = K Q^T and dP^T = V dO^T,
+//   P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - D), dV += bf16(P^T) dO,
+//   dK += bf16(dS^T) Q.  Shared memory: K, V 18 KB + 2 stages x (Q, dO,
+//   lse, D) 37 KB = 55 KB.
+//   (3) attn_bwd_q_mma_kernel, one CTA per (64-query tile, head, batch): Q
+//   and dO fragments stay in registers, K and V stream; S and dP in the
+//   forward's orientation and k order, dQ += bf16(dS) K.  54 KB.
+//   That is 14*N^2*Dh of products a head (S and dP twice) against 10 for a
+//   single pass, the price of determinism: a dQ partial per key tile would
+//   need ~1 GB of scratch at the main shape.
+// * Determinism: no atomics.  Every dq, dk and dv element is the sum of one
+//   thread's accumulator over the tiles in order, and D, lse and the
+//   outputs have one writer each: two runs give identical bits.
+// * Registers, spills and CTAs per SM of each kernel: chip_smoke.py prints
+//   the build's -Xptxas -v lines and attn_kernel_info's occupancy (the dK/dV
+//   and dQ kernels are held to 3 CTAs an SM by __launch_bounds__).  On the
+//   H100 with CUDA 12.8: fwd 128 registers a thread (8 bytes spilled), 4
+//   CTAs an SM; row dots 34 registers, 12 CTAs; dK/dV 168 registers (8 bytes
+//   spilled), 3 CTAs; dQ 168 registers (16 bytes spilled), 3 CTAs.
+//
+// fp32: the SIMT kernels (attn_fwd_kernel, attn_bwd_kv_kernel,
+// attn_bwd_q_kernel).  The fp32 limits (output 2e-5, gradients 1e-4) need
+// fp32 products: TF32 or bf16 tensor cores would break them.  No model path
+// runs attention in fp32 (vit_s8 computes in bf16).  The TPU kernel keeps
+// one head's whole K and V resident in VMEM; at fp32 that is ~400 KB, past a
+// CTA's 227 KB of shared memory, so K and V stream through shared memory in
+// 64-row fp32 tiles with an online softmax.  fwd: one CTA of 256 threads
+// (16 x 16) per (64-query tile, head, batch), each thread a 4 x 4 block of
+// scores (queries ty+16i, keys tx+16j), row max and sum over the 16 threads
+// of a row by shuffles, the weights written to shared memory for P V.  bwd:
+// attn_rowdot_kernel (one thread per row, an fmaf chain over the head dim in
+// tile_dot's order, so D rounds as dP does), then one CTA per key tile for
+// dK and dV and one per query tile for dQ, as above.  The backward
+// recomputes S with the forward's exact operation order (an fmaf chain over
+// the head dim, then * scale), so exp(S - lse) sums to 1 as in the forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +105,7 @@ namespace {
 
 constexpr int kD = 64;         // head dim
 constexpr int kTile = 64;      // queries or keys per tile
-constexpr int kThreads = 256;  // 16 x 16 threads (ops/attention_cuda.THREADS)
+constexpr int kThreads = 256;  // fp32 SIMT kernels: 16 x 16 threads
 constexpr int kLd = kD + 1;    // padded shared row (floats): conflict-free columns
 constexpr int kTileFloats = kTile * kLd;
 
@@ -73,6 +114,8 @@ struct View {
   const void* ptr;
   long long sb, sn, sh;
 };
+
+// ============================================ fp32: SIMT kernels (FFMA)
 
 template <typename T>
 struct Io;
@@ -89,29 +132,6 @@ struct Io<float> {
   static __device__ __forceinline__ float to_float(float x) { return x; }
   static __device__ __forceinline__ float from_float(float x) { return x; }
   static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  static __device__ __forceinline__ void unpack(const uint4& raw, float* out) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);  // round to nearest even, as astype
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
 };
 
 // Rows [n0, n0 + 64) of head h in batch b -> tile[row * kLd + col] as fp32;
@@ -216,8 +236,6 @@ __device__ __forceinline__ void store_block(T* out, const float (&acc)[4][4], fl
   }
 }
 
-// ------------------------------------------------------------------ forward
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     attn_fwd_kernel(View q, View k, View v, T* out, float* lse, int n, int heads,
@@ -285,25 +303,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ----------------------------------------------------------------- backward
-
-// (1) dsum[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d], one warp per row.
-template <typename T>
+// (1) dsum[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d], one thread per
+// row: an fmaf chain over d in ascending order, tile_dot's order, so D
+// rounds as dP = dO . V does.
 __global__ void attn_rowdot_kernel(View g, View o, float* dsum, int batch, int n,
                                    int heads) {
-  const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= (long long)batch * n * heads) return;
   const int h = (int)(row % heads);
   const int t = (int)((row / heads) % n);
   const int b = (int)(row / ((long long)heads * n));
-  const T* gp = static_cast<const T*>(g.ptr) + b * g.sb + t * g.sn + h * g.sh;
-  const T* op = static_cast<const T*>(o.ptr) + b * o.sb + t * o.sn + h * o.sh;
-  float s = Io<T>::to_float(gp[lane]) * Io<T>::to_float(op[lane]);
-  s = fmaf(Io<T>::to_float(gp[lane + 32]), Io<T>::to_float(op[lane + 32]), s);
+  const float* gp = static_cast<const float*>(g.ptr) + b * g.sb + t * g.sn + h * g.sh;
+  const float* op = static_cast<const float*>(o.ptr) + b * o.sb + t * o.sn + h * o.sh;
+  float s = 0.f;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) dsum[((long long)b * heads + h) * n + t] = s;
+  for (int d = 0; d < kD; d += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(gp + d);
+    const float4 y = *reinterpret_cast<const float4*>(op + d);
+    s = fmaf(x.x, y.x, s);
+    s = fmaf(x.y, y.y, s);
+    s = fmaf(x.z, y.z, s);
+    s = fmaf(x.w, y.w, s);
+  }
+  dsum[((long long)b * heads + h) * n + t] = s;
 }
 
 // (2) dK and dV of one 64-key tile, looping over every query tile.
@@ -419,68 +441,656 @@ constexpr size_t kFwdSmem = 4 * kTileFloats * sizeof(float);
 constexpr size_t kKvSmem = (6 * kTileFloats + 2 * kTile) * sizeof(float);
 constexpr size_t kQSmem = (5 * kTileFloats + 2 * kTile) * sizeof(float);
 
+// ============================= bf16: tensor-core kernels (mma.sync, cp.async)
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaThreads = 128;  // 4 warps, 16 rows of the tile each
+constexpr int kStages = 2;        // cp.async ring depth
+constexpr int kLdh = kD + 8;      // bf16 shared row: 144 bytes
+constexpr int kTileHalves = kTile * kLdh;
+constexpr size_t kTileBytes = kTileHalves * sizeof(bf16);  // 9,216
+constexpr size_t kRowBytes = kTile * sizeof(float);        // lse or D of a tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !valid (src-size
+// 0: nothing is read, `src` only has to be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `kPending` of this thread's groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a * b, m16n8k16, bf16 operands, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: ~2^-22 relative error;
+// -inf gives 0).  exp2f adds a denormal path around it, which costs the
+// score loops ~10 % (measured on the card).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // nearest even, as astype
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t.  An fp32
+// accumulator n-tile c[4] holds rows g (c0, c1) and g + 8 (c2, c3) at
+// columns 2t, 2t + 1.  A 16 x 64 block is c[8][4]: n-tile j covers columns
+// 8j .. 8j + 7.
+
+// Rows [n0, n0 + 64) of head h in batch b of a bf16 operand -> a padded
+// shared tile, asynchronously (one commit group is the caller's); rows at or
+// past n are zero.
+__device__ __forceinline__ void tile_async(bf16* tile, const View& v, int b, int h, int n0,
+                                           int n) {
+  const bf16* base = static_cast<const bf16*>(v.ptr) + b * v.sb + h * v.sh;
+  for (int i = threadIdx.x; i < kTile * (kD / 8); i += kMmaThreads) {
+    const int row = i / (kD / 8), col = (i % (kD / 8)) * 8;
+    const bool ok = n0 + row < n;
+    cp_async16(tile + row * kLdh + col, base + (long long)(ok ? n0 + row : 0) * v.sn + col,
+               ok);
+  }
+}
+
+// Entries [n0, n0 + 64) of two [B, H, N] fp32 row vectors (the lse and D of
+// a query tile) -> shared, asynchronously; past n: 0.
+__device__ __forceinline__ void rows_async(float* dst, const float* lse, const float* dsum,
+                                           int n0, int n) {
+  const int i = threadIdx.x % kTile;
+  const float* src = threadIdx.x < kTile ? lse : dsum;
+  const bool ok = n0 + i < n;
+  cp_async4(dst + threadIdx.x, src + (ok ? n0 + i : 0), ok);
+}
+
+// A fragments of the warp's 16 rows (from r0) x 64 columns of a tile.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* tile, int r0,
+                                       int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    ldmatrix_x4(a[kk], tile + (r0 + (lane & 15)) * kLdh + kk * 16 + (lane >> 4) * 8);
+}
+
+// acc (16 x 64) += A (16 x 64 head dims) * tile^T: column j is the tile's
+// row j.  B fragments by ldmatrix (non-trans): two n-tiles per x4, the head
+// dim in ascending k-steps.
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[4][4],
+                                        const bf16* tile, int lane) {
+  const int row = (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, tile + (np * 16 + row) * kLdh + kk * 16 + col);
+      mma_bf16(acc[2 * np], a[kk], bf[0], bf[1]);
+      mma_bf16(acc[2 * np + 1], a[kk], bf[2], bf[3]);
+    }
+}
+
+// acc (16 x 64 head dims) += A (16 x 64 tile rows) * tile.  B fragments by
+// ldmatrix.trans: two head-dim n-tiles per x4, the tile rows in ascending
+// k-steps.
+__device__ __forceinline__ void mma_ab(float (&acc)[8][4], const uint32_t (&a)[4][4],
+                                       const bf16* tile, int lane) {
+  const int row = lane & 15, col = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int dp = 0; dp < 4; ++dp) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, tile + (kk * 16 + row) * kLdh + dp * 16 + col);
+      mma_bf16(acc[2 * dp], a[kk], bf[0], bf[1]);
+      mma_bf16(acc[2 * dp + 1], a[kk], bf[2], bf[3]);
+    }
+}
+
+// Accumulator block (16 x 64) -> bf16 A fragments (16 x 64): n-tiles 2kk and
+// 2kk + 1 are k-step kk.
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&c)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&c)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+}
+
+// The warp's 16 x 64 block -> bf16 rows t0 .. t0 + 15 (those before n) of
+// head h of a contiguous [B, N, H, 64] output, through the warp's 16 rows
+// of a padded shared tile (`stage`, read by no other warp) and 16-byte
+// stores.
+__device__ __forceinline__ void store_rows(bf16* out, const float (&c)[8][4], bf16* stage,
+                                           int t0, int b, int h, int n, int heads,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(stage + ((lane >> 2) + 8 * hh) * kLdh + j * 8 +
+                                   2 * (lane & 3)) = pack_bf16(c[j][2 * hh], c[j][2 * hh + 1]);
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * (kD / 8); i += 32) {
+    const int row = i / (kD / 8), col = (i % (kD / 8)) * 8;
+    if (t0 + row < n)
+      *reinterpret_cast<uint4*>(out + (((long long)b * n + t0 + row) * heads + h) * kD + col) =
+          *reinterpret_cast<const uint4*>(stage + row * kLdh + col);
+  }
+}
+
+// ------------------------------------------------------------------ forward
+
+__global__ void __launch_bounds__(kMmaThreads)
+    attn_fwd_mma_kernel(View q, View k, View v, bf16* out, float* lse, int n, int heads,
+                        float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][kLdh]
+  bf16* ring = qs + kTileHalves;                 // kStages x (K, V)
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles = (n + kTile - 1) / kTile;
+
+  tile_async(qs, q, b, h, q0, n);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < tiles) {
+      tile_async(ring + 2 * s * kTileHalves, k, b, h, s * kTile, n);
+      tile_async(ring + (2 * s + 1) * kTileHalves, v, b, h, s * kTile, n);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();  // Q has landed
+  __syncthreads();
+  uint32_t qf[4][4];
+  load_a(qf, qs, warp * 16, lane);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8: max of S, sum
+  float o[8][4];
+  zero(o);
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<kStages - 2>();  // tile j has landed
+    __syncthreads();               // for every thread; and tile j - 1 is read
+    {
+      const int next = j + kStages - 1, s = next % kStages;
+      if (next < tiles) {
+        tile_async(ring + 2 * s * kTileHalves, k, b, h, next * kTile, n);
+        tile_async(ring + (2 * s + 1) * kTileHalves, v, b, h, next * kTile, n);
+      }
+      cp_async_commit();
+    }
+    const bf16* ks = ring + 2 * (j % kStages) * kTileHalves;
+    const bf16* vs = ks + kTileHalves;
+    const int k0 = j * kTile;
+
+    float s[8][4];
+    zero(s);
+    mma_abt(s, qf, ks, lane);  // S = Q K^T, unscaled
+    if (k0 + kTile > n) {      // the last tile: keys past n take no weight
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + nt * 8 + 2 * (lane & 3) + (e & 1) >= n) s[nt][e] = -INFINITY;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // finite: the first tile holds key 0, and m only grows
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = ex2((m[r] - m_new) * scale_log2);  // 0 on the first tile
+      const float offset = -m_new * scale_log2;
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[nt][e] = ex2(fmaf(s[nt][e], scale_log2, offset));  // 0 for masked keys
+          sum += s[nt][e];
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[r] = l[r] * alpha + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        o[nt][2 * r] *= alpha;
+        o[nt][2 * r + 1] *= alpha;
+      }
+    }
+    uint32_t pf[4][4];
+    to_a(pf, s);          // P rounded to bf16, at the running max
+    mma_ab(o, pf, vs, lane);  // O += P V
+  }
+
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = o[nt][e] / l[e >> 1];
+  const int t0 = q0 + warp * 16;
+  store_rows(out, o, qs + warp * 16 * kLdh, t0, b, h, n, heads, lane);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = t0 + (lane >> 2) + 8 * r;
+      if (t < n)
+        lse[((long long)b * heads + h) * n + t] = fmaf(m[r], scale_log2, log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+// ----------------------------------------------------------------- backward
+
+// (1) dsum[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d]: the diagonal of
+// dO O^T for each warp's 16 rows, on the tensor cores with dP's operands
+// and k order.  One CTA per (64-row tile, head, batch).
+__global__ void __launch_bounds__(kMmaThreads)
+    attn_rowdot_mma_kernel(View g, View o, float* dsum, int n, int heads) {
+  __shared__ __align__(16) bf16 gs[kTileHalves];
+  __shared__ __align__(16) bf16 os[kTileHalves];
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  tile_async(gs, g, b, h, q0, n);
+  tile_async(os, o, b, h, q0, n);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t gf[4][4];
+  load_a(gf, gs, warp * 16, lane);
+  float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  const int row = warp * 16 + (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t bf[4];
+    ldmatrix_x4(bf, os + row * kLdh + kk * 16 + col);
+    mma_bf16(c[0], gf[kk], bf[0], bf[1]);
+    mma_bf16(c[1], gf[kk], bf[2], bf[3]);
+  }
+  // row g's diagonal entry is column g of n-tile 0 (row g + 8's: column g of
+  // n-tile 1), held by the lane with 2t + (g & 1) = g
+  const int gr = lane >> 2;
+  if ((lane & 3) == (gr >> 1)) {
+    const long long base = ((long long)b * heads + h) * n;
+    const int t = q0 + warp * 16 + gr;
+    if (t < n) dsum[base + t] = c[0][gr & 1];
+    if (t + 8 < n) dsum[base + t + 8] = c[1][2 + (gr & 1)];
+  }
+}
+
+// (2) dK and dV of one 64-key tile, looping over every query tile.
+constexpr size_t kKvStageBytes = 2 * kTileBytes + 2 * kRowBytes;  // Q, dO, lse, D
+
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    attn_bwd_kv_mma_kernel(View q, View k, View v, View g, const float* lse,
+                           const float* dsum, bf16* dk, bf16* dv, int n, int heads,
+                           float scale, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [64 keys][kLdh], resident
+  bf16* vs = ks + kTileHalves;                   // [64 keys][kLdh], resident
+  unsigned char* ring = smem_raw + 2 * kTileBytes;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles = (n + kTile - 1) / kTile;
+  const long long row_base = ((long long)b * heads + h) * n;
+  auto load_stage = [&](int s, int q0) {
+    bf16* qs = reinterpret_cast<bf16*>(ring + s * kKvStageBytes);
+    tile_async(qs, q, b, h, q0, n);
+    tile_async(qs + kTileHalves, g, b, h, q0, n);
+    rows_async(reinterpret_cast<float*>(qs + 2 * kTileHalves), lse + row_base,
+               dsum + row_base, q0, n);
+  };
+
+  tile_async(ks, k, b, h, k0, n);
+  tile_async(vs, v, b, h, k0, n);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < tiles) load_stage(s, s * kTile);
+    cp_async_commit();
+  }
+  float dk_acc[8][4], dv_acc[8][4];  // rows: the warp's 16 keys; columns: head dim
+  zero(dk_acc);
+  zero(dv_acc);
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<kStages - 2>();  // tile j (and, on the first, K and V) has landed
+    __syncthreads();
+    {
+      const int next = j + kStages - 1;
+      if (next < tiles) load_stage(next % kStages, next * kTile);
+      cp_async_commit();
+    }
+    const bf16* qs = reinterpret_cast<const bf16*>(ring + (j % kStages) * kKvStageBytes);
+    const bf16* gs = qs + kTileHalves;
+    const float* ls = reinterpret_cast<const float*>(gs + kTileHalves);
+    const float* ds = ls + kTile;
+    const int q0 = j * kTile;
+
+    // K's and V's A fragments are read again for each tile: held in
+    // registers they would cost 32 more a thread, and 3 CTAs an SM
+    // (__launch_bounds__) ran 5 % faster than 2 (measured on the card)
+    uint32_t af[4][4];
+    load_a(af, ks, warp * 16, lane);
+    // P^T (rows: keys; columns: queries nt * 8 + 2t + (e & 1)), 0 past n
+    float p[8][4];
+    zero(p);
+    mma_abt(p, af, qs, lane);  // S^T = K Q^T
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + nt * 8 + 2 * (lane & 3));
+      const float lse0 = -l2.x * kLog2e, lse1 = -l2.y * kLog2e;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[nt][e] = ex2(fmaf(p[nt][e], scale_log2, (e & 1) ? lse1 : lse0));
+    }
+    if (q0 + kTile > n) {  // the last tile: query rows past n add nothing
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (q0 + nt * 8 + 2 * (lane & 3) + (e & 1) >= n) p[nt][e] = 0.f;
+    }
+    to_a(af, p);
+    mma_ab(dv_acc, af, gs, lane);  // dV += bf16(P^T) dO
+
+    load_a(af, vs, warp * 16, lane);
+    float dp[8][4];
+    zero(dp);
+    mma_abt(dp, af, gs, lane);  // dP^T = V dO^T
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 d2 = *reinterpret_cast<const float2*>(ds + nt * 8 + 2 * (lane & 3));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - ((e & 1) ? d2.y : d2.x));
+    }
+    to_a(af, dp);
+    mma_ab(dk_acc, af, qs, lane);  // dK += bf16(dS^T) Q
+  }
+
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] *= scale;
+  const int t0 = k0 + warp * 16;
+  store_rows(dv, dv_acc, vs + warp * 16 * kLdh, t0, b, h, n, heads, lane);
+  store_rows(dk, dk_acc, ks + warp * 16 * kLdh, t0, b, h, n, heads, lane);
+}
+
+// (3) dQ of one 64-query tile, looping over every key tile.
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    attn_bwd_q_mma_kernel(View q, View k, View v, View g, const float* lse,
+                          const float* dsum, bf16* dq, int n, int heads, float scale,
+                          float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64 queries][kLdh]
+  bf16* gs = qs + kTileHalves;                   // [64 queries][kLdh]
+  bf16* ring = gs + kTileHalves;                 // kStages x (K, V)
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles = (n + kTile - 1) / kTile;
+  const long long row_base = ((long long)b * heads + h) * n;
+
+  tile_async(qs, q, b, h, q0, n);
+  tile_async(gs, g, b, h, q0, n);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < tiles) {
+      tile_async(ring + 2 * s * kTileHalves, k, b, h, s * kTile, n);
+      tile_async(ring + (2 * s + 1) * kTileHalves, v, b, h, s * kTile, n);
+    }
+    cp_async_commit();
+  }
+  // the rows g and g + 8 of this lane: -lse in log2 units and D; 0 past n
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    lse2[r] = t < n ? -lse[row_base + t] * kLog2e : 0.f;
+    dd[r] = t < n ? dsum[row_base + t] : 0.f;
+  }
+  cp_async_wait<kStages - 1>();  // Q and dO have landed
+  __syncthreads();
+  uint32_t qf[4][4], gf[4][4];
+  load_a(qf, qs, warp * 16, lane);
+  load_a(gf, gs, warp * 16, lane);
+
+  float dq_acc[8][4];
+  zero(dq_acc);
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    {
+      const int next = j + kStages - 1, s = next % kStages;
+      if (next < tiles) {
+        tile_async(ring + 2 * s * kTileHalves, k, b, h, next * kTile, n);
+        tile_async(ring + (2 * s + 1) * kTileHalves, v, b, h, next * kTile, n);
+      }
+      cp_async_commit();
+    }
+    const bf16* ks = ring + 2 * (j % kStages) * kTileHalves;
+    const bf16* vs = ks + kTileHalves;
+    const int k0 = j * kTile;
+
+    float p[8][4], dp[8][4];
+    zero(p);
+    zero(dp);
+    mma_abt(p, qf, ks, lane);   // S = Q K^T, the forward's orientation and k order
+    mma_abt(dp, gf, vs, lane);  // dP = dO V^T
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[nt][e] = ex2(fmaf(p[nt][e], scale_log2, lse2[e >> 1]));
+    if (k0 + kTile > n) {  // the last tile: keys past n take no weight
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + nt * 8 + 2 * (lane & 3) + (e & 1) >= n) p[nt][e] = 0.f;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - dd[e >> 1]);  // dS
+    uint32_t af[4][4];
+    to_a(af, dp);
+    mma_ab(dq_acc, af, ks, lane);  // dQ += bf16(dS) K
+  }
+
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[nt][e] *= scale;
+  store_rows(dq, dq_acc, qs + warp * 16 * kLdh, q0 + warp * 16, b, h, n, heads, lane);
+}
+
+constexpr size_t kFwdMmaSmem = kTileBytes + kStages * 2 * kTileBytes;
+constexpr size_t kKvMmaSmem = 2 * kTileBytes + kStages * kKvStageBytes;
+constexpr size_t kQMmaSmem = 2 * kTileBytes + kStages * 2 * kTileBytes;
+
+// ------------------------------------------------------------------- host
+
 View make_view(const void* ptr, const long long* strides) {
   return View{ptr, strides[0], strides[1], strides[2]};
 }
 
-template <typename T>
-cudaError_t fwd(const void* q, const void* k, const void* v, const long long* st,
-                void* out, void* lse, int batch, int n, int heads, float scale,
-                cudaStream_t stream) {
+float log2_scale(float scale) { return (float)((double)scale * 1.4426950408889634); }
+
+cudaError_t fwd_simt(const void* q, const void* k, const void* v, const long long* st,
+                     void* out, void* lse, int batch, int n, int heads, float scale,
+                     cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem);
+      attn_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kTile - 1) / kTile, heads, batch);
-  attn_fwd_kernel<T><<<grid, kThreads, kFwdSmem, stream>>>(
+  attn_fwd_kernel<float><<<grid, kThreads, kFwdSmem, stream>>>(
       make_view(q, st), make_view(k, st + 3), make_view(v, st + 6),
-      static_cast<T*>(out), static_cast<float*>(lse), n, heads, scale);
+      static_cast<float*>(out), static_cast<float*>(lse), n, heads, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
-                const void* g, const long long* st, const void* lse, void* dsum,
-                void* dq, void* dk, void* dv, int batch, int n, int heads, float scale,
-                cudaStream_t stream) {
+cudaError_t fwd_mma(const void* q, const void* k, const void* v, const long long* st,
+                    void* out, void* lse, int batch, int n, int heads, float scale,
+                    cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdMmaSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kTile - 1) / kTile, heads, batch);
+  attn_fwd_mma_kernel<<<grid, kMmaThreads, kFwdMmaSmem, stream>>>(
+      make_view(q, st), make_view(k, st + 3), make_view(v, st + 6), static_cast<bf16*>(out),
+      static_cast<float*>(lse), n, heads, log2_scale(scale));
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_simt(const void* q, const void* k, const void* v, const void* o,
+                     const void* g, const long long* st, const void* lse, void* dsum,
+                     void* dq, void* dk, void* dv, int batch, int n, int heads, float scale,
+                     cudaStream_t stream) {
   const View qv = make_view(q, st), kv = make_view(k, st + 3), vv = make_view(v, st + 6);
   const View ov = make_view(o, st + 9), gv = make_view(g, st + 12);
   const long long rows = (long long)batch * n * heads;
-  const int warps_per_cta = kThreads / 32;
-  attn_rowdot_kernel<T><<<(unsigned)((rows + warps_per_cta - 1) / warps_per_cta),
-                          kThreads, 0, stream>>>(gv, ov, static_cast<float*>(dsum),
-                                                 batch, n, heads);
+  attn_rowdot_kernel<<<(unsigned)((rows + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      gv, ov, static_cast<float*>(dsum), batch, n, heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_kv_kernel<T>,
+  err = cudaFuncSetAttribute(attn_bwd_kv_kernel<float>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kKvSmem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_q_kernel<T>,
+  err = cudaFuncSetAttribute(attn_bwd_q_kernel<float>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kQSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kTile - 1) / kTile, heads, batch);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dsum);
-  attn_bwd_kv_kernel<T><<<grid, kThreads, kKvSmem, stream>>>(
-      qv, kv, vv, gv, l, d, static_cast<T*>(dk), static_cast<T*>(dv), n, heads, scale);
+  attn_bwd_kv_kernel<float><<<grid, kThreads, kKvSmem, stream>>>(
+      qv, kv, vv, gv, l, d, static_cast<float*>(dk), static_cast<float*>(dv), n, heads,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_q_kernel<T><<<grid, kThreads, kQSmem, stream>>>(
-      qv, kv, vv, gv, l, d, static_cast<T*>(dq), n, heads, scale);
+  attn_bwd_q_kernel<float><<<grid, kThreads, kQSmem, stream>>>(
+      qv, kv, vv, gv, l, d, static_cast<float*>(dq), n, heads, scale);
   return cudaGetLastError();
 }
 
+cudaError_t bwd_mma(const void* q, const void* k, const void* v, const void* o,
+                    const void* g, const long long* st, const void* lse, void* dsum,
+                    void* dq, void* dk, void* dv, int batch, int n, int heads, float scale,
+                    cudaStream_t stream) {
+  const View qv = make_view(q, st), kv = make_view(k, st + 3), vv = make_view(v, st + 6);
+  const View ov = make_view(o, st + 9), gv = make_view(g, st + 12);
+  const dim3 grid((n + kTile - 1) / kTile, heads, batch);
+  attn_rowdot_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(gv, ov, static_cast<float*>(dsum),
+                                                           n, heads);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attn_bwd_kv_mma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kKvMmaSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attn_bwd_q_mma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kQMmaSmem);
+  if (err != cudaSuccess) return err;
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(dsum);
+  const float s2 = log2_scale(scale);
+  attn_bwd_kv_mma_kernel<<<grid, kMmaThreads, kKvMmaSmem, stream>>>(
+      qv, kv, vv, gv, l, d, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, heads, scale,
+      s2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_q_mma_kernel<<<grid, kMmaThreads, kQMmaSmem, stream>>>(
+      qv, kv, vv, gv, l, d, static_cast<bf16*>(dq), n, heads, scale, s2);
+  return cudaGetLastError();
+}
+
+struct KernelEntry {
+  const char* name;
+  const void* fn;
+  int threads;
+  size_t smem;  // dynamic shared memory of a launch
+};
+
+const KernelEntry kKernels[] = {
+    {"attn_fwd_mma_kernel", (const void*)attn_fwd_mma_kernel, kMmaThreads, kFwdMmaSmem},
+    {"attn_rowdot_mma_kernel", (const void*)attn_rowdot_mma_kernel, kMmaThreads, 0},
+    {"attn_bwd_kv_mma_kernel", (const void*)attn_bwd_kv_mma_kernel, kMmaThreads, kKvMmaSmem},
+    {"attn_bwd_q_mma_kernel", (const void*)attn_bwd_q_mma_kernel, kMmaThreads, kQMmaSmem},
+    {"attn_fwd_kernel<float>", (const void*)attn_fwd_kernel<float>, kThreads, kFwdSmem},
+    {"attn_rowdot_kernel", (const void*)attn_rowdot_kernel, kThreads, 0},
+    {"attn_bwd_kv_kernel<float>", (const void*)attn_bwd_kv_kernel<float>, kThreads, kKvSmem},
+    {"attn_bwd_q_kernel<float>", (const void*)attn_bwd_q_kernel<float>, kThreads, kQSmem},
+};
+
 }  // namespace
 
-// strides: (batch, token, head) element strides of q, k, v.  dtype 0 = fp32,
-// 1 = bf16.  Returns the CUDA error of the launch (0 on success).
+// strides: (batch, token, head) element strides of q, k, v.  dtype 0 = fp32
+// (SIMT), 1 = bf16 (tensor cores).  Returns the CUDA error of the launch (0
+// on success).
 extern "C" int attn_fwd_launch(const void* q, const void* k, const void* v,
                                const long long* strides, void* out, void* lse,
                                int batch, int n, int heads, float scale, int dtype,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)fwd<float>(q, k, v, strides, out, lse, batch, n, heads, scale, s);
-  return (int)fwd<__nv_bfloat16>(q, k, v, strides, out, lse, batch, n, heads, scale, s);
+    return (int)fwd_simt(q, k, v, strides, out, lse, batch, n, heads, scale, s);
+  return (int)fwd_mma(q, k, v, strides, out, lse, batch, n, heads, scale, s);
 }
 
 // strides: (batch, token, head) element strides of q, k, v, o and g.  dsum
@@ -492,8 +1102,34 @@ extern "C" int attn_bwd_launch(const void* q, const void* k, const void* v,
                                int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)bwd<float>(q, k, v, o, g, strides, lse, dsum, dq, dk, dv, batch, n,
-                           heads, scale, s);
-  return (int)bwd<__nv_bfloat16>(q, k, v, o, g, strides, lse, dsum, dq, dk, dv, batch,
-                                 n, heads, scale, s);
+    return (int)bwd_simt(q, k, v, o, g, strides, lse, dsum, dq, dk, dv, batch, n, heads,
+                         scale, s);
+  return (int)bwd_mma(q, k, v, o, g, strides, lse, dsum, dq, dk, dv, batch, n, heads, scale,
+                      s);
+}
+
+// Kernel `which` (0 .. count - 1) of this library as the card runs it:
+// its name, and info = {registers a thread, local (spill) bytes a thread,
+// shared bytes a CTA (static + dynamic), threads a CTA, resident CTAs per
+// SM}.  Returns the number of kernels, or -1 on a CUDA error.
+extern "C" int attn_kernel_info(int which, const char** name, int* info) {
+  const int count = (int)(sizeof(kKernels) / sizeof(kKernels[0]));
+  if (which < 0 || which >= count) return count;
+  const KernelEntry& e = kKernels[which];
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, e.fn) != cudaSuccess) return -1;
+  if (cudaFuncSetAttribute(e.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)e.smem) != cudaSuccess)
+    return -1;
+  int ctas = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, e.fn, e.threads, e.smem) !=
+      cudaSuccess)
+    return -1;
+  *name = e.name;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)(attr.sharedSizeBytes + e.smem);
+  info[3] = e.threads;
+  info[4] = ctas;
+  return count;
 }

@@ -3,13 +3,30 @@ wrappers.
 
 They replace the JAX package's two TPU kernels of
 ``ops/attention_pallas.py``: ``_attention_fwd_hd`` (:func:`fwd`) and
-``_attention_bwd_hd`` (:func:`bwd`).  ``csrc/attention.cu`` explains their
-design and bound; :mod:`.attention` holds the plain version and the
-``autograd.Function`` that calls these wrappers for CUDA tensors.
+``_attention_bwd_hd`` (:func:`bwd`).  :mod:`.attention` holds the plain
+version and the ``autograd.Function`` that calls these wrappers for CUDA
+tensors.
+
+bf16 runs on the tensor cores: ``mma.sync`` m16n8k16 with fp32
+accumulation, FlashAttention-2's scheme.  A CTA of 4 warps takes a tile of
+64 queries (forward, dQ) or 64 keys (dK/dV); each warp holds 16 rows of
+the resident operand as registers; the streamed 64-row tiles go through a
+2-stage ``cp.async`` ring of bf16 shared tiles (45-55 KB a CTA); the
+rounded weights P and score gradients dS stay in registers as the next
+product's operand.  fp32 runs on SIMT kernels (256 threads, FFMA): the
+fp32 limits need fp32 products, which neither TF32 nor bf16 tensor cores
+give, and no model path runs attention in fp32.  Both dtypes compute what
+the TPU kernels compute (P and dS rounded to the input dtype before their
+products, dq and dk scaled after them), and the backward is deterministic:
+no atomics, one writer per output element.  The bound at ``vit_s8``'s
+shape [64, 785, 6, 64] is the bf16 tensor-core rate: forward 60.6 GFLOP,
+0.0613 ms; backward 151 GFLOP, 0.153 ms; ``csrc/attention.cu`` gives the
+details.
 
 The source is built with ``nvcc`` on first use (:mod:`.nvcc`) and loaded
 through ``ctypes``.  Nothing is compiled or loaded when this module is
-imported.
+imported.  :func:`kernel_info` reads each kernel's registers, spill bytes,
+shared memory and resident CTAs per SM from the card.
 
 The wrappers take q, k, v (and o, g) as ``[B, N, H, 64]`` tensors with any
 strides whose head-dim values are contiguous and 16-byte aligned, such as
@@ -31,7 +48,7 @@ from . import nvcc
 SOURCE = os.path.join(nvcc.CSRC_DIR, "attention.cu")
 NVCC_FLAGS = nvcc.BASE_FLAGS
 HEAD_DIM = 64  # csrc/attention.cu kD
-THREADS = 256  # csrc/attention.cu kThreads
+THREADS = {torch.float32: 256, torch.bfloat16: 128}  # csrc/attention.cu kThreads, kMmaThreads
 MAX_GRID_YZ = 65535  # heads and batch ride on gridDim.y / gridDim.z
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,10 +70,29 @@ def _library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.attn_fwd_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, i, p]
         lib.attn_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
-        for fn in (lib.attn_fwd_launch, lib.attn_bwd_launch):
+        lib.attn_kernel_info.argtypes = [i, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(i)]
+        for fn in (lib.attn_fwd_launch, lib.attn_bwd_launch, lib.attn_kernel_info):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def kernel_info() -> dict[str, dict[str, int]]:
+    """Each kernel of ``csrc/attention.cu`` as the card runs it: registers
+    a thread, local (spill) bytes a thread, shared bytes a CTA, threads a
+    CTA and resident CTAs per SM (``cudaFuncGetAttributes`` and the
+    occupancy calculator)."""
+    lib = _library()
+    name, info = ctypes.c_char_p(), (ctypes.c_int * 5)()
+    keys = ("registers", "local_bytes", "shared_bytes", "threads", "ctas_per_sm")
+    out, which, count = {}, 0, 1
+    while which < count:
+        count = lib.attn_kernel_info(which, ctypes.byref(name), info)
+        if count < 0:
+            raise RuntimeError("attn_kernel_info failed: a CUDA error")
+        out[name.value.decode()] = dict(zip(keys, info))
+        which += 1
+    return out
 
 
 def _check(t: torch.Tensor, name: str, like: torch.Tensor | None = None) -> None:

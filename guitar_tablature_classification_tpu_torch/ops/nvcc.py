@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -69,3 +70,18 @@ def build(source: str, flags: tuple[str, ...]) -> tuple[str, str]:
         )
     os.replace(tmp, path)
     return path, proc.stderr
+
+
+def ptxas_report(log: str) -> dict[str, str]:
+    """The ``-Xptxas -v`` lines of each kernel in a build log: {mangled
+    kernel name: its stack and spill line and its registers and shared
+    memory line, joined by "; "}."""
+    report, entry = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            entry = found.group(1)
+            report[entry] = []
+        elif entry is not None and ("bytes stack frame" in line or "registers" in line):
+            report[entry].append(line.split(": ", 1)[-1].strip())
+    return {name: "; ".join(lines) for name, lines in report.items()}

@@ -12,6 +12,7 @@ from autograd through it.
 
 import importlib.util
 import pathlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -181,3 +182,35 @@ def test_chip_smoke_limits_reject_faulty_attention(dtype, shape):
     assert not controls["p_unrounded"]["rejected"], controls
     if n == 785 and dtype == "bfloat16":
         assert controls["dv_halved"]["jax_limits_pass"], controls
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115attn_fwd_kernelIfEEvNS_4ViewES1_S1_PT_Pfiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115attn_fwd_kernelIfEEvNS_4ViewES1_S1_PT_Pfiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119attn_fwd_mma_kernelENS_4ViewES0_S0_P13__nv_bfloat16Pfiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119attn_fwd_mma_kernelENS_4ViewES0_S0_P13__nv_bfloat16Pfiif
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z12other_kernelPf' for 'sm_90a'
+ptxas info    : Function properties for _Z12other_kernelPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 16 registers, used 0 barriers
+"""
+
+
+def test_chip_smoke_reports_each_attention_kernels_registers_and_spills(capsys):
+    """chip_smoke.py's build report (a log shaped like the H100 build's):
+    each attn_ kernel's -Xptxas -v lines by name, the fp32 instantiations
+    marked, other kernels left out, and the card's occupancy beside them."""
+    smoke = _chip_smoke()
+    fake = types.SimpleNamespace(kernel_info=lambda: {"attn_fwd_mma_kernel": {"ctas_per_sm": 4}})
+    smoke.attention_build_report({"attention_cuda": fake}, PTXAS_LOG)
+    out = capsys.readouterr().out
+    assert ("attn_fwd_kernel<float>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+            "spill loads; Used 64 registers, used 1 barriers") in out
+    assert ("attn_fwd_mma_kernel: 8 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+            "loads; Used 128 registers, used 1 barriers, 8 bytes cumulative stack size") in out
+    assert "other_kernel" not in out
+    assert '"ctas_per_sm": 4' in out

@@ -215,14 +215,21 @@ def _qkv(b, n, h, dtype, device, seed=0):
     return qkv, [t.view(b, n, h, 64) for t in qkv.split(h * 64, dim=-1)], g
 
 
+# the tile edges of the kernels' 64-token tiles: N of one token, below,
+# at and past one tile, two and four tiles; one head (B=2) and six (B=1)
+ATTN_EDGE_SHAPES = [(2 if h == 1 else 1, n, h)
+                    for n in (1, 16, 17, 63, 64, 65, 129, 197) for h in (1, 6)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 50, 4), (1, 300, 2), (4, 785, 6)])
+@pytest.mark.parametrize("shape", [(2, 50, 4), (1, 300, 2), (4, 785, 6)] + ATTN_EDGE_SHAPES)
 def test_attention_kernels_match_plain(card, dtype, shape):
     """attn_fwd and attn_bwd against the plain version on strided views:
     the JAX package's tolerances and the relative limits, each launch
     counted, and two backward runs giving identical gradients (no
-    atomics)."""
+    atomics).  At N=1 the plain dq and dk are exactly 0 (dS = P (dP - D)
+    with P = 1 and D = dP), so the relative limits ask the kernels for 0."""
     b, n, h = shape
     qkv, (q, k, v), g = _qkv(b, n, h, dtype, card)
     before = dict(attention_cuda.launches)
