@@ -9,18 +9,21 @@
    ``csrc/stem_native.cu``, ``csrc/cqt_frame_gemm.cu``,
    ``csrc/stem_gemm.cu``, ``csrc/conv3x3.cu``: one ``nvcc`` each, started
    together); the attention kernels' ``-Xptxas -v`` lines (registers,
-   spills) and their occupancy on the card (shared bytes, CTAs per SM).
+   spills) and their occupancy on the card (shared bytes, CTAs per SM);
+   the same -Xptxas -v lines of the CQT tensor-core kernels.
 2. Kernel against plain version (TF32 off): the fused CQT kernel at every
    precision tier on the training recipe (B=4096), the 3 s serving recipe,
    a reflect-padded recipe and a hop-1000 recipe, each against its plain
-   PyTorch version on the same inputs, with the bound and the frame-GEMM
-   yardstick of the reflect and hop-1000 recipes (the shapes of TPU kernels
-   B3 and B4), plus the kernel at highest against the repo's NumPy golden
-   fixture.
+   PyTorch version on the same inputs, two runs identical, the ``default``
+   tier on the tensor-core kernel (its launch counted, its occupancy
+   printed), with the bound and the frame-GEMM yardstick of the reflect and
+   hop-1000 recipes (the shapes of TPU kernels B3 and B4), plus the kernel
+   at highest against the repo's NumPy golden fixture.
 3. The ``native-best`` serving path: a seeded random-init ``Transcriber``
    (batch 2048) transcribes synthetic tracks and one 4096-window batch;
-   the kernel's launch count must rise; windows/s after a warm-up; the same
-   windows through the plain CQT on the card must give the same logits.
+   the kernel's launch count must rise, every launch on the tensor-core
+   kernel; windows/s after a warm-up; the same windows through the plain
+   CQT on the card must give the same logits.
 4. A short ``--arch resnet18`` transcription through the CLI.
 5. (a) The three stem-tail kernels against their plain versions at the
    flagship's training shape (B=256: y [256, 2, 56, 7168] bf16 from the
@@ -72,7 +75,8 @@
    same weights served unfused.
 13. The raw CQT frame GEMM (B9) through its entry point
    ``cqt_cuda.cqt_frame_gemm``: the training recipe at B=256 at every tier
-   and ``serving_cnn`` at B=64, ``default``, one launch each; each against
+   and ``serving_cnn`` at B=64, ``default``, one launch each (the
+   ``default`` ones on the tensor-core kernel); each against
    ``frame_gemm_plain``, deterministic, and through the plain epilogue
    against the fused B1 kernel's dB; times, bound, frame-GEMM yardstick.
 14. The stem front's GEMM with statistics (B8) against its plain version on
@@ -85,7 +89,8 @@
    ported ``tools/probe_conv``, with cuDNN's times, the parity figures and
    its launches counted.
 
-Then one JSON line of the fourteen kernels' measurements, and the status
+Then one JSON line of the fourteen kernels' measurements (``cqt_fused`` and
+``cqt_frame_gemm`` with their ``default`` tier's beside), and the status
 line last.
 Any failed check raises, which exits non-zero.  Needs one CUDA card.
 """
@@ -246,20 +251,25 @@ def kernel_phase(torch, cqt_cuda, CQTConfig, CQTFrontend) -> dict:
         x = tone_windows(batch, base.window_samples, base.sample_rate, seed=1)
         for prec in ("highest", "bf16x3", "default"):
             fe = CQTFrontend(dataclasses.replace(base, precision=prec))
-            cqt_cuda.launches = 0
+            cqt_cuda.launches = cqt_cuda.mma_launches = 0
             got = fe(x)
             torch.cuda.synchronize()
-            launches = cqt_cuda.launches
+            launches, mma_launches = cqt_cuda.launches, cqt_cuda.mma_launches
             want = fe.plain(x)
+            again = fe(x)
             torch.cuda.synchronize()
             r = compare_db(got, want, base.gate_floor_db, base.gate_threshold_db)
             r.update(
-                batch=batch, launches=launches,
+                batch=batch, launches=launches, tensor_core_launches=mma_launches,
+                deterministic=bool(torch.equal(again, got)),
                 kernel_ms=_sync_ms(lambda: fe(x), 5),
                 plain_ms=_sync_ms(lambda: fe.plain(x), 3),
             )
+            if prec == "default":
+                r["occupancy"] = cqt_cuda.mma_kernel_info(fe.kernel_plan(x.shape[1], x.device))
             print(f"cqt {name} {prec} B={batch}: " + json.dumps(r), flush=True)
-            if r["bad_flips"] or r["max_err_db"] > DB_TOL or launches != 1:
+            if (r["bad_flips"] or r["max_err_db"] > DB_TOL or launches != 1
+                    or mma_launches != (prec == "default") or not r["deterministic"]):
                 raise AssertionError(f"CQT kernel disagrees on {name}/{prec}: {r}")
             results[(name, prec)] = r
             del got, want
@@ -295,7 +305,9 @@ def cqt_kernel_row(torch, cqt_cuda, frontend, batch: int, label: str) -> dict:
     cfg = frontend.cfg
     fb = frontend.filterbank
     x = tone_windows(batch, cfg.window_samples, cfg.sample_rate, seed=2)
+    before = cqt_cuda.mma_launches
     got, want = frontend(x), frontend.plain(x)
+    mma_launches = cqt_cuda.mma_launches - before
     r = compare_db(got, want, cfg.gate_floor_db, cfg.gate_threshold_db)
     kernel_ms = _sync_ms(lambda: frontend(x), 10)
     plain_ms = _sync_ms(lambda: frontend.plain(x), 5)
@@ -326,12 +338,15 @@ def cqt_kernel_row(torch, cqt_cuda, frontend, batch: int, label: str) -> dict:
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": 1e3 * max(ops_s, bytes_s),
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-        "macs": macs, "bytes": nbytes,
+        "macs": macs, "bytes": nbytes, "tensor_core_launches": mma_launches,
     }
+    if cfg.precision == "default":
+        row["occupancy"] = cqt_cuda.mma_kernel_info(frontend.kernel_plan(x.shape[1], x.device))
     print(f"cqt row, {label} {cfg.precision} B={batch}: {json.dumps(row)}",
           flush=True)
-    if r["bad_flips"] or r["max_err_db"] > DB_TOL:
-        raise AssertionError(f"CQT kernel disagrees at the main-path shape: {r}")
+    if (r["bad_flips"] or r["max_err_db"] > DB_TOL
+            or mma_launches != (cfg.precision == "default")):
+        raise AssertionError(f"CQT kernel disagrees at the main-path shape: {r}, {row}")
     return row
 
 
@@ -354,15 +369,16 @@ def serving_phase(torch, cqt_cuda, RECIPES, Transcriber, frame_track) -> dict:
     t.predict_windows(big[:2048])  # warm-up (cuDNN plans, kernel load)
     torch.cuda.synchronize()
 
-    cqt_cuda.launches = 0
+    cqt_cuda.launches = cqt_cuda.mma_launches = 0
     results = [t.transcribe(a, keep_logits=True) for a in tracks]
     logits_big = t.predict_windows(big)
     torch.cuda.synchronize()
-    launches = cqt_cuda.launches
+    launches, mma_launches = cqt_cuda.launches, cqt_cuda.mma_launches
     print(f"serving native-best: cqt kernel launches on the main path = "
-          f"{launches}", flush=True)
-    if launches <= 0:
-        raise AssertionError("the serving path did not launch the CQT kernel")
+          f"{launches}, on the tensor cores = {mma_launches}", flush=True)
+    if launches <= 0 or mma_launches != launches:
+        raise AssertionError("the serving path did not launch the CQT tensor-core kernel "
+                             f"each time ({mma_launches} of {launches})")
     for a, res in zip(tracks, results):
         n = (len(a) - cfg.window_samples) // cfg.hop_samples + 1
         assert res.frets.shape == (n, 6) and res.logits.shape == (n, 6, 19)
@@ -407,7 +423,8 @@ def serving_phase(torch, cqt_cuda, RECIPES, Transcriber, frame_track) -> dict:
     out = {
         "windows_per_s": rates, "stage_ms_per_2048": stage_ms,
         "h2d_ms_per_2048": h2d,
-        "launches": launches, "logit_max_abs_diff": diff,
+        "launches": launches, "tensor_core_launches": mma_launches,
+        "logit_max_abs_diff": diff,
         "logit_scale": scale, "fret_agreement": agree,
         "tracks_s": [len(a) / cfg.sample_rate for a in tracks],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -591,16 +608,18 @@ COUNTED = ("stem_cuda", "attention_cuda", "bn_cuda", "stem_native_cuda", "conv3x
 
 
 def _counts(mods) -> dict:
-    out = {"cqt_fused": mods["cqt_cuda"].launches,
-           "cqt_frame_gemm": mods["cqt_cuda"].frame_gemm_launches}
+    cqt_cuda = mods["cqt_cuda"]
+    out = {"cqt_fused": cqt_cuda.launches, "cqt_fused_mma": cqt_cuda.mma_launches,
+           "cqt_frame_gemm": cqt_cuda.frame_gemm_launches,
+           "cqt_frame_gemm_mma": cqt_cuda.frame_gemm_mma_launches}
     for name in COUNTED:
         out.update(mods[name].launches)
     return out
 
 
 def _reset_counts(mods) -> None:
-    mods["cqt_cuda"].launches = 0
-    mods["cqt_cuda"].frame_gemm_launches = 0
+    for name in ("launches", "mma_launches", "frame_gemm_launches", "frame_gemm_mma_launches"):
+        setattr(mods["cqt_cuda"], name, 0)
     for name in COUNTED:
         counts = mods[name].launches
         for key in counts:
@@ -660,7 +679,8 @@ def compare_step(torch, mods, model_cfg, frontend, batch, *, optim_cfg, smoothin
     plain = one_step(True, plain_cqt)
     plain_launches = {k: v - before[k] - launches[k] for k, v in _counts(mods).items()}
     if not plain_cqt:  # the plain step's CQT ran as the kernel
-        plain_launches["cqt_fused"] -= 1
+        for key in ("cqt_fused", "cqt_fused_mma"):
+            plain_launches[key] -= launches[key]
     cmp = {
         "loss": [kern[0], plain[0]], "grad_norm": [kern[1], plain[1]],
         **agreement(kern, plain),
@@ -1447,7 +1467,7 @@ def native_fused_serving_phase(torch, mods, batch: int = 2048, n_batches: int = 
            "logit_scale": float(np.abs(want_logits).max())}
     print("serving native-best, stem_fusion=fused bn_fusion=on: " + json.dumps(out), flush=True)
     want = {key: 0 for key in counts}
-    want.update(cqt_fused=n_batches, native_fwd=n_batches)
+    want.update(cqt_fused=n_batches, cqt_fused_mma=n_batches, native_fwd=n_batches)
     if counts != want:
         raise AssertionError(f"fused native serving launches {counts}, expected {want}")
     # bf16 model tolerance of the repo (tests/test_torch_models.py): 5e-2 of
@@ -1517,6 +1537,7 @@ def frame_gemm_phase(torch, mods) -> dict:
     counts = _counts(mods)
     want_counts = {key: 0 for key in counts}
     want_counts["cqt_frame_gemm"] = len(cases)
+    want_counts["cqt_frame_gemm_mma"] = sum(case[3] == "default" for case in cases)
     if counts != want_counts:
         raise AssertionError(f"frame GEMM phase launches {counts}, expected {want_counts}")
 
@@ -1555,8 +1576,10 @@ def frame_gemm_phase(torch, mods) -> dict:
                    ops, peak, float((got - want).abs().max()),
                    max_rel_err_per_window=float(per_window.max()), deterministic=again,
                    splits=cqt_cuda.frame_gemm_splits(got.shape[0] * got.shape[1], got.shape[2],
-                                                     kern.shape[0]),
+                                                     kern.shape[0], prec),
                    epilogue_vs_b1=vs_b1)
+        if prec == "default":
+            row["occupancy"] = cqt_cuda.frame_gemm_mma_kernel_info()
         print(f"cqt_frame_gemm {name} {prec} B={batch}: " + json.dumps(row), flush=True)
         if (per_window.max() > FRAME_GEMM_REL_TOL or not again or vs_b1["bad_flips"]
                 or vs_b1["max_err_db"] > DB_TOL):
@@ -1565,7 +1588,8 @@ def frame_gemm_phase(torch, mods) -> dict:
         del got, want, db
     del outs, inputs
     torch.cuda.empty_cache()
-    return {"rows": {"cqt_frame_gemm": rows[("train", "highest")]}, "launches": counts}
+    return {"rows": {"cqt_frame_gemm": rows[("train", "highest")]},
+            "default": rows[("train", "default")], "launches": counts}
 
 
 def gemm_stats_phase(torch, mods, batch: int = 256) -> dict:
@@ -1791,6 +1815,24 @@ def attention_build_report(mods, log: str) -> None:
           flush=True)
 
 
+def cqt_mma_build_report(builds: dict) -> None:
+    """The -Xptxas -v lines (stack, spills, registers) of the CQT
+    tensor-core kernels from this run's build (their occupancy on the card
+    is printed with the default tier's rows)."""
+    from guitar_tablature_classification_tpu_torch.ops.nvcc import ptxas_report
+
+    for source in ("cqt_fused", "cqt_frame_gemm"):
+        log = builds[source][1]
+        print(f"{source} build, -Xptxas -v:" + ("" if log else " (already built: no log)"))
+        for entry, lines in ptxas_report(log).items():
+            found = re.search(r"(cqt_mma|frame_gemm_mma|frame_gemm_ring|to_bf16)_kernel(ILb[01]E)?",
+                              entry)
+            if found:
+                label = found.group(0).replace("ILb1E", "<ldmatrix>").replace("ILb0E", "<16-bit>")
+                print(f"  {label}: {lines}")
+    sys.stdout.flush()
+
+
 def main() -> int:
     import torch
 
@@ -1825,6 +1867,7 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}: {os.path.relpath(path)} " + " | ".join(regs))
     attention_build_report(mods, builds["attention"][1])
+    cqt_mma_build_report(builds)
 
     phase_s = {}
 
@@ -1835,10 +1878,11 @@ def main() -> int:
         return result
 
     timed("cqt_kernels", kernel_phase, torch, cqt_cuda, CQTConfig, CQTFrontend)
-    timed("serving", serving_phase, torch, cqt_cuda, RECIPES, mods["Transcriber"],
-          mods["frame_track"])
-    timed("cqt_serving_row", cqt_kernel_row, torch, cqt_cuda,
-          CQTFrontend(RECIPES["native-best"]().cqt), 2048, "native-best serving")
+    serving = timed("serving", serving_phase, torch, cqt_cuda, RECIPES, mods["Transcriber"],
+                    mods["frame_track"])
+    serving_row = timed("cqt_serving_row", cqt_kernel_row, torch, cqt_cuda,
+                        CQTFrontend(RECIPES["native-best"]().cqt), 2048, "native-best serving")
+    serving_row["launches"] = serving["tensor_core_launches"]
     timed("resnet18_cli", resnet18_phase, torch, cqt_cuda, mods["cli"])
 
     stem = timed("stem_kernels", stem_kernel_phase, torch, mods)
@@ -1852,7 +1896,8 @@ def main() -> int:
     )
     native_recipe = RECIPES["native-best"]()
     timed("native_train", train_phase, torch, mods, "native resnet18_native",
-          native_recipe.model, native_recipe.cqt, 4096, expect={"cqt_fused": 1})
+          native_recipe.model, native_recipe.cqt, 4096,
+          expect={"cqt_fused": 1, "cqt_fused_mma": 1})
     # the CQT kernel at the flagship step's shape (training recipe, highest)
     cqt_row = timed("cqt_train_row", cqt_kernel_row, torch, cqt_cuda,
                     CQTFrontend(CQTConfig()), 256, "flagship train")
@@ -1891,12 +1936,14 @@ def main() -> int:
     path_b = timed(
         "path_b_train", train_phase, torch, mods, "path B: native-best+fused+bn_fusion",
         native_fused, native_recipe.cqt, 4096,
-        expect={"cqt_fused": 1, "native_stats": 1, "native_fwd": 1, "native_bwd": 1, **trunk},
+        expect={"cqt_fused": 1, "cqt_fused_mma": 1, "native_stats": 1, "native_fwd": 1,
+                "native_bwd": 1, **trunk},
         trunk_bn=True, compare={**plain_all, "plain_cqt": False},
         profile={"column_sums": sums_kernels, "native_stem": ("native_", "reduce_parts")},
     )
     timed("path_b_serving", native_fused_serving_phase, torch, mods)
     frame_gemm = timed("frame_gemm", frame_gemm_phase, torch, mods)
+    frame_gemm["default"]["launches"] = frame_gemm["launches"]["cqt_frame_gemm_mma"]
     gemm_stats = timed("gemm_stats", gemm_stats_phase, torch, mods)
     conv = timed("conv3x3", conv3x3_phase, torch, mods)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
@@ -1918,6 +1965,7 @@ def main() -> int:
         "gemm_stats": ("stem_gemm.cu", "stem_pallas.py:326", gemm_stats["rows"], gemm_stats),
         "conv3x3": ("conv3x3.cu", "tools/probe_pallas_conv.py:53", conv["rows"], conv),
     }
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
         "name": name,
         "route": "cuda",
@@ -1925,9 +1973,15 @@ def main() -> int:
         # the JAX package's ops/, or a path from the repo root
         "replaces": tpu if "/" in tpu else f"guitar_tablature_classification_tpu/ops/{tpu}",
         "launches": run["launches"][name],
-        **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms")},
+        **{k: rows[name][k] for k in fields},
     } for name, (src, tpu, rows, run) in kernel_sources.items()]
+    # the default tier's tensor-core kernels beside the highest tier's fields:
+    # B1 at the native-best serving shape (launches: the serving phase's),
+    # B9 at the training recipe (launches: its entry point's run)
+    for entry in kernels:
+        row = {"cqt_fused": serving_row, "cqt_frame_gemm": frame_gemm["default"]}.get(entry["name"])
+        if row is not None:
+            entry["default"] = {k: row[k] for k in ("launches", *fields)}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

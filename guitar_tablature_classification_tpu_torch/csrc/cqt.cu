@@ -25,15 +25,19 @@
 // writes 3.5 KB.  At B=2048 and the default tier that is 20 GFLOP on bf16
 // operands against about 81 MB, so the card's bound (chip_smoke.py
 // bound_ms) is set by bytes: about 0.024 ms at 3.35 TB/s, above the 0.020
-// ms the bf16 tensor-core peak gives the operations.  This kernel runs its
-// products on the FP32 pipes in every tier (below), so its own ceiling is
-// the 67 TFLOP/s FP32 rate: 0.30 ms for that work, 12x the bound.
+// ms the bf16 tensor-core peak gives the operations.
 //
-// Design (simple first; speed is later work).  The products run in fp32 on
-// the FP32 pipes (FFMA) in every tier, which is exact for bf16 operands:
+// Two kernels.  highest and bf16x3 run cqt_coeff_kernel, whose products run
+// in fp32 on the FP32 pipes (FFMA; its ceiling is the 67 TFLOP/s FP32
+// rate), exact for bf16 operands:
 //   highest  fp32 operands;
-//   bf16x3   hi = bf16(a), lo = bf16(a - hi); hi*hi + hi*lo + lo*hi;
-//   default  both operands rounded to bf16 (nearest even).
+//   bf16x3   hi = bf16(a), lo = bf16(a - hi); hi*hi + hi*lo + lo*hi.
+// default rounds both operands to bf16 (nearest even) and runs
+// cqt_mma_kernel on the tensor cores (csrc/frame_mma.cuh; its design is
+// described at the kernel).  Both write s = |.|^p, then cqt_db_kernel
+// applies the dB epilogue.
+//
+// Design of cqt_coeff_kernel (simple first; speed is later work).
 // * One CTA per (window, tile of kTileFrames = TT frames).  The padded audio the tile
 //   reads is staged in shared memory once (zeros or the reflect index are
 //   computed on load; the padding is never written to device memory).
@@ -56,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "frame_mma.cuh"
+
 namespace {
 
 constexpr int kGroup = 4;      // bins per work item (float4 of re, of im)
@@ -66,14 +72,6 @@ enum Precision { kHighest = 0, kBf16x3 = 1, kDefault = 2 };
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// np.pad(mode='reflect') index of position i (may lie far outside [0, n)).
-__device__ __forceinline__ int reflect_idx(int i, int n) {
-  const int period = 2 * (n - 1);
-  int m = i % period;
-  if (m < 0) m += period;
-  return m >= n ? period - m : m;
 }
 
 __device__ __forceinline__ void fma4(float* acc, float v, const float4& w) {
@@ -132,11 +130,10 @@ __global__ void __launch_bounds__(kThreads, PREC == kBf16x3 ? 1 : 2)
     int src = src0 + i;
     float v = 0.f;
     if (reflect) {
-      v = xb[reflect_idx(src, num_samples)];
+      v = xb[frame_mma::reflect_idx(src, num_samples)];
     } else if (src >= 0 && src < num_samples) {
       v = xb[src];
     }
-    if (PREC == kDefault) v = round_bf16(v);
     s_audio[i] = v;
   }
   if (threadIdx.x == 0) s_next = 0;
@@ -254,6 +251,401 @@ __global__ void __launch_bounds__(256) cqt_db_kernel(
   }
 }
 
+// ------------------------------------------------- default: tensor cores
+
+constexpr int kMmaThreads = 512;  // 16 warps
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kBandGroups = 4;    // bin groups a band (a unit's columns); ops/cqt_cuda.MMA_BAND_GROUPS
+constexpr int kUnitTiles = 4;     // m16 tiles a unit (a unit's rows: 64); ops/cqt_cuda.MMA_UNIT_ROWS
+constexpr int kUnitRows = 16 * kUnitTiles;
+constexpr int kPartCols = 8 * kBandGroups;  // (re, im) x 4 bins x groups
+constexpr int kMaxGroups = 64;    // ops/cqt_cuda.MMA_MAX_GROUPS
+constexpr int kMaxBands = kMaxGroups / kBandGroups;
+constexpr int kStageUnroll = 8;   // audio loads a thread keeps in flight
+
+// Two bf16 values of a staged row at window-local indices d, d + 1 (zero
+// outside [0, L)), packed as an mma operand register: the 16-bit load path.
+__device__ __forceinline__ uint32_t pair_at(const unsigned short* row, int d, int L) {
+  const uint32_t lo = (unsigned)d < (unsigned)L ? row[d] : 0u;
+  const uint32_t hi = (unsigned)(d + 1) < (unsigned)L ? row[d + 1] : 0u;
+  return lo | (hi << 16);
+}
+
+// floor(a / d) for 0 <= a < 2^24, with inv_d = 1.0f / d.
+__device__ __forceinline__ int div_small(int a, int d, float inv_d) {
+  int q = __float2int_rz((float)a * inv_d);
+  if (q * d > a) --q;
+  if ((q + 1) * d <= a) ++q;
+  return q;
+}
+
+// A warp's unit: this lane's rows (d = roff + x is the row's window-local
+// index at the walk's x; its element is rpos + x + skew floor(x / hop); a
+// padded row has roff far below 0 and reads zeros) and the walk over the
+// chunks (x = 16 (c - c_s) + koff - i0, q = floor(x / hop), rem = x - q hop).
+struct UnitRows {
+  int roff[kUnitTiles][2];
+  int rpos[kUnitTiles][2];
+};
+struct Walk {
+  int x, q, rem;
+};
+
+// Chunks [s0, s1) of a unit on which exactly the band's first K groups are
+// live (their spans nest): NT m16 tiles x K groups of mma.sync a chunk, no
+// predicate; the B fragments of the chunk two ahead are loaded while the
+// current chunk's products run.
+template <bool kLdm, int NT, int K>
+__device__ __forceinline__ void run_segment(
+    int s0, int s1, Walk& wk, const UnitRows& ur, uint32_t sbase,
+    const unsigned short* sbuf, int zero_off, int L, int hop, int skew,
+    const uint2* __restrict__ filt, const int (&gblk)[kBandGroups], int lane,
+    float (&acc)[kUnitTiles][kBandGroups][4]) {
+  if (s0 >= s1) return;
+  auto load_b = [&](int c, uint2(&b)[K]) {
+#pragma unroll
+    for (int gi = 0; gi < K; ++gi) b[gi] = __ldg(filt + (size_t)(gblk[gi] + c) * 32 + lane);
+  };
+  auto chunk = [&](const uint2(&b)[K]) {
+    uint32_t a[NT][4];
+    const int cterm = wk.x + skew * wk.q;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      if (kLdm) {
+        const int d = ur.roff[i][0] + wk.x;
+        const int e = (unsigned)d < (unsigned)L ? ur.rpos[i][0] + cterm : zero_off;
+        frame_mma::ldmatrix_x4_at(a[i], sbase + 2u * (uint32_t)e);
+      } else {
+        const unsigned short* lo = sbuf + (ur.rpos[i][0] - ur.roff[i][0]);
+        const unsigned short* hi = sbuf + (ur.rpos[i][1] - ur.roff[i][1]);
+        const int d_lo = ur.roff[i][0] + wk.x, d_hi = ur.roff[i][1] + wk.x;
+        a[i][0] = pair_at(lo, d_lo, L);
+        a[i][1] = pair_at(hi, d_hi, L);
+        a[i][2] = pair_at(lo, d_lo + 8, L);
+        a[i][3] = pair_at(hi, d_hi + 8, L);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int gi = 0; gi < K; ++gi) frame_mma::mma_bf16(acc[i][gi], a[i], b[gi].x, b[gi].y);
+    wk.x += 16;
+    wk.rem += 16;
+    while (wk.rem >= hop) {
+      wk.rem -= hop;
+      ++wk.q;
+    }
+  };
+  uint2 b0[K], b1[K];
+  load_b(s0, b0);
+  if (s0 + 1 < s1) load_b(s0 + 1, b1);
+  for (int c = s0; c < s1; c += 2) {
+    chunk(b0);
+    if (c + 2 < s1) load_b(c + 2, b0);
+    if (c + 1 < s1) {
+      chunk(b1);
+      if (c + 3 < s1) load_b(c + 3, b1);
+    }
+  }
+}
+
+// A unit's piece [ca, cb) of a band: the seven segments of the nested spans
+// (1, 2, 3, 4, 3, 2, 1 live groups), each at its own count.
+template <bool kLdm, int NT>
+__device__ __forceinline__ void run_unit(
+    int ca, int cb, const int (&glo)[kBandGroups], const int (&ghi)[kBandGroups], Walk& wk,
+    const UnitRows& ur, uint32_t sbase, const unsigned short* sbuf, int zero_off, int L,
+    int hop, int skew, const uint2* __restrict__ filt, const int (&gblk)[kBandGroups],
+    int lane, float (&acc)[kUnitTiles][kBandGroups][4]) {
+  static_assert(kBandGroups == 4, "the segment table below is for four groups");
+  const int edge[8] = {glo[0], glo[1], glo[2], glo[3], ghi[3], ghi[2], ghi[1], ghi[0]};
+  const int live[7] = {1, 2, 3, 4, 3, 2, 1};
+#pragma unroll 1
+  for (int s = 0; s < 7; ++s) {
+    const int s0 = max(edge[s], ca), s1 = min(edge[s + 1], cb);
+    switch (live[s]) {
+      case 1:
+        run_segment<kLdm, NT, 1>(s0, s1, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
+                                 gblk, lane, acc);
+        break;
+      case 2:
+        run_segment<kLdm, NT, 2>(s0, s1, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
+                                 gblk, lane, acc);
+        break;
+      case 3:
+        run_segment<kLdm, NT, 3>(s0, s1, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
+                                 gblk, lane, acc);
+        break;
+      default:
+        run_segment<kLdm, NT, 4>(s0, s1, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
+                                 gblk, lane, acc);
+    }
+  }
+}
+
+// The CTA's rows are (window, frame) pairs: W windows of its window block
+// times TF frames of its frame tile, in m16 tiles.  It stages their audio
+// once, then its warps take units from one list over all bands (a band:
+// kBandGroups groups, nested spans): a unit is up to kUnitTiles m16 tiles
+// over one of the band's pieces of its 16-row filter chunks (band b cut into
+// pieces[b], from the plan, so that the units' work is about even), for
+// every group of the band: each A fragment feeds the band's groups whose
+// span holds the chunk, each B fragment the unit's m16 tiles (up to 16
+// mma.sync per 4 ldmatrix and 4 B loads).  Each unit parks its partial sums
+// in shared memory; after one barrier every output sums its band's pieces
+// in order (no float sum depends on timing).
+//
+// gmeta (int32) = [c_lo | c_hi | blk_off] (n_groups each) + [pieces]
+// (n_bands): group g's filter rows [16 c_lo, 16 c_hi) are packed blocks
+// blk_off .. blk_off + c_hi - c_lo of filt; block (g, c) holds K's rows
+// 16c .. 16c + 15 for the group's 4 bins (re, im interleaved: column 2j re,
+// 2j + 1 im of bin 4g + j) in the mma B-fragment order: lane l's uint2 =
+// {K[16c + 2(l%4) + {0,1}, l/4], K[16c + 2(l%4) + 8 + {0,1}, l/4]}.  A warp
+// loads the B fragments of the chunk two ahead while the tensor cores run
+// the current one's.
+//
+// Staged audio: buffer index i in [i0, i1) of window w (i: padded[t0*hop +
+// 16 c_s + i]; with constant padding [i0, i1) is the 8-aligned span that
+// meets the audio) lies at element w*wstride + d + skew * floor(d / hop),
+// d = i - i0, staged four samples at a time (one 16-byte load where the
+// audio is so aligned).  Row (w, tt) at chunk c reads from d = tt*hop + x,
+// x = 16 (c - c_s) - i0 (+ the lane's k offset), so at w*wstride + tt*(hop
+// + skew) + x + skew * floor(x / hop): with hop and skew multiples of 8,
+// each 8-sample row of an ldmatrix stays 16-byte aligned and inside one
+// skew block, rows of successive frames lie hop + skew apart, which spreads
+// a fragment's frames over the banks, and a row outside [i0, i1) reads a
+// block of 8 zeros.  kLdm = false (hop not a multiple of 8): skew 0, 16-bit
+// loads, staged one sample at a time.
+template <bool kLdm>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    cqt_mma_kernel(const float* __restrict__ x, const uint2* __restrict__ filt,
+                   const int* __restrict__ gmeta, float* __restrict__ out, int batch,
+                   int num_samples, int n_frames, int n_bins, int hop, int pad, int reflect,
+                   int n_groups, int skew, int W, int TF, int wstride, int part_off,
+                   int n_ftiles, float half_power) {
+  extern __shared__ float smem[];  // the same symbol as cqt_coeff_kernel's
+  __shared__ int s_meta[3 * kMaxGroups + kMaxBands];
+  __shared__ int s_uoff[kMaxBands + 1];  // first unit of each band
+  unsigned short* sbuf = reinterpret_cast<unsigned short*>(smem);
+  float* part = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(smem) + part_off);
+  const int n_bands = (n_groups + kBandGroups - 1) / kBandGroups;
+  for (int i = threadIdx.x; i < 3 * n_groups + n_bands; i += kMmaThreads) s_meta[i] = gmeta[i];
+  const int* c_lo = s_meta;
+  const int* c_hi = s_meta + n_groups;
+  const int* blk_off = s_meta + 2 * n_groups;
+  const int* pieces = s_meta + 3 * n_groups;
+
+  const int t0 = (blockIdx.x % n_ftiles) * TF;
+  const int b0 = (blockIdx.x / n_ftiles) * W;
+  const int rows = W * TF;
+  const int mt = (rows + 15) >> 4;
+  const int units_m = (rows + kUnitRows - 1) / kUnitRows;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int b = 0; b < n_bands; ++b) {
+      s_uoff[b] = acc;
+      acc += units_m * pieces[b];
+    }
+    s_uoff[n_bands] = acc;
+  }
+  // Chunks whose rows meet the audio in some frame of the tile (with
+  // constant padding; the rest multiply zeros), within those of all groups.
+  int clip_lo = 0, clip_hi = 1 << 30;
+  if (!reflect) {
+    clip_lo = (pad - (t0 + TF - 1) * hop) >> 4;         // floor
+    clip_hi = (pad + num_samples - t0 * hop + 15) >> 4;  // ceil
+  }
+  int c_s = 1 << 30, c_e = 0;
+  for (int g = 0; g < n_groups; ++g) {
+    c_s = min(c_s, c_lo[g]);
+    c_e = max(c_e, c_hi[g]);
+  }
+  c_s = max(c_s, clip_lo);
+  c_e = max(min(c_e, clip_hi), c_s);
+  const int len = (TF - 1) * hop + 16 * (c_e - c_s);
+  const float inv_hop = 1.0f / (float)hop;
+
+  // 1. Stage the audio the tile reads, rounded to bf16: buffer indices
+  // [i0, i1), 8-aligned; with constant padding only the part that meets the
+  // audio (the rest of [0, len) is zero and reads the zero block).  kLdm:
+  // four samples a step (4 divides hop, so they share a skew block), with
+  // kStageUnroll steps in flight a thread.
+  const int p0 = t0 * hop + 16 * c_s - pad;  // audio index of buffer index 0
+  int i_lo = 0, i_hi = len;
+  if (!reflect) {
+    i_lo = min(max(-p0, 0), len);
+    i_hi = max(min(num_samples - p0, len), i_lo);
+  }
+  const int i0 = i_lo & ~7, i1 = max((i_hi + 7) & ~7, i0);
+  const int L = i1 - i0;
+  const int zero_off = W * wstride;  // 8 zeros
+  if (threadIdx.x < 8) sbuf[zero_off + threadIdx.x] = 0;
+  constexpr int kVec = kLdm ? 4 : 1;
+  const int lv = L / kVec;  // steps a window (L is a multiple of 8)
+  // 16-byte loads: the whole step inside the audio and 16-byte aligned
+  const bool vec_ok = kLdm && !reflect && num_samples % 4 == 0 && (p0 + i0) % 4 == 0;
+  if (lv > 0) {
+    const float inv_lv = 1.0f / (float)lv;
+    for (int e0 = 0; e0 < W * lv; e0 += kMmaThreads * kStageUnroll) {
+      float v[kStageUnroll][kVec];
+      int dst[kStageUnroll];
+#pragma unroll
+      for (int u = 0; u < kStageUnroll; ++u) {
+        const int e = e0 + u * kMmaThreads + threadIdx.x;
+        const int w = div_small(e, lv, inv_lv);
+        const int d = (e - w * lv) * kVec;
+        const int i = i0 + d;
+        const int b = b0 + w;
+        dst[u] = -1;
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) v[u][k] = 0.f;
+        if (e < W * lv) {
+          dst[u] = w * wstride + d + (kLdm && skew ? skew * div_small(d, hop, inv_hop) : 0);
+          if (b < batch) {
+            const float* xb = x + (size_t)b * num_samples;
+            if (vec_ok && i >= i_lo && i + kVec <= i_hi) {
+              const float4 f = __ldg(reinterpret_cast<const float4*>(xb + p0 + i));
+              v[u][0] = f.x;
+              v[u][kVec > 1 ? 1 : 0] = f.y;
+              v[u][kVec > 2 ? 2 : 0] = f.z;
+              v[u][kVec > 3 ? 3 : 0] = f.w;
+            } else {
+#pragma unroll
+              for (int k = 0; k < kVec; ++k) {
+                const int a = p0 + i + k;
+                if (i + k >= i_lo && i + k < i_hi)
+                  v[u][k] = xb[reflect ? frame_mma::reflect_idx(a, num_samples) : a];
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kStageUnroll; ++u) {
+        if (dst[u] < 0) continue;
+        if (kLdm) {
+          uint2 q;
+          q.x = (uint32_t)frame_mma::bf16_bits(v[u][0]) |
+                ((uint32_t)frame_mma::bf16_bits(v[u][kVec > 1 ? 1 : 0]) << 16);
+          q.y = (uint32_t)frame_mma::bf16_bits(v[u][kVec > 2 ? 2 : 0]) |
+                ((uint32_t)frame_mma::bf16_bits(v[u][kVec > 3 ? 3 : 0]) << 16);
+          *reinterpret_cast<uint2*>(sbuf + dst[u]) = q;
+        } else {
+          sbuf[dst[u]] = frame_mma::bf16_bits(v[u][0]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. Products: units over all bands (band-major, then piece, then rows).
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rstride = hop + (kLdm ? skew : 0);
+  const int koff = kLdm ? frame_mma::ldm_k(lane) : 2 * (lane & 3);
+  const uint32_t sbase = frame_mma::smem_addr(sbuf);
+  const int n_units = s_uoff[n_bands];
+  for (int u = warp; u < n_units; u += kMmaWarps) {
+    int band = 0;
+    while (s_uoff[band + 1] <= u) ++band;
+    const int local = u - s_uoff[band];
+    const int um = local % units_m, q = local / units_m, kp = pieces[band];
+    const int g0 = band * kBandGroups, g1 = min(g0 + kBandGroups, n_groups);
+    int c_a = c_lo[g0], c_b = c_hi[g0];
+    for (int g = g0 + 1; g < g1; ++g) {
+      c_a = min(c_a, c_lo[g]);
+      c_b = max(c_b, c_hi[g]);
+    }
+    c_a = max(c_a, c_s);
+    c_b = max(min(c_b, c_e), c_a);
+    const int nc = c_b - c_a;
+    const int ca = c_a + (q * nc) / kp, cb = c_a + ((q + 1) * nc) / kp;
+    const int ntile = min(kUnitTiles, mt - um * kUnitTiles);
+    UnitRows ur;
+#pragma unroll
+    for (int i = 0; i < kUnitTiles; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (um * kUnitTiles + i) * 16 +
+                      (kLdm ? frame_mma::ldm_row(lane) : (lane >> 2) + 8 * h);
+        const int w = r / TF, tt = r - (r / TF) * TF;
+        ur.roff[i][h] = r < rows ? tt * hop : -(1 << 29);
+        ur.rpos[i][h] = r < rows ? w * wstride + tt * rstride : 0;
+      }
+    // the band's groups (their spans nest); a missing group gets the empty
+    // span at the last one's end
+    int glo[kBandGroups], ghi[kBandGroups], gblk[kBandGroups];
+#pragma unroll
+    for (int gi = 0; gi < kBandGroups; ++gi) {
+      const int g = min(g0 + gi, g1 - 1);
+      glo[gi] = g0 + gi < g1 ? c_lo[g] : c_hi[g];
+      ghi[gi] = c_hi[g];
+      gblk[gi] = blk_off[g] - c_lo[g];
+    }
+    float acc[kUnitTiles][kBandGroups][4];
+#pragma unroll
+    for (int i = 0; i < kUnitTiles; ++i)
+#pragma unroll
+      for (int gi = 0; gi < kBandGroups; ++gi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][gi][e] = 0.f;
+    Walk wk;
+    wk.x = 16 * (ca - c_s) + koff - i0;
+    wk.q = wk.x / hop;
+    if (wk.x - wk.q * hop < 0) --wk.q;
+    wk.rem = wk.x - wk.q * hop;
+    switch (ntile) {
+      case 1:
+        run_unit<kLdm, 1>(ca, cb, glo, ghi, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
+                          gblk, lane, acc);
+        break;
+      case 2:
+        run_unit<kLdm, 2>(ca, cb, glo, ghi, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
+                          gblk, lane, acc);
+        break;
+      case 3:
+        run_unit<kLdm, 3>(ca, cb, glo, ghi, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
+                          gblk, lane, acc);
+        break;
+      default:
+        run_unit<kLdm, 4>(ca, cb, glo, ghi, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
+                          gblk, lane, acc);
+    }
+    // the unit's partial sums: part[u][row of the unit][group, bin, re|im]
+    float* dstp = part + (size_t)u * kUnitRows * kPartCols;
+#pragma unroll
+    for (int i = 0; i < kUnitTiles; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* row = dstp + (i * 16 + (lane >> 2) + 8 * h) * kPartCols + 2 * (lane & 3);
+#pragma unroll
+        for (int gi = 0; gi < kBandGroups; ++gi)
+          *reinterpret_cast<float2*>(row + 8 * gi) =
+              make_float2(acc[i][gi][2 * h], acc[i][gi][2 * h + 1]);
+      }
+  }
+  __syncthreads();
+
+  // 3. Each output sums its band's pieces in order: s = (re^2 + im^2)^(p/2).
+  for (int idx = threadIdx.x; idx < rows * n_bins; idx += kMmaThreads) {
+    const int r = idx / n_bins, f = idx - (idx / n_bins) * n_bins;
+    const int w = r / TF;
+    const int b = b0 + w, t = t0 + r - w * TF;
+    if (b >= batch || t >= n_frames) continue;
+    const int band = f / (4 * kBandGroups), gj = f % (4 * kBandGroups);
+    const float* src = part + ((size_t)(s_uoff[band] + r / kUnitRows) * kUnitRows +
+                               r % kUnitRows) * kPartCols + 2 * gj;
+    const size_t piece_stride = (size_t)units_m * kUnitRows * kPartCols;
+    float re = 0.f, im = 0.f;
+    for (int q = 0; q < pieces[band]; ++q) {
+      const float2 v = *reinterpret_cast<const float2*>(src + q * piece_stride);
+      re += v.x;
+      im += v.y;
+    }
+    out[((size_t)b * n_bins + f) * n_frames + t] = powf(re * re + im * im, half_power);
+  }
+}
+
 template <int PREC>
 cudaError_t launch_coeff(const float* x, const float* filt, const int* meta,
                          float* out, int batch, int num_samples, int n_frames,
@@ -276,6 +668,7 @@ cudaError_t launch_coeff(const float* x, const float* filt, const int* meta,
 
 }  // namespace
 
+// The highest and bf16x3 tiers (the default tier: cqt_fused_mma_launch).
 // Returns 0 on success, else the cudaError_t of the failed step.
 extern "C" int cqt_fused_launch(
     const float* x, const float* filt, const int* meta, float* out, int batch,
@@ -301,12 +694,6 @@ extern "C" int cqt_fused_launch(
                                   n_groups, n_items, k_lo, k_hi, buf_cap,
                                   half_power, stream);
       break;
-    case kDefault:
-      err = launch_coeff<kDefault>(x, filt, meta, out, batch, num_samples,
-                                   n_frames, n_bins, hop, pad, reflect,
-                                   n_groups, n_items, k_lo, k_hi, buf_cap,
-                                   half_power, stream);
-      break;
     default:
       err = cudaErrorInvalidValue;
   }
@@ -314,4 +701,59 @@ extern "C" int cqt_fused_launch(
   cqt_db_kernel<<<batch, 256, 0, stream>>>(out, n_bins * n_frames, amin, top_db,
                                            gate_threshold_db, gate_floor_db);
   return (int)cudaGetLastError();
+}
+
+// The default tier on the tensor cores: cqt_mma_kernel, one CTA per (window
+// block, frame tile), then the same dB epilogue.  gmeta carries the plan's
+// pieces per band after the group table.  Returns 0 on success, else
+// the cudaError_t of the failed step.
+extern "C" int cqt_fused_mma_launch(
+    const float* x, const void* filt, const int* gmeta, float* out, int batch,
+    int num_samples, int n_frames, int n_bins, int hop, int pad, int reflect, int n_groups,
+    int skew, int windows, int frames, int wstride, int part_off, int smem_bytes,
+    float magnitude_power, float amin, float top_db, float gate_threshold_db,
+    float gate_floor_db, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool ldm = hop % 8 == 0;
+  if (batch < 1 || windows < 1 || frames < 1 || (!ldm && skew != 0) || n_groups < 1 ||
+      n_groups > kMaxGroups)
+    return (int)cudaErrorInvalidValue;
+  const int n_ftiles = (n_frames + frames - 1) / frames;
+  const long long n_ctas = (long long)n_ftiles * ((batch + windows - 1) / windows);
+  if (n_ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = ldm ? cqt_mma_kernel<true> : cqt_mma_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)n_ctas, kMmaThreads, smem_bytes, stream>>>(
+      x, static_cast<const uint2*>(filt), gmeta, out, batch, num_samples, n_frames, n_bins,
+      hop, pad, reflect, n_groups, skew, windows, frames, wstride, part_off, n_ftiles,
+      0.5f * magnitude_power);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cqt_db_kernel<<<batch, 256, 0, stream>>>(out, n_bins * n_frames, amin, top_db,
+                                           gate_threshold_db, gate_floor_db);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core kernel (ldmatrix variant) as the card runs it at a plan's
+// shared bytes: info = {registers a thread, local (spill) bytes a thread,
+// shared bytes a CTA, threads a CTA, resident CTAs per SM}.  Returns 0, or
+// the cudaError_t of the failed query.
+extern "C" int cqt_mma_kernel_info(int smem_bytes, int* info) {
+  auto kernel = cqt_mma_kernel<true>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kMmaThreads, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)attr.sharedSizeBytes + smem_bytes;
+  info[3] = kMmaThreads;
+  info[4] = ctas;
+  return 0;
 }

@@ -12,19 +12,22 @@
 // with M = B*T rows, N columns and depth Kw.  It takes any K: unlike
 // csrc/cqt.cu it assumes nothing about the filterbank's zero structure.
 //
-// Precision tiers, the products on the FP32 pipes in every one (fp32 products
-// of bf16 operands are exact):
-//   highest  fp32 operands;
-//   bf16x3   hi = bf16(a), lo = bf16(a - hi); hi*hi + hi*lo + lo*hi;
-//   default  both operands rounded to bf16 (nearest even).
+// Precision tiers (fp32 products of bf16 operands are exact):
+//   highest  fp32 operands, products on the FP32 pipes (SIMT kernel);
+//   bf16x3   hi = bf16(a), lo = bf16(a - hi); hi*hi + hi*lo + lo*hi, on the
+//            FP32 pipes (SIMT kernel);
+//   default  both operands rounded to bf16 (nearest even), products on the
+//            tensor cores (frame_gemm_mma_kernel, csrc/frame_mma.cuh).
 //
 // Bound.  Training recipe at B=256 (T=9, Kw=23,552, N=192): 20.8 GFLOP
 // dense against 53 MB of fp32 (the audio read once, K once, the output
 // written once): 0.016 ms of bytes at 3.35 TB/s, 0.31 ms of operations at
 // the 67 TFLOP/s FP32 rate (highest), 0.021 ms at the bf16 tensor-core peak
-// (default).  This kernel's own ceiling is the FP32 rate in every tier.
+// (default).  The SIMT kernel's own ceiling is the FP32 rate; the default
+// tier's tensor-core kernels are bound by the L2 reads of their operand
+// tiles (below).
 //
-// Design (simple first; speed is later work).
+// Design of the SIMT kernel (highest, bf16x3).
 // * Implicit im2col: row (b, t) of the A tile reads padded[b, t*hop + k]
 //   straight from the audio; the [B, T, Kw] frame stack is never written.
 // * A classic shared-memory SIMT GEMM: a CTA owns a 64 x 64 output tile,
@@ -37,10 +40,38 @@
 //   training recipe has 108), grid z cuts Kw into `splits` ranges whose
 //   partial sums go to scratch; a second kernel adds them in split order.
 //   splits is fixed by the shape, so two runs give the same bits.
+//
+// Design of the tensor-core kernels (default).
+// * A CTA of 8 warps owns a 128 x 96 output tile (warps 4 x 2, each 32 x 48:
+//   2 x 6 mma.sync m16n8k16 tiles, 48 fp32 accumulators a thread) and walks
+//   K in steps of 32.  Row (b, t) of the A tile is loaded from the fp32 audio
+//   at padded[b, t*hop + k] (a warp reads 32 consecutive samples of one
+//   row), K's rows from the fp32 filterbank; both are rounded to bf16 on the
+//   way into shared memory (padded rows of 40 and 104 bf16, so ldmatrix
+//   reads 8 rows from 8 distinct bank groups).  Any hop, P and alignment.
+// * Double buffering: two shared stages; step s+1's loads are issued into
+//   registers before step s's products and stored into the other stage
+//   after them, one barrier a step.  The row offsets of the CTA's 128 rows
+//   sit in shared memory (a warp's lanes share one row: broadcast reads).
+// * The same fixed-order split of the depth and second pass as the SIMT
+//   kernel, on the tensor tile count (ops/cqt_cuda.frame_gemm_splits).
+// * frame_gemm_mma_kernel (any hop) loads the fp32 operands into registers
+//   itself: per 32-deep step a CTA reads 16 KB of audio and 12 KB of
+//   filterbank for 393 k multiply-adds, about 14 per byte, so the L2 rate
+//   bounds it (training recipe B=256: ~0.74 GB of L2 reads).
+// * frame_gemm_ring_kernel (hop a multiple of 8, so every frame row starts
+//   16-byte aligned in a bf16 copy) halves those bytes: to_bf16_kernel first
+//   writes zero-padded bf16 copies of the audio and the filterbank (part of
+//   the launch and of its time), then cp.async fills a ring of 4 shared
+//   stages, three steps ahead of the tensor cores, with no mask and no
+//   register staging.  The dispatch is by hop alone, in
+//   cqt_frame_gemm_launch (ops/cqt_cuda.frame_gemm_copies).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "frame_mma.cuh"
 
 namespace {
 
@@ -186,6 +217,255 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = acc;
 }
 
+// ---------------------------------------------------------------- default
+
+constexpr int kMmaThreads = 256;
+constexpr int kMM = 128;          // output rows per CTA
+constexpr int kMN = 96;           // output columns per CTA
+constexpr int kMK = 32;           // filter rows per step
+constexpr int kALd = kMK + 8;     // A stage row (bf16): 80 bytes
+constexpr int kBLd = kMN + 8;     // B stage row (bf16): 208 bytes
+constexpr int kARows = kMM * kMK / kMmaThreads;  // A values a thread loads a step: 16
+constexpr int kBVals = kMK * kMN / kMmaThreads;  // B values: 12
+
+__global__ void __launch_bounds__(kMmaThreads)
+    frame_gemm_mma_kernel(const float* __restrict__ padded,
+                          const float* __restrict__ kern, float* __restrict__ dst,
+                          int T, long long P, int hop, int Kw, int N, int M,
+                          int k_chunk) {
+  __shared__ __align__(16) __nv_bfloat16 As[2][kMM][kALd];
+  __shared__ __align__(16) __nv_bfloat16 Bs[2][kMK][kBLd];
+  __shared__ long long s_row_off[kMM];  // padded offset of row (b, t)
+  __shared__ long long s_row_lim[kMM];  // samples of its frame inside P
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * kMM, n0 = blockIdx.x * kMN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(Kw, k_begin + k_chunk);
+
+  for (int r = tid; r < kMM; r += kMmaThreads) {
+    const int m = m0 + r;
+    if (m < M) {
+      const int b = m / T, t = m % T;
+      s_row_off[r] = (long long)b * P + (long long)t * hop;
+      s_row_lim[r] = P - (long long)t * hop;
+    } else {
+      s_row_off[r] = 0;
+      s_row_lim[r] = 0;
+    }
+  }
+  // B loads: value i is (k, n) = divmod(tid + 256 i, 96) of the step
+  int b_off[kBVals];
+  bool b_ok[kBVals];
+#pragma unroll
+  for (int i = 0; i < kBVals; ++i) {
+    const int e = tid + kMmaThreads * i;
+    b_off[i] = (e / kMN) * N + e % kMN;
+    b_ok[i] = n0 + e % kMN < N;
+  }
+  __syncthreads();
+
+  // A loads: value i is (row tid / 32 + 8 i, k lane) of the step
+  float a_reg[kARows], b_reg[kBVals];
+  auto load = [&](int k0) {
+    const int k = k0 + lane;
+#pragma unroll
+    for (int i = 0; i < kARows; ++i) {
+      const int r = warp + 8 * i;
+      a_reg[i] = (k < k_end && k < s_row_lim[r]) ? padded[s_row_off[r] + k] : 0.0f;
+    }
+    const float* kb = kern + (long long)k0 * N + n0;
+#pragma unroll
+    for (int i = 0; i < kBVals; ++i) {
+      const int kk = k0 + (tid + kMmaThreads * i) / kMN;
+      b_reg[i] = (kk < k_end && b_ok[i]) ? kb[b_off[i]] : 0.0f;
+    }
+  };
+  auto stage = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < kARows; ++i)
+      As[s][warp + 8 * i][lane] = __float2bfloat16_rn(a_reg[i]);
+#pragma unroll
+    for (int i = 0; i < kBVals; ++i) {
+      const int e = tid + kMmaThreads * i;
+      Bs[s][e / kMN][e % kMN] = __float2bfloat16_rn(b_reg[i]);
+    }
+  };
+
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 48;
+  float acc[2][6][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+
+  int s = 0;
+  if (k_begin < k_end) {
+    load(k_begin);
+    stage(0);
+  }
+  __syncthreads();
+  for (int k0 = k_begin; k0 < k_end; k0 += kMK) {
+    const bool more = k0 + kMK < k_end;
+    if (more) load(k0 + kMK);
+#pragma unroll
+    for (int kk = 0; kk < kMK; kk += 16) {
+      uint32_t a[2][4], b[3][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        frame_mma::ldmatrix_x4(
+            a[i], &As[s][wm + 16 * i + frame_mma::ldm_row(lane)][kk + frame_mma::ldm_k(lane)]);
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        frame_mma::ldmatrix_x4_trans(
+            b[j], &Bs[s][kk + frame_mma::ldm_row(lane)][wn + 16 * j + frame_mma::ldm_k(lane)]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+          frame_mma::mma_bf16(acc[i][j], a[i], b[j / 2][2 * (j & 1)], b[j / 2][2 * (j & 1) + 1]);
+    }
+    if (more) stage(s ^ 1);
+    __syncthreads();
+    s ^= 1;
+  }
+
+  float* out = dst + (long long)blockIdx.z * M * N;
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 6; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int n = n0 + wn + 8 * j + 2 * c + q;
+          if (n < N) out[(long long)m * N + n] = acc[i][j][2 * h + q];
+        }
+    }
+}
+
+// The default tier when hop is a multiple of 8: bf16 copies of the audio
+// and the filterbank (to_bf16_kernel, part of the launch), then a ring of
+// kRingStages shared stages filled by cp.async, so the next steps' copies
+// are in flight while the tensor cores run the current one.  The copies are
+// padded so that no load needs a mask: the audio rows to P8 >= (T-1)*hop +
+// K32 (zeros past P), the filterbank to K32 rows (zeros past Kw) and N96
+// columns; a split's range ends on a multiple of kMK, the last at K32.
+constexpr int kRingStages = 4;
+constexpr int kStageVals = kMM * kALd + kMK * kBLd;  // bf16 values a stage
+
+// dst[r, c] = bf16(src[r, c]) for r < rows_src and c < cols, else 0.
+__global__ void __launch_bounds__(256)
+    to_bf16_kernel(const float* __restrict__ src, long long src_ld, int rows_src, int cols,
+                   __nv_bfloat16* __restrict__ dst, long long dst_ld, int rows_dst) {
+  for (long long r = blockIdx.y; r < rows_dst; r += gridDim.y)
+    for (long long c = (long long)blockIdx.x * 256 + threadIdx.x; c < dst_ld;
+         c += (long long)gridDim.x * 256) {
+      const float v = (r < rows_src && c < cols) ? src[r * src_ld + c] : 0.0f;
+      dst[r * dst_ld + c] = __float2bfloat16_rn(v);
+    }
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    frame_gemm_ring_kernel(const __nv_bfloat16* __restrict__ abf, long long P8,
+                           const __nv_bfloat16* __restrict__ kbf, int N96,
+                           float* __restrict__ dst, int T, int hop, int N, int M,
+                           int k_chunk, int K32) {
+  extern __shared__ __align__(16) __nv_bfloat16 ring[];
+  __shared__ long long s_row_off[kMM];  // bf16 copy offset of row (b, t)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * kMM, n0 = blockIdx.x * kMN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K32, k_begin + k_chunk);
+  const int steps = max(k_end - k_begin, 0) / kMK;
+  for (int r = tid; r < kMM; r += kMmaThreads) {
+    const int m = min(m0 + r, M - 1);  // a padded row reads the last row, never written
+    s_row_off[r] = (long long)(m / T) * P8 + (long long)(m % T) * hop;
+  }
+  __syncthreads();
+
+  auto stage_a = [&](int slot) { return ring + (size_t)slot * kStageVals; };
+  auto stage_b = [&](int slot) { return ring + (size_t)slot * kStageVals + kMM * kALd; };
+  auto issue = [&](int step) {
+    const int k0 = k_begin + step * kMK, slot = step % kRingStages;
+    __nv_bfloat16* as = stage_a(slot);
+    __nv_bfloat16* bs = stage_b(slot);
+    for (int j = tid; j < kMM * kMK / 8; j += kMmaThreads) {  // 4 chunks a row
+      const int r = j >> 2, q = j & 3;
+      frame_mma::cp_async16(as + r * kALd + 8 * q, abf + s_row_off[r] + k0 + 8 * q);
+    }
+    for (int j = tid; j < kMK * kMN / 8; j += kMmaThreads) {  // 12 chunks a row
+      const int r = j / (kMN / 8), q = j % (kMN / 8);
+      frame_mma::cp_async16(bs + r * kBLd + 8 * q, kbf + (long long)(k0 + r) * N96 + n0 + 8 * q);
+    }
+  };
+
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 48;
+  float acc[2][6][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kRingStages - 1; ++s) {
+    if (s < steps) issue(s);
+    frame_mma::cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    frame_mma::cp_async_wait<kRingStages - 2>();
+    __syncthreads();  // step s landed; every warp is done with step s - 1's slot
+    if (s + kRingStages - 1 < steps) issue(s + kRingStages - 1);
+    frame_mma::cp_async_commit();
+    const __nv_bfloat16* as = stage_a(s % kRingStages);
+    const __nv_bfloat16* bs = stage_b(s % kRingStages);
+#pragma unroll
+    for (int kk = 0; kk < kMK; kk += 16) {
+      uint32_t a[2][4], b[3][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        frame_mma::ldmatrix_x4(
+            a[i], as + (wm + 16 * i + frame_mma::ldm_row(lane)) * kALd + kk + frame_mma::ldm_k(lane));
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        frame_mma::ldmatrix_x4_trans(
+            b[j], bs + (kk + frame_mma::ldm_row(lane)) * kBLd + wn + 16 * j + frame_mma::ldm_k(lane));
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+          frame_mma::mma_bf16(acc[i][j], a[i], b[j / 2][2 * (j & 1)], b[j / 2][2 * (j & 1) + 1]);
+    }
+  }
+  frame_mma::cp_async_wait<0>();
+
+  float* out = dst + (long long)blockIdx.z * M * N;
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 6; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int n = n0 + wn + 8 * j + 2 * c + q;
+          if (n < N) out[(long long)m * N + n] = acc[i][j][2 * h + q];
+        }
+    }
+}
+
 template <int kPrec>
 cudaError_t launch(const float* padded, const float* kern, float* dst, int T,
                    long long P, int hop, int Kw, int N, int M, int splits,
@@ -200,10 +480,14 @@ cudaError_t launch(const float* padded, const float* kern, float* dst, int T,
 
 // padded [B, P] fp32, kern [Kw, N] fp32 -> out [B, T, N] fp32.  With
 // splits > 1, partial is scratch of splits * B*T*N floats (else unused).
+// With abf and kbf (the default tier at a hop that is a multiple of 8): bf16
+// scratch of B * P8 and K32 * N96 values, P8 = a multiple of 8 >= max(P,
+// (T-1)*hop + K32), K32 = Kw rounded up to kMK, N96 = N rounded up to kMN
+// (ops/cqt_cuda.frame_gemm_copies computes the same).
 extern "C" int cqt_frame_gemm_launch(const void* padded, const void* kern,
-                                     void* out, void* partial, int B,
-                                     long long P, int T, int hop, int Kw,
-                                     int N, int splits, int precision,
+                                     void* out, void* partial, void* abf, void* kbf,
+                                     int B, long long P, int T, int hop, int Kw,
+                                     int N, int splits, int precision, long long P8,
                                      void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long m_ll = (long long)B * T;
@@ -212,8 +496,9 @@ extern "C" int cqt_frame_gemm_launch(const void* padded, const void* kern,
       (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   const int M = (int)m_ll;
-  // filter rows per split, a multiple of kBK
-  const int k_chunk = ((Kw + splits - 1) / splits + kBK - 1) / kBK * kBK;
+  // filter rows per split, a multiple of the kernel's step
+  const int step = precision == kDefault ? kMK : kBK;
+  const int k_chunk = ((Kw + splits - 1) / splits + step - 1) / step * step;
   float* dst = static_cast<float*>(splits > 1 ? partial : out);
   const float* a = static_cast<const float*>(padded);
   const float* k = static_cast<const float*>(kern);
@@ -222,8 +507,31 @@ extern "C" int cqt_frame_gemm_launch(const void* padded, const void* kern,
     err = launch<kHighest>(a, k, dst, T, P, hop, Kw, N, M, splits, k_chunk, stream);
   } else if (precision == kBf16x3) {
     err = launch<kBf16x3>(a, k, dst, T, P, hop, Kw, N, M, splits, k_chunk, stream);
+  } else if (precision == kDefault && abf != nullptr) {
+    const int K32 = (Kw + kMK - 1) / kMK * kMK;
+    const int N96 = (N + kMN - 1) / kMN * kMN;
+    if (hop % 8 != 0 || P8 % 8 != 0 || P8 < P || P8 < (long long)(T - 1) * hop + K32 ||
+        kbf == nullptr)
+      return (int)cudaErrorInvalidValue;
+    __nv_bfloat16* ab = static_cast<__nv_bfloat16*>(abf);
+    __nv_bfloat16* kb = static_cast<__nv_bfloat16*>(kbf);
+    to_bf16_kernel<<<dim3((unsigned)((P8 + 255) / 256 < 32 ? (P8 + 255) / 256 : 32),
+                          (unsigned)min(B, 65535)), 256, 0, stream>>>(a, P, B, (int)P, ab, P8, B);
+    to_bf16_kernel<<<dim3((unsigned)((N96 + 255) / 256), (unsigned)min(K32, 65535)), 256, 0,
+                     stream>>>(k, N, Kw, N, kb, N96, K32);
+    const size_t smem = (size_t)kRingStages * kStageVals * sizeof(__nv_bfloat16);
+    err = cudaFuncSetAttribute(frame_gemm_ring_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((N + kMN - 1) / kMN, (M + kMM - 1) / kMM, splits);
+    frame_gemm_ring_kernel<<<grid, kMmaThreads, smem, stream>>>(ab, P8, kb, N96, dst, T, hop, N,
+                                                                M, k_chunk, K32);
+    err = cudaGetLastError();
   } else if (precision == kDefault) {
-    err = launch<kDefault>(a, k, dst, T, P, hop, Kw, N, M, splits, k_chunk, stream);
+    const dim3 grid((N + kMN - 1) / kMN, (M + kMM - 1) / kMM, splits);
+    frame_gemm_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(a, k, dst, T, P, hop, Kw, N, M,
+                                                           k_chunk);
+    err = cudaGetLastError();
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -232,4 +540,32 @@ extern "C" int cqt_frame_gemm_launch(const void* padded, const void* kern,
   add_splits_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
       static_cast<const float*>(partial), n, splits, static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// The default tier's kernels as the card runs them (which: 0 the ring
+// kernel, 1 the kernel that loads the fp32 operands itself): info =
+// {registers a thread, local (spill) bytes a thread, shared bytes a CTA,
+// threads a CTA, resident CTAs per SM}.  Returns 0, or the cudaError_t of
+// the failed query.
+extern "C" int frame_gemm_mma_kernel_info(int which, int* info) {
+  const void* fn = which == 0 ? (const void*)frame_gemm_ring_kernel
+                              : (const void*)frame_gemm_mma_kernel;
+  const size_t smem =
+      which == 0 ? (size_t)kRingStages * kStageVals * sizeof(__nv_bfloat16) : 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  if (smem) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, kMmaThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)(attr.sharedSizeBytes + smem);
+  info[3] = kMmaThreads;
+  info[4] = ctas;
+  return 0;
 }

@@ -204,9 +204,10 @@ class CQTFrontend:
 
     The output lies on the input's device: a CUDA input runs the kernel of
     :mod:`.cqt_cuda`, a CPU input the plain version.  ``gemm_split`` and
-    ``batch_block`` choose among the JAX package's TPU kernels; the port has
-    one kernel that always skips exactly-zero terms, so they do not change
-    what is computed (``gemm_split`` is still validated).
+    ``batch_block`` choose among the JAX package's TPU kernels; the port's
+    kernels (SIMT, and the tensor cores at ``default``) always skip
+    exactly-zero terms, so they do not change what is computed
+    (``gemm_split`` is still validated).
     """
 
     def __init__(self, cfg: CQTConfig | None = None):
@@ -249,14 +250,15 @@ class CQTFrontend:
         return self._pad_index[key]
 
     def kernel_plan(self, num_samples: int, device: torch.device):
-        """The CUDA kernel's launch plan for this window length (cached)."""
-        from .cqt_cuda import make_plan
+        """The CUDA kernel's launch plan for this window length (cached):
+        the tensor-core kernel's at the ``default`` tier, else the SIMT
+        kernel's."""
+        from .cqt_cuda import make_mma_plan, make_plan
 
         key = (num_samples, device)
         if key not in self._plans:
-            self._plans[key] = make_plan(
-                self.filterbank, self.cfg, num_samples, device
-            )
+            make = make_mma_plan if self.cfg.precision == "default" else make_plan
+            self._plans[key] = make(self.filterbank, self.cfg, num_samples, device)
         return self._plans[key]
 
     @staticmethod

@@ -14,15 +14,19 @@ module is imported.
 
 :func:`cqt_fused` is the wrapper: a CPU tensor goes to the plain version
 (:func:`.cqt.cqt_plain`), a CUDA tensor to the kernel, which raises if it
-cannot launch.  ``launches`` counts the wrapper's launches of the fused
-transform; each is one call of ``cqt_fused_launch``, which enqueues two
-kernels (the coefficients, then the per-window dB epilogue).
+cannot launch.  The ``highest`` and ``bf16x3`` tiers run the SIMT kernel
+(``cqt_fused_launch``, plan :func:`make_plan`); the ``default`` tier runs
+the tensor-core kernel (``cqt_fused_mma_launch``, plan
+:func:`make_mma_plan`).  ``launches`` counts the wrapper's launches of the
+fused transform, ``mma_launches`` those on the tensor cores; each launch
+enqueues two kernels (the coefficients, then the per-window dB epilogue).
 
 :func:`cqt_frame_gemm` is the port of the TPU kernel
 ``ops/cqt_pallas.py::cqt_frame_gemm`` and, as there, its own entry point:
 raw coefficients ``[B, T, 2F]`` with no epilogue, for any filterbank.  It
 is built from its own source (``build_frame_gemm``) and counted in
-``frame_gemm_launches``.
+``frame_gemm_launches``, its ``default`` tier (tensor cores) also in
+``frame_gemm_mma_launches``.
 """
 
 from __future__ import annotations
@@ -51,10 +55,14 @@ FRAME_GEMM_SOURCE = os.path.join(nvcc.CSRC_DIR, "cqt_frame_gemm.cu")
 NVCC_FLAGS = nvcc.BASE_FLAGS
 FRAME_GEMM_TILE = 64  # output rows and columns per CTA; csrc/cqt_frame_gemm.cu kBM, kBN
 FRAME_GEMM_STEP = 16  # filter rows per step; kBK
+# the default tier's tensor-core kernel: rows, columns and filter rows a step
+FRAME_GEMM_MMA_TILE = (128, 96, 32)  # csrc/cqt_frame_gemm.cu kMM, kMN, kMK
 TARGET_CTAS = 2 * 132  # two CTAs on each of the H100's SMs
 
 launches = 0  # fused launches since import (or since a caller reset it)
+mma_launches = 0  # those of them on the default tier's tensor-core kernel
 frame_gemm_launches = 0  # cqt_frame_gemm launches, counted the same way
+frame_gemm_mma_launches = 0  # those of them on the tensor-core kernel (default)
 _lib = None
 _frame_gemm_lib = None
 
@@ -267,6 +275,290 @@ def make_plan(
     )
 
 
+# ------------------------------------------- default tier: tensor-core plan
+
+MMA_BAND_GROUPS = 4  # bin groups a band (a unit's columns); csrc/cqt.cu kBandGroups
+MMA_UNIT_ROWS = 64  # rows a unit (four m16 tiles); csrc/cqt.cu kUnitRows
+MMA_WARPS = 16  # warps per CTA; csrc/cqt.cu kMmaWarps
+MMA_MAX_GROUPS = 64  # csrc/cqt.cu kMaxGroups (its static shared table)
+MMA_MAX_ROWS = 128  # (window, frame) rows per CTA at most
+MMA_PART_BYTES = MMA_UNIT_ROWS * 8 * MMA_BAND_GROUPS * 4  # one unit's partial sums
+MMA_SMEM_BUDGET = MAX_SMEM_BYTES - 1024  # the rest: the kernel's static table
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _row_units(rows: int) -> int:
+    """Units of ``MMA_UNIT_ROWS`` rows that cover ``rows`` rows."""
+    return _cdiv(rows, MMA_UNIT_ROWS)
+
+
+@dataclass(frozen=True)
+class MmaGeometry:
+    """The default tier's packed filterbank: group g (``GROUP`` bins)
+    covers the 16-row chunks ``[c_lo[g], c_hi[g])`` of the filter rows,
+    the union of its bins' nonzero rows rounded out to the 16-row grid,
+    stored as blocks ``blk_off[g] ..`` of the fragment-order filter.  A band
+    is ``MMA_BAND_GROUPS`` consecutive groups."""
+
+    c_lo: np.ndarray
+    c_hi: np.ndarray
+    blk_off: np.ndarray
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.c_lo)
+
+    @property
+    def n_bands(self) -> int:
+        return _cdiv(self.n_groups, MMA_BAND_GROUPS)
+
+    def meta(self) -> np.ndarray:
+        """The int32 group table the kernel reads (layout in csrc/cqt.cu;
+        the plan appends the pieces per band)."""
+        return np.concatenate([self.c_lo, self.c_hi, self.blk_off]).astype(np.int32)
+
+    def nested(self) -> bool:
+        """Whether within each band the groups' chunk ranges nest, each in
+        the one before (csrc/cqt.cu walks a band's chunks in segments of
+        1, 2, 3, 4, 3, 2, 1 live groups)."""
+        for b in range(self.n_bands):
+            g = slice(b * MMA_BAND_GROUPS, (b + 1) * MMA_BAND_GROUPS)
+            if np.any(np.diff(self.c_lo[g]) < 0) or np.any(np.diff(self.c_hi[g]) > 0):
+                return False
+        return True
+
+    def chunks(self, band: int | None = None) -> tuple[int, int]:
+        """The chunk range of a band's groups, or of all groups."""
+        g = slice(None) if band is None else slice(
+            band * MMA_BAND_GROUPS, (band + 1) * MMA_BAND_GROUPS)
+        return int(self.c_lo[g].min()), int(self.c_hi[g].max())
+
+
+def mma_geometry(fb: CQTFilterbank) -> MmaGeometry:
+    geom = kernel_geometry(fb)
+    c_lo = geom.group_lo // 16
+    c_hi = -(-geom.group_hi // 16)
+    blk_off = np.concatenate([[0], np.cumsum(c_hi - c_lo)[:-1]])
+    i32 = lambda a: np.asarray(a, dtype=np.int32)  # noqa: E731
+    return MmaGeometry(i32(c_lo), i32(c_hi), i32(blk_off))
+
+
+_LANE_K = 2 * (np.arange(32) % 4)[:, None] + np.array([0, 1, 8, 9])[None, :]  # [32, 4]
+_LANE_N = np.broadcast_to((np.arange(32) // 4)[:, None], (32, 4))
+
+
+def pack_filter_mma(fb: CQTFilterbank, geom: MmaGeometry) -> np.ndarray:
+    """The filterbank rounded to bf16 (nearest even), as uint16 bits
+    ``[blocks, 32 lanes, 4]`` in the mma B-fragment order: block (g, c),
+    lane l holds rows ``16c + 2(l%4) + (0, 1, 8, 9)`` of column ``l // 4``,
+    where column ``2j`` is the real and ``2j + 1`` the imaginary part of bin
+    ``4g + j``.  Rows past the filter and bins past ``n_bins`` are zero."""
+    from .cqt import round_bf16
+
+    n_pad = geom.n_groups * GROUP - fb.n_bins
+    kw = fb.kernel_width
+    rows = max(int(geom.c_hi.max()) * 16, kw)
+    cols = np.zeros((rows, 2 * geom.n_groups * GROUP), np.float32)
+    cols[:kw, 0::2] = np.pad(fb.kernels_real, ((0, 0), (0, n_pad)))
+    cols[:kw, 1::2] = np.pad(fb.kernels_imag, ((0, 0), (0, n_pad)))
+    bits = round_bf16(torch.from_numpy(cols)).to(torch.bfloat16).view(torch.int16)
+    bits = bits.numpy().view(np.uint16)  # [rows, (re, im) x bins]
+    blocks = []
+    for g in range(geom.n_groups):
+        c = np.arange(geom.c_lo[g], geom.c_hi[g])
+        blocks.append(bits[16 * c[:, None, None] + _LANE_K[None], 8 * g + _LANE_N[None]])
+    return np.ascontiguousarray(np.concatenate(blocks))
+
+
+def mma_skew(hop: int) -> int:
+    """Samples the staged audio skips after every ``hop``: a multiple of 8
+    that makes a row step of ``hop + skew`` bf16 values 16 bytes past a
+    multiple of 128, so an ldmatrix's 8 frames hit 8 bank groups.  0 when
+    ``hop`` is not a multiple of 8 (the kernel's 16-bit load path)."""
+    return (8 - hop) % 64 if hop % 8 == 0 else 0
+
+
+def mma_tile_chunks(geom: MmaGeometry, *, reflect: bool, pad: int, hop: int,
+                    num_samples: int, t0: int, frames: int,
+                    band: int | None = None) -> tuple[int, int]:
+    """The chunks ``[c_a, c_b)`` a CTA at frame tile ``t0`` contracts, of
+    all groups (its staged audio) or of one band: with constant padding,
+    only chunks that meet the audio in some frame of the tile (csrc/cqt.cu
+    computes the same)."""
+    c_s, c_e = geom.chunks()
+    if not reflect:
+        c_s = max(c_s, (pad - (t0 + frames - 1) * hop) // 16)
+        c_e = max(min(c_e, _cdiv(pad + num_samples - t0 * hop, 16)), c_s)
+    if band is None:
+        return c_s, c_e
+    c_a, c_b = geom.chunks(band)
+    c_a = max(c_a, c_s)
+    return c_a, max(min(c_b, c_e), c_a)
+
+
+def _skewed_len(n: int, hop: int, skew: int) -> int:
+    """Elements a buffer of n samples takes with the skew."""
+    return n + skew * ((n - 1) // hop) if n else 0
+
+
+def mma_stage_span(geom: MmaGeometry, *, reflect: bool, pad: int, hop: int,
+                   num_samples: int, t0: int, frames: int) -> tuple[int, int, int, int]:
+    """What a CTA at frame tile ``t0`` stages of each window: buffer
+    indices ``[i0, i1)`` (8-aligned) of ``[0, len)``, where index i holds
+    padded audio ``t0*hop + 16 c_s + i``, and the audio part ``[i_lo,
+    i_hi)`` of them (csrc/cqt.cu computes the same)."""
+    c_s, c_e = mma_tile_chunks(geom, reflect=reflect, pad=pad, hop=hop,
+                               num_samples=num_samples, t0=t0, frames=frames)
+    length = (frames - 1) * hop + 16 * (c_e - c_s)
+    i_lo, i_hi = 0, length
+    if not reflect:
+        p0 = t0 * hop + 16 * c_s - pad
+        i_lo = min(max(-p0, 0), length)
+        i_hi = max(min(num_samples - p0, length), i_lo)
+    i0 = i_lo // 8 * 8
+    return i0, max(_cdiv(i_hi, 8) * 8, i0), i_lo, i_hi
+
+
+@dataclass(frozen=True)
+class MmaShape:
+    """The CTA: ``windows`` x ``frames`` rows (m16 tiles, four to a unit),
+    band b's chunks cut into ``pieces[b]``; ``wstride`` bf16 values per
+    staged window, then 8 zeros, the partial sums from byte ``part_off``."""
+
+    windows: int
+    frames: int
+    pieces: tuple[int, ...]
+    wstride: int
+    part_off: int
+    smem_bytes: int
+
+    @property
+    def row_units(self) -> int:
+        return _row_units(self.windows * self.frames)
+
+    @property
+    def units(self) -> int:
+        return self.row_units * sum(self.pieces)
+
+
+def _split_pieces(work: list[float], units_m: int, n_units: int) -> tuple[int, ...]:
+    """Pieces per band for about ``n_units`` units: each band one, then a
+    piece more to the band whose pieces are the largest, while it fits."""
+    pieces = [1] * len(work)
+    while units_m * (sum(pieces) + 1) <= n_units:
+        b = max(range(len(work)), key=lambda i: work[i] / pieces[i])
+        pieces[b] += 1
+    return tuple(pieces)
+
+
+def mma_shape(geom: MmaGeometry, *, reflect: bool, pad: int, hop: int, num_samples: int,
+              n_frames: int, budget: int = MMA_SMEM_BUDGET) -> MmaShape:
+    """The CTA shape from the shared-memory budget: of the (frames,
+    windows, units) that fit ``budget`` bytes, with at most
+    ``MMA_MAX_ROWS`` rows, the one with the least modelled SM time a
+    window (more windows, then fewer units, on a tie).  The units are cut
+    from the bands by :func:`_split_pieces` on each band's chunks x the
+    groups a chunk feeds.  The model, in SM clocks of one CTA: staging, W x
+    (staged samples) / 64; products, the larger of the biggest unit and the
+    units' sum over ``MMA_WARPS`` warps, a chunk costing (the m16 tiles a
+    unit holds x the groups it feeds x 8 clocks an mma.sync + 40 clocks of
+    its other instructions) x 4 warps a sub-partition."""
+    skew = mma_skew(hop)
+    kw = dict(reflect=reflect, pad=pad, hop=hop, num_samples=num_samples)
+    best, best_key = None, None
+    for frames in range(n_frames, 0, -1):
+        need, band_work = 0, []
+        tiles = range(0, n_frames, frames)
+        for t0 in tiles:
+            i0, i1, _, _ = mma_stage_span(geom, t0=t0, frames=frames, **kw)
+            need = max(need, i1 - i0)
+        for band in range(geom.n_bands):
+            nc, feeds = 0, 0.0
+            g = slice(band * MMA_BAND_GROUPS, (band + 1) * MMA_BAND_GROUPS)
+            for t0 in tiles:
+                c_a, c_b = mma_tile_chunks(geom, t0=t0, frames=frames, band=band, **kw)
+                live = np.minimum(geom.c_hi[g], c_b) - np.maximum(geom.c_lo[g], c_a)
+                nc = max(nc, c_b - c_a)
+                feeds = max(feeds, np.maximum(live, 0).sum() / max(c_b - c_a, 1))
+            band_work.append((nc, feeds))
+        wstride = _cdiv(_skewed_len(need, hop, skew), 64) * 64 + 8
+        for windows in range(1, max(1, MMA_MAX_ROWS // frames) + 1):
+            units_m = _row_units(windows * frames)
+            tiles_u = min(4, _cdiv(windows * frames, 16))
+            part_off = _cdiv(2 * (windows * wstride + 8), 16) * 16  # + the zero block
+            chunk = [tiles_u * f * 8 + 40 for _, f in band_work]
+            work = [nc * c for (nc, _), c in zip(band_work, chunk)]
+            for n_units in range(units_m * geom.n_bands, 2 * MMA_WARPS + 1):
+                pieces = _split_pieces(work, units_m, n_units)
+                units = units_m * sum(pieces)
+                smem = part_off + units * MMA_PART_BYTES
+                if smem > budget:
+                    break
+                biggest = max(_cdiv(nc, p) * c for (nc, _), p, c in
+                              zip(band_work, pieces, chunk))
+                products = max(biggest, units_m * sum(work) / MMA_WARPS) * 4
+                clocks = windows * need / 64 + products
+                key = (_cdiv(n_frames, frames) * clocks / windows, -windows, units)
+                if best_key is None or key < best_key:
+                    best_key = key
+                    best = MmaShape(windows, frames, pieces, wstride, part_off, smem)
+    if best is None:
+        raise ValueError(f"no CQT tensor-core tile fits {budget} B of shared memory "
+                         f"(hop {hop}, kernel width {16 * geom.chunks()[1]})")
+    return best
+
+
+@dataclass
+class MmaPlan:
+    """Device tensors and launch parameters of the default tier for one
+    window length."""
+
+    filt: torch.Tensor
+    gmeta: torch.Tensor
+    geom: MmaGeometry
+    shape: MmaShape
+    num_samples: int
+    n_frames: int
+    n_bins: int
+    hop: int
+    pad: int
+    reflect: bool
+    skew: int
+
+    def n_ctas(self, batch: int) -> int:
+        return _cdiv(self.n_frames, self.shape.frames) * _cdiv(batch, self.shape.windows)
+
+
+def make_mma_plan(
+    fb: CQTFilterbank, cfg: CQTConfig, num_samples: int, device: torch.device
+) -> MmaPlan:
+    reflect = cfg.pad_mode == "reflect"
+    if reflect and num_samples < 2:
+        raise ValueError("reflect padding needs at least 2 samples")
+    geom = mma_geometry(fb)
+    if geom.n_groups > MMA_MAX_GROUPS:
+        raise ValueError(f"the CQT tensor-core kernel takes at most "
+                         f"{GROUP * MMA_MAX_GROUPS} bins, got {fb.n_bins}")
+    if not geom.nested():
+        raise ValueError("the CQT tensor-core kernel needs each band's group spans to "
+                         "nest (the kernels shorten with frequency about one centre)")
+    hop, pad = cfg.hop_length, fb.kernel_width // 2
+    t = n_frames_for(num_samples, hop)
+    shape = mma_shape(geom, reflect=reflect, pad=pad, hop=hop, num_samples=num_samples,
+                      n_frames=t)
+    filt = pack_filter_mma(fb, geom).view(np.int16)
+    meta = np.concatenate([geom.meta(), np.asarray(shape.pieces, np.int32)])
+    return MmaPlan(
+        filt=torch.from_numpy(filt).to(device),
+        gmeta=torch.from_numpy(meta).to(device),
+        geom=geom, shape=shape, num_samples=num_samples, n_frames=t, n_bins=fb.n_bins,
+        hop=hop, pad=pad, reflect=reflect, skew=mma_skew(hop),
+    )
+
+
 # -------------------------------------------------------------------- build
 
 
@@ -288,8 +580,30 @@ def _library():
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
             + [ctypes.c_float] * 5 + [ctypes.c_void_p]
         )
+        fn = lib.cqt_fused_mma_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
+            + [ctypes.c_float] * 5 + [ctypes.c_void_p]
+        )
+        lib.cqt_mma_kernel_info.restype = ctypes.c_int
+        lib.cqt_mma_kernel_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         _lib = lib
     return _lib
+
+
+_INFO_KEYS = ("registers", "local_bytes", "shared_bytes", "threads", "ctas_per_sm")
+
+
+def mma_kernel_info(plan: MmaPlan) -> dict[str, int]:
+    """The default tier's kernel as the card runs it at ``plan``'s shared
+    bytes: registers a thread, local (spill) bytes a thread, shared bytes a
+    CTA, threads a CTA, resident CTAs per SM."""
+    info = (ctypes.c_int * 5)()
+    rc = _library().cqt_mma_kernel_info(plan.shape.smem_bytes, info)
+    if rc != 0:
+        raise RuntimeError(f"cqt_mma_kernel_info failed: CUDA error {rc}")
+    return dict(zip(_INFO_KEYS, info))
 
 
 # ------------------------------------------------------------------ wrapper
@@ -301,7 +615,7 @@ def cqt_fused(x: torch.Tensor, frontend) -> torch.Tensor:
 
     A CPU tensor goes to the plain version; a CUDA tensor to the kernel.
     Each call on a CUDA tensor adds one to ``launches`` for its two kernels."""
-    global launches
+    global launches, mma_launches
     if x.device.type == "cpu":
         return frontend.plain(x)
     if x.device.type != "cuda":
@@ -312,13 +626,18 @@ def cqt_fused(x: torch.Tensor, frontend) -> torch.Tensor:
             f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
         )
     batch, num_samples = x.shape
-    plan: KernelPlan = frontend.kernel_plan(num_samples, x.device)
+    plan = frontend.kernel_plan(num_samples, x.device)
     cfg = frontend.cfg
     out = torch.empty(
         (batch, plan.n_bins, plan.n_frames), device=x.device,
         dtype=torch.float32,
     )
     if batch == 0:
+        return out
+    if isinstance(plan, MmaPlan):
+        _launch_mma(x, plan, cfg, out)
+        mma_launches += 1
+        launches += 1
         return out
     fn = _library().cqt_fused_launch
     with torch.cuda.device(x.device):
@@ -335,6 +654,21 @@ def cqt_fused(x: torch.Tensor, frontend) -> torch.Tensor:
         raise RuntimeError(f"CQT kernel launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def _launch_mma(x: torch.Tensor, plan: MmaPlan, cfg: CQTConfig, out: torch.Tensor) -> None:
+    sh = plan.shape
+    with torch.cuda.device(x.device):
+        rc = _library().cqt_fused_mma_launch(
+            x.data_ptr(), plan.filt.data_ptr(), plan.gmeta.data_ptr(), out.data_ptr(),
+            x.shape[0], plan.num_samples, plan.n_frames, plan.n_bins, plan.hop, plan.pad,
+            int(plan.reflect), plan.geom.n_groups, plan.skew, sh.windows, sh.frames,
+            sh.wstride, sh.part_off, sh.smem_bytes, cfg.magnitude_power,
+            cfg.amin, cfg.top_db, cfg.gate_threshold_db, cfg.gate_floor_db,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"CQT tensor-core kernel launch failed: CUDA error {rc}")
 
 
 # -------------------------------------------------------- raw frame GEMM (B9)
@@ -355,17 +689,67 @@ def _frame_gemm_library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn = lib.cqt_frame_gemm_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, ll, i, i, i, i, i, i, ll, p]
+        lib.frame_gemm_mma_kernel_info.restype = ctypes.c_int
+        lib.frame_gemm_mma_kernel_info.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
         _frame_gemm_lib = lib
     return _frame_gemm_lib
 
 
-def frame_gemm_splits(rows: int, cols: int, depth: int) -> int:
+def frame_gemm_mma_kernel_info() -> dict[str, dict[str, int]]:
+    """The default tier's two tensor-core kernels as the card runs them
+    (the keys of :func:`mma_kernel_info`): ``ring`` (bf16 copies, hop a
+    multiple of 8) and ``fp32_loads`` (any hop)."""
+    out = {}
+    for which, name in enumerate(("ring", "fp32_loads")):
+        info = (ctypes.c_int * 5)()
+        rc = _frame_gemm_library().frame_gemm_mma_kernel_info(which, info)
+        if rc != 0:
+            raise RuntimeError(f"frame_gemm_mma_kernel_info failed: CUDA error {rc}")
+        out[name] = dict(zip(_INFO_KEYS, info))
+    return out
+
+
+def frame_gemm_tile(precision: str = "highest") -> tuple[int, int, int]:
+    """(rows, columns, filter rows a step) of the kernel's CTA at a tier."""
+    if precision == "default":
+        return FRAME_GEMM_MMA_TILE
+    return FRAME_GEMM_TILE, FRAME_GEMM_TILE, FRAME_GEMM_STEP
+
+
+def frame_gemm_splits(rows: int, cols: int, depth: int, precision: str = "highest") -> int:
     """Ranges the kernel cuts the depth into, so that about TARGET_CTAS
-    CTAs run; fixed by the shape (two runs add in the same order)."""
-    tiles = -(-rows // FRAME_GEMM_TILE) * -(-cols // FRAME_GEMM_TILE)
-    most = max(1, depth // (32 * FRAME_GEMM_STEP))  # at least 512 rows a range
-    return max(1, min(-(-TARGET_CTAS // tiles), most))
+    CTAs run (the tensor-core kernel: at most that many, one wave); fixed
+    by the shape and tier (two runs add in the same order)."""
+    bm, bn, _ = frame_gemm_tile(precision)
+    tiles = _cdiv(rows, bm) * _cdiv(cols, bn)
+    most = max(1, depth // 512)  # at least 512 rows a range
+    fill = TARGET_CTAS // tiles if precision == "default" else _cdiv(TARGET_CTAS, tiles)
+    return max(1, min(fill, most))
+
+
+def frame_gemm_copies(p: int, n_frames: int, hop: int, kw: int, n: int,
+                      precision: str) -> tuple[int, int, int] | None:
+    """(P8, K32, N96) of the bf16 copies the default tier's ring kernel
+    reads (audio rows of P8, filterbank of K32 rows and N96 columns, zero
+    padded; csrc/cqt_frame_gemm.cu), or None where it does not run: the
+    other tiers, and a hop that is not a multiple of 8 (there the default
+    tier's tensor-core kernel loads the fp32 operands itself)."""
+    if precision != "default" or hop % 8:
+        return None
+    _, bn, bk = FRAME_GEMM_MMA_TILE
+    k32 = _cdiv(kw, bk) * bk
+    p8 = _cdiv(max(p, (n_frames - 1) * hop + k32), 8) * 8
+    return p8, k32, _cdiv(n, bn) * bn
+
+
+def frame_gemm_ranges(depth: int, splits: int, precision: str = "highest") -> list[tuple[int, int]]:
+    """The depth ranges [k_begin, k_end) of the splits, as
+    ``cqt_frame_gemm_launch`` cuts them (each a multiple of the step long;
+    trailing ranges may be empty)."""
+    step = frame_gemm_tile(precision)[2]
+    chunk = _cdiv(_cdiv(depth, splits), step) * step
+    return [(min(depth, z * chunk), min(depth, (z + 1) * chunk)) for z in range(splits)]
 
 
 def cqt_frame_gemm(
@@ -389,7 +773,7 @@ def cqt_frame_gemm(
     A CPU tensor goes to :func:`.cqt.frame_gemm_plain`; a CUDA tensor to the
     kernel of ``csrc/cqt_frame_gemm.cu``, which raises if it cannot launch.
     Each launch adds one to ``frame_gemm_launches``."""
-    global frame_gemm_launches
+    global frame_gemm_launches, frame_gemm_mma_launches
     if padded.ndim != 2 or kernels.ndim != 2:
         raise ValueError(
             f"expected padded [B, P] and kernels [Kw, 2F], got "
@@ -422,17 +806,27 @@ def cqt_frame_gemm(
         raise ValueError(f"the frame GEMM kernel takes 1 to {65535 * FRAME_GEMM_TILE} "
                          f"rows (B * n_frames), got {rows}")
     out = torch.empty((b, n_frames, two_f), device=padded.device, dtype=torch.float32)
-    splits = frame_gemm_splits(rows, two_f, kw)
+    splits = frame_gemm_splits(rows, two_f, kw, precision)
     partial = (torch.empty((splits, rows, two_f), device=padded.device,
                            dtype=torch.float32) if splits > 1 else None)
+    copies = frame_gemm_copies(p, n_frames, hop_length, kw, two_f, precision)
+    abf = kbf = None
+    if copies is not None:
+        p8, k32, n96 = copies
+        abf = torch.empty(b * p8, device=padded.device, dtype=torch.bfloat16)
+        kbf = torch.empty(k32 * n96, device=padded.device, dtype=torch.bfloat16)
     with torch.cuda.device(padded.device):
         rc = _frame_gemm_library().cqt_frame_gemm_launch(
             padded.data_ptr(), kernels.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(), b, p, n_frames,
-            hop_length, kw, two_f, splits, PRECISION_CODES[precision],
+            None if partial is None else partial.data_ptr(),
+            None if abf is None else abf.data_ptr(), None if kbf is None else kbf.data_ptr(),
+            b, p, n_frames, hop_length, kw, two_f, splits, PRECISION_CODES[precision],
+            0 if copies is None else copies[0],
             torch.cuda.current_stream(padded.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"CQT frame GEMM kernel launch failed: CUDA error {rc}")
     frame_gemm_launches += 1
+    if precision == "default":
+        frame_gemm_mma_launches += 1
     return out

@@ -243,3 +243,213 @@ def test_wrapper_sends_cpu_tensors_to_plain_version():
     assert cqt_cuda.launches == before
     assert torch.equal(got, fe.plain(x))
     assert fe(x[0]).shape == (96, 9)  # 1-D input squeezes back
+
+
+# ------------------------------------------ default tier: tensor-core plan
+
+def _emulate_mma_kernel(cfg, x):
+    """float64 NumPy walk of csrc/cqt.cu's cqt_mma_kernel at the default
+    tier: one CTA per (window block, frame tile), its windows' bf16 audio
+    staged at the skewed positions, the A fragments read back at the
+    ldmatrix (or 16-bit) addresses, then band by band: each unit's pieces
+    of the band's chunks over the fragment-order filter blocks of each
+    group whose span holds the chunk, the pieces' sums added in order ->
+    s = |CQT|^p, [B, F, T]."""
+    fb = make_filterbank(cfg)
+    batch, n = x.shape
+    plan = cqt_cuda.make_mma_plan(fb, cfg, n, torch.device("cpu"))
+    geom, sh, hop, skew, t_all = plan.geom, plan.shape, plan.hop, plan.skew, plan.n_frames
+    ldm = hop % 8 == 0
+    blocks = ((plan.filt.numpy().view(np.uint16).astype(np.uint32) << 16)
+              .view(np.float32).astype(np.float64))  # [blocks, 32, 4]
+    lane = np.arange(32)
+    k_of = 2 * (lane % 4)[:, None] + np.array([0, 1, 8, 9])[None, :]
+    dense_blk = np.zeros((len(blocks), 16, 8))
+    dense_blk[:, k_of, np.broadcast_to((lane // 4)[:, None], (32, 4))] = blocks
+    xr = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16).double().numpy()
+    out = np.full((batch, cfg.n_bins, t_all), np.nan)
+    w_n, tf, gsz = sh.windows, sh.frames, cqt_cuda.MMA_BAND_GROUPS
+    assert len(sh.pieces) == geom.n_bands and min(sh.pieces) >= 1
+    assert sh.part_off + sh.units * cqt_cuda.MMA_PART_BYTES == sh.smem_bytes
+    assert sh.smem_bytes <= cqt_cuda.MMA_SMEM_BUDGET
+    assert np.array_equal(plan.gmeta.numpy(), np.concatenate([geom.meta(), sh.pieces]))
+    n_ft = -(-t_all // tf)
+    assert plan.n_ctas(batch) == n_ft * -(-batch // w_n)
+    for cta in range(plan.n_ctas(batch)):
+        t0, b0 = (cta % n_ft) * tf, (cta // n_ft) * w_n
+        clip = dict(reflect=plan.reflect, pad=plan.pad, hop=hop, num_samples=n, t0=t0,
+                    frames=tf)
+        c_s, c_e = cqt_cuda.mma_tile_chunks(geom, **clip)
+        i0, i1, i_lo, i_hi = cqt_cuda.mma_stage_span(geom, **clip)
+        assert i0 % 8 == 0 and i1 % 8 == 0 and i0 <= i_lo <= i_hi <= i1
+        big = 2 * (sh.windows * sh.wstride + 8)
+        assert sh.part_off >= big
+        sbuf = np.full(w_n * sh.wstride + 8, np.nan)
+        zero = w_n * sh.wstride
+        sbuf[zero : zero + 8] = 0.0
+        d = np.arange(i1 - i0)
+        i = i0 + d
+        a_idx = t0 * hop + 16 * c_s - plan.pad + i
+        pos = d + (skew * (d // hop) if ldm else 0)
+        assert len(d) == 0 or pos.max() < sh.wstride
+        audio = (i >= i_lo) & (i < i_hi)
+        for w in range(w_n):
+            b = b0 + w
+            if plan.reflect:
+                period = 2 * (n - 1)
+                m = np.mod(a_idx, period)
+                v = xr[min(b, batch - 1), np.where(m >= n, period - m, m)]
+            else:
+                # outside [i_lo, i_hi) the staged value is 0: the padding
+                assert np.all((a_idx >= 0) & (a_idx < n) | ~audio)
+                v = xr[min(b, batch - 1), np.clip(a_idx, 0, n - 1)]
+            sbuf[w * sh.wstride + pos] = np.where(audio & (b < batch), v, 0.0)
+        rows = w_n * tf
+        r = np.arange(sh.row_units * cqt_cuda.MMA_UNIT_ROWS)
+        roff = np.where(r < rows, (r % tf) * hop - i0, -(1 << 29))
+        wbase = np.where(r < rows, (r // tf) * sh.wstride, 0)
+        for band in range(geom.n_bands):
+            kp = sh.pieces[band]
+            c_a, c_b = cqt_cuda.mma_tile_chunks(geom, band=band, **clip)
+            assert c_s <= c_a <= c_b <= c_e
+            nc = c_b - c_a
+            part = np.zeros((kp, sh.row_units * cqt_cuda.MMA_UNIT_ROWS, gsz, 4, 2))
+            for q in range(kp):
+                ca, cb = c_a + (q * nc) // kp, c_a + ((q + 1) * nc) // kp
+                if cb <= ca:
+                    continue
+                c = np.arange(ca, cb)
+                kk = np.arange(16)
+                if ldm:  # each 8-sample run: the skew of its first sample, or the zeros
+                    run = (roff[None, :, None] + 16 * (c - c_s)[:, None, None]
+                           + 8 * (kk // 8)[None, None, :])  # [chunks, rows, 16]
+                    assert np.all(run % 8 == 0)  # 16-byte aligned, inside one skew block
+                    inside = (run >= 0) & (run < i1 - i0)
+                    at = np.where(inside, wbase[None, :, None] + run
+                                  + skew * (np.maximum(run, 0) // hop), zero) + kk % 8
+                else:  # each value on its own, zero outside [i0, i1)
+                    dd = roff[None, :, None] + 16 * (c - c_s)[:, None, None] + kk[None, None, :]
+                    inside = (dd >= 0) & (dd < i1 - i0)
+                    at = np.where(inside, wbase[None, :, None] + dd, zero)
+                a = sbuf[at]  # [chunks, rows, 16]
+                for gi in range(gsz):
+                    g = band * gsz + gi
+                    if g >= geom.n_groups:
+                        continue
+                    live = (c >= geom.c_lo[g]) & (c < geom.c_hi[g])
+                    if live.any():
+                        blk = dense_blk[geom.blk_off[g] + c[live] - geom.c_lo[g]]
+                        part[q, :, gi] = np.einsum("crk,ckn->rn", a[live], blk).reshape(-1, 4, 2)
+            total = part[0]
+            for q in range(1, kp):
+                total = total + part[q]
+            s = (total[..., 0] ** 2 + total[..., 1] ** 2) ** (cfg.magnitude_power / 2)
+            for row in range(rows):
+                b, t = b0 + row // tf, t0 + row % tf
+                if b >= batch or t >= t_all:
+                    continue
+                f = 4 * band * gsz + np.arange(4 * gsz)
+                keep = f < cfg.n_bins
+                assert np.all(np.isnan(out[b, f[keep], t]))
+                out[b, f[keep], t] = s[row].reshape(-1)[keep]
+    assert not np.isnan(out).any()
+    return out
+
+
+def _mma_cfg(name):
+    if name == "serving_cnn_3s":
+        return dataclasses.replace(CQTConfig.serving_cnn(), precision="default")
+    if name == "hop333":
+        return dataclasses.replace(CQTConfig(), hop_length=333, precision="default")
+    return _cfgs(name, precision="default")[1]
+
+
+@pytest.mark.parametrize("name", list(RECIPES) + ["serving_cnn_3s", "hop333"])
+def test_mma_plan_matches_dense_bf16_contraction(name):
+    """The default tier's tile plan (fragment-order bf16 filter, bands,
+    window blocks, frame tiles, chunk pieces, skewed staging) sums exactly
+    the dense contraction of the bf16-rounded operands.  Three windows:
+    not a multiple of any band's windows per CTA."""
+    cfg = _mma_cfg(name)
+    x = _windows(cfg, 3, seed=5)
+    got = _emulate_mma_kernel(cfg, x)
+    fb = make_filterbank(cfg)
+    xr = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    padded = pad_np(xr, fb.kernel_width // 2, cfg.pad_mode)
+    t = n_frames_for(x.shape[1], cfg.hop_length)
+    kern = torch.from_numpy(fb.stacked()).to(torch.bfloat16).double().numpy()
+    coeff = np.stack([
+        padded[:, i * cfg.hop_length : i * cfg.hop_length + fb.kernel_width] @ kern
+        for i in range(t)
+    ], axis=1)
+    mag2 = coeff[..., : cfg.n_bins] ** 2 + coeff[..., cfg.n_bins :] ** 2
+    want = (mag2 ** (cfg.magnitude_power / 2)).transpose(0, 2, 1)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12 * want.max())
+
+
+def _unpack_filter_mma(packed, geom, kernel_width, n_bins):
+    """Inverse of cqt_cuda.pack_filter_mma: float32 re and im [Kw, n_bins],
+    and how often each (row, column) was packed."""
+    lane = np.arange(32)
+    k_of = 2 * (lane % 4)[:, None] + np.array([0, 1, 8, 9])[None, :]
+    n_of = np.broadcast_to((lane // 4)[:, None], (32, 4))
+    rows = max(int(geom.c_hi.max()) * 16, kernel_width)
+    f32 = (packed.astype(np.uint32) << 16).view(np.float32)
+    dense = np.zeros((rows, 8 * geom.n_groups), np.float32)
+    seen = np.zeros(dense.shape, np.int64)
+    for g in range(geom.n_groups):
+        c = np.arange(geom.c_lo[g], geom.c_hi[g])
+        k = 16 * c[:, None, None] + k_of[None]
+        n_idx = np.broadcast_to(8 * g + n_of[None], k.shape)
+        dense[k, n_idx] = f32[geom.blk_off[g] : geom.blk_off[g] + len(c)]
+        np.add.at(seen, (k, n_idx), 1)
+    re = dense[:kernel_width, 0::2][:, :n_bins]
+    im = dense[:kernel_width, 1::2][:, :n_bins]
+    return re, im, seen
+
+
+@pytest.mark.parametrize("name", list(RECIPES) + ["serving_cnn_3s"])
+def test_mma_packed_filter_is_the_rounded_filterbank_once(name):
+    cfg = _mma_cfg(name)
+    fb = make_filterbank(cfg)
+    geom = cqt_cuda.mma_geometry(fb)
+    packed = cqt_cuda.pack_filter_mma(fb, geom)
+    assert packed.dtype == np.uint16 and packed.shape[1:] == (32, 4)
+    assert packed.shape[0] == int((geom.c_hi - geom.c_lo).sum())
+    assert packed.nbytes < 2 * 1024 * 1024
+    re, im, seen = _unpack_filter_mma(packed, geom, fb.kernel_width, fb.n_bins)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy()  # noqa: E731
+    assert np.array_equal(re, bf(fb.kernels_real))
+    assert np.array_equal(im, bf(fb.kernels_imag))
+    assert seen.max() == 1
+    nz = np.count_nonzero(fb.kernels_real) + np.count_nonzero(fb.kernels_imag)
+    assert np.count_nonzero(packed) == nz
+
+
+@pytest.mark.parametrize("name", list(RECIPES) + ["serving_cnn_3s", "hop333"])
+def test_mma_plan_fits_shared_memory(name):
+    cfg = _mma_cfg(name)
+    fb = make_filterbank(cfg)
+    plan = cqt_cuda.make_mma_plan(fb, cfg, cfg.window_samples, torch.device("cpu"))
+    sh = plan.shape
+    assert sh.smem_bytes <= cqt_cuda.MMA_SMEM_BUDGET
+    assert plan.skew % 8 == 0 and (plan.hop % 8 == 0 or plan.skew == 0)
+    assert sh.windows * sh.frames <= cqt_cuda.MMA_MAX_ROWS
+    assert sh.wstride % 8 == 0 and sh.part_off % 16 == 0
+    # the staged windows, then each unit's partial sums
+    assert sh.part_off >= 2 * sh.windows * sh.wstride
+    assert sh.smem_bytes == sh.part_off + sh.units * cqt_cuda.MMA_PART_BYTES
+    assert cqt_cuda.mma_geometry(fb).nested()
+
+
+def test_frontend_plans_by_tier():
+    fb_default = CQTFrontend(CQTConfig(precision="default"))
+    fb_highest = CQTFrontend(CQTConfig())
+    cpu = torch.device("cpu")
+    assert isinstance(fb_default.kernel_plan(8820, cpu), cqt_cuda.MmaPlan)
+    assert isinstance(fb_highest.kernel_plan(8820, cpu), cqt_cuda.KernelPlan)
+    # a CPU tensor takes the plain version: no launch is counted
+    x = torch.from_numpy(_windows(fb_default.cfg, 2, seed=6))
+    before = (cqt_cuda.launches, cqt_cuda.mma_launches)
+    assert torch.equal(fb_default(x), fb_default.plain(x))
+    assert (cqt_cuda.launches, cqt_cuda.mma_launches) == before

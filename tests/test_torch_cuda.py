@@ -73,6 +73,47 @@ def test_kernel_matches_plain(card, name, precision):
     assert float((got - want).abs()[both].max()) <= 2e-3
 
 
+MMA_CFGS = {
+    **RECIPE_CFGS,
+    "serving_cnn": CQTConfig.serving_cnn(),  # T = 130 frames a window
+    "hop333": dataclasses.replace(CQTConfig(), hop_length=333),  # the 16-bit load path
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 37])
+@pytest.mark.parametrize("name", list(MMA_CFGS))
+def test_default_tier_runs_on_tensor_cores(card, name, batch):
+    """The default tier's tensor-core kernel against the plain version:
+    no gate flip, 2e-3 dB where neither side is gated, two runs identical,
+    one tensor-core launch a call.  37 windows: a multiple of no band's
+    windows per CTA."""
+    cfg = dataclasses.replace(MMA_CFGS[name], precision="default")
+    fe = CQTFrontend(cfg)
+    x = _windows(cfg, batch, seed=11, device=card)
+    before = (cqt_cuda.launches, cqt_cuda.mma_launches)
+    got = fe(x)
+    assert (cqt_cuda.launches, cqt_cuda.mma_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(fe(x), got)
+    want = fe.plain(x)
+    gate = cfg.gate_floor_db
+    assert got.shape == (batch, cfg.n_bins, cfg.n_frames)
+    assert int(((got == gate) != (want == gate)).sum()) == 0
+    both = (got != gate) & (want != gate)
+    assert float((got - want).abs()[both].max()) <= 2e-3
+    assert fe(x[:0]).shape == (0, cfg.n_bins, cfg.n_frames)
+
+
+@pytest.mark.cuda
+def test_default_tier_kernel_occupancy(card):
+    plan = CQTFrontend(CQTConfig(precision="default")).kernel_plan(8820, card)
+    info = cqt_cuda.mma_kernel_info(plan)
+    assert info["threads"] == 512 and info["ctas_per_sm"] >= 1
+    assert info["shared_bytes"] >= plan.shape.smem_bytes
+    for info in cqt_cuda.frame_gemm_mma_kernel_info().values():
+        assert info["ctas_per_sm"] >= 1
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     fe = CQTFrontend(CQTConfig())
@@ -495,6 +536,46 @@ def test_frame_gemm_kernel_matches_plain(card, shape, precision):
     again = cqt_cuda.cqt_frame_gemm(padded, kernels, hop_length=hop, n_frames=t,
                                     batch_block=4, precision=precision)
     assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["train", "serving_cnn", "ragged", "ragged_ring"])
+def test_frame_gemm_default_runs_on_tensor_cores(card, shape):
+    """The default tier's tensor-core frame GEMM: per window max|err| <=
+    1e-4 max|ref| against frame_gemm_plain, two runs identical, one
+    tensor-core launch a call; serving_cnn has 130 frames a window.  The
+    ragged cases: Kw 5000, N 20, P short; hop 333 (the kernel that loads
+    the fp32 operands) and hop 512 (the ring kernel's padded copies)."""
+    if shape.startswith("ragged"):
+        gen = torch.Generator(device=card).manual_seed(12)
+        kernels = torch.randn((5000, 20), generator=gen, device=card)
+        padded = torch.randn((4, 6000), generator=gen, device=card)
+        hop, t = (333 if shape == "ragged" else 512), 7
+    else:
+        fe = CQTFrontend(CQTConfig() if shape == "train" else CQTConfig.serving_cnn())
+        kernels = fe.kernels_on(card)
+        x = _windows(fe.cfg, 4, seed=13, device=card)
+        kw = kernels.shape[0]
+        padded = torch.nn.functional.pad(x, (kw // 2, kw // 2))
+        hop, t = fe.cfg.hop_length, fe.cfg.n_frames
+    before = (cqt_cuda.frame_gemm_launches, cqt_cuda.frame_gemm_mma_launches)
+    got = cqt_cuda.cqt_frame_gemm(padded, kernels, hop_length=hop, n_frames=t,
+                                  batch_block=4, precision="default")
+    assert (cqt_cuda.frame_gemm_launches, cqt_cuda.frame_gemm_mma_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = frame_gemm_plain(padded, kernels, hop_length=hop, n_frames=t, precision="default")
+    err = (got - want).abs().amax(dim=(1, 2))
+    assert bool((err <= 1e-4 * want.abs().amax(dim=(1, 2))).all()), err
+    again = cqt_cuda.cqt_frame_gemm(padded, kernels, hop_length=hop, n_frames=t,
+                                    batch_block=4, precision="default")
+    assert torch.equal(again, got)
+    one = cqt_cuda.cqt_frame_gemm(padded[:1], kernels, hop_length=hop, n_frames=t,
+                                  batch_block=1, precision="default")
+    err1 = float((one - want[:1]).abs().max())
+    assert err1 <= 1e-4 * float(want[:1].abs().max())
+    with pytest.raises(ValueError, match="rows"):  # as the SIMT tiers: B = 0 is refused
+        cqt_cuda.cqt_frame_gemm(padded[:0], kernels, hop_length=hop, n_frames=t,
+                                batch_block=1, precision="default")
 
 
 @pytest.mark.cuda

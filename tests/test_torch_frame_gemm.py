@@ -142,3 +142,122 @@ def test_splits_follow_the_shape():
     assert cqt_cuda.frame_gemm_splits(256 * 9, 192, 23552) == 3
     assert cqt_cuda.frame_gemm_splits(64 * 130, 168, 6144) == 1
     assert cqt_cuda.frame_gemm_splits(16, 8, 600) == 1
+
+
+def _emulate_mma_kernel(padded, kernels, hop, t, count=False):
+    """float64 NumPy walk of csrc/cqt_frame_gemm.cu's tensor-core kernels
+    (default tier): the grid of 128 x 96 tiles and depth ranges, 32-deep
+    steps, both operands rounded to bf16, partial sums added in split order.
+    At a hop that is a multiple of 8 the ring kernel reads zero-padded bf16
+    copies (audio rows of P8, filterbank of K32 x N96) with no mask and the
+    last range ends at K32; else each A value is read at padded[b, t*hop +
+    k] when k lies in the range and inside P (else 0).  With ``count``, also
+    how often each (row, k, column) term with k < Kw was taken."""
+    b, p = padded.shape
+    kw, n = kernels.shape
+    rows = b * t
+    bm, bn, bk = cqt_cuda.frame_gemm_tile("default")
+    splits = cqt_cuda.frame_gemm_splits(rows, n, kw, "default")
+    ranges = cqt_cuda.frame_gemm_ranges(kw, splits, "default")
+    assert len(ranges) == splits and ranges[-1][1] == kw
+    copies = cqt_cuda.frame_gemm_copies(p, t, hop, kw, n, "default")
+    a_bf = torch.from_numpy(padded).to(torch.bfloat16).double().numpy()
+    k_bf = torch.from_numpy(kernels).to(torch.bfloat16).double().numpy()
+    m = np.arange(rows)
+    if copies is not None:
+        p8, k32, n96 = copies
+        assert p8 % 8 == 0 and p8 >= max(p, (t - 1) * hop + k32) and k32 % bk == 0
+        a_bf = np.pad(a_bf, ((0, 0), (0, p8 - p)))
+        k_bf = np.pad(k_bf, ((0, k32 - kw), (0, n96 - n)))
+        ranges = ranges[:-1] + [(ranges[-1][0], k32)]
+        assert all(r[0] % bk == 0 and (r[1] - r[0]) % bk == 0 for r in ranges)
+        row_off, row_lim, depth = (m // t) * p8 + (m % t) * hop, np.full(rows, 1 << 40), k32
+    else:
+        row_off, row_lim, depth = (m // t) * p + (m % t) * hop, p - (m % t) * hop, kw
+    partial = np.zeros((splits, rows, n))
+    cover = np.zeros((rows, kw, n), np.int32) if count else None
+    flat = a_bf.reshape(-1)
+    for z, (k_begin, k_end) in enumerate(ranges):
+        for m0 in range(0, rows, bm):
+            ms = m[m0 : m0 + bm]
+            for n0 in range(0, n, bn):
+                ns = np.arange(n0, min(n0 + bn, n))
+                acc = np.zeros((len(ms), len(ns)))
+                for k0 in range(k_begin, k_end, bk):
+                    ks = np.arange(k0, k0 + bk)
+                    live = (ks[None, :] < k_end) & (ks[None, :] < row_lim[ms, None])
+                    idx = np.where(live, row_off[ms, None] + ks[None, :], 0)
+                    a = np.where(live, flat[idx], 0.0)
+                    kl = ks < min(k_end, depth)
+                    bt = np.where(kl[:, None], k_bf[np.minimum(ks, depth - 1)][:, ns], 0.0)
+                    acc += a @ bt
+                    if count:
+                        kin = ks[ks < min(k_end, kw)]
+                        cover[np.ix_(ms, kin, ns)] += 1
+                partial[z][np.ix_(ms, ns)] = acc
+    out = partial[0]
+    for z in range(1, splits):
+        out = out + partial[z]
+    return out.reshape(b, t, n), cover
+
+
+def _dense_bf16(padded, kernels, hop, t):
+    kw = kernels.shape[0]
+    need = (t - 1) * hop + kw
+    full = np.pad(padded, ((0, 0), (0, max(0, need - padded.shape[1]))))
+    a = torch.from_numpy(full).to(torch.bfloat16).double().numpy()
+    k = torch.from_numpy(kernels).to(torch.bfloat16).double().numpy()
+    return np.stack([a[:, i * hop : i * hop + kw] @ k for i in range(t)], axis=1)
+
+
+@pytest.mark.parametrize("recipe", ["train", "serving_cnn"])
+def test_mma_plan_matches_dense_bf16_contraction(recipe):
+    """The default tier's tiles and depth ranges sum exactly the dense
+    contraction of the bf16-rounded operands (float64)."""
+    cfg = CQTConfig() if recipe == "train" else CQTConfig.serving_cnn()
+    padded, kernels, t = _case(cfg, 4 if recipe == "train" else 1, seed=4)
+    got, _ = _emulate_mma_kernel(padded, kernels, cfg.hop_length, t)
+    want = _dense_bf16(padded, kernels, cfg.hop_length, t)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12 * np.abs(want).max())
+
+
+def test_mma_ring_copies_cover_each_term_once():
+    """hop 512, Kw 5000 (not a multiple of 32), N 20, P short: the ring
+    kernel's padded copies and ranges take every term once."""
+    rng = np.random.default_rng(10)
+    kernels = rng.standard_normal((5000, 20)).astype(np.float32)
+    padded = rng.standard_normal((4, 6000)).astype(np.float32)
+    assert cqt_cuda.frame_gemm_copies(6000, 7, 512, 5000, 20, "default") == (8096, 5024, 96)
+    got, cover = _emulate_mma_kernel(padded, kernels, 512, 7, count=True)
+    assert cover.min() == 1 and cover.max() == 1
+    want = _dense_bf16(padded, kernels, 512, 7)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12 * np.abs(want).max())
+
+
+def test_mma_plan_covers_each_term_once_ragged():
+    """hop 333, Kw 5000, N 20 and P short of (T-1)*hop + Kw: every (row, k,
+    column) term is taken exactly once, and the zeros past P are read as
+    the JAX function's padding gives them."""
+    rng = np.random.default_rng(9)
+    kernels = rng.standard_normal((5000, 20)).astype(np.float32)
+    padded = rng.standard_normal((4, 6000)).astype(np.float32)
+    got, cover = _emulate_mma_kernel(padded, kernels, 333, 7, count=True)
+    assert cqt_cuda.frame_gemm_splits(28, 20, 5000, "default") > 1
+    assert cover.min() == 1 and cover.max() == 1
+    want = _dense_bf16(padded, kernels, 333, 7)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12 * np.abs(want).max())
+
+
+def test_mma_splits_follow_the_shape():
+    """The tensor-core tiles: 36 at the training recipe (B=256) -> 7 depth
+    ranges, 252 CTAs in one wave of two an SM; the SIMT tiers keep their
+    64 x 64 tiles."""
+    assert cqt_cuda.frame_gemm_tile("default") == (128, 96, 32)
+    assert cqt_cuda.frame_gemm_tile("bf16x3") == (64, 64, 16)
+    assert cqt_cuda.frame_gemm_splits(256 * 9, 192, 23552, "default") == 7
+    assert cqt_cuda.frame_gemm_splits(64 * 130, 168, 6144, "default") == 2
+    for kw, splits in ((23552, 7), (5000, 9), (600, 1)):
+        ranges = cqt_cuda.frame_gemm_ranges(kw, splits, "default")
+        assert ranges[0][0] == 0 and ranges[-1][1] == kw
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert all((e - s) % 32 == 0 or e == kw for s, e in ranges)
