@@ -10,7 +10,7 @@
    ``csrc/stem_gemm.cu``, ``csrc/conv3x3.cu``: one ``nvcc`` each, started
    together); the attention kernels' ``-Xptxas -v`` lines (registers,
    spills) and their occupancy on the card (shared bytes, CTAs per SM);
-   the same -Xptxas -v lines of the CQT tensor-core kernels.
+   the same -Xptxas -v lines of the CQT and conv3x3 tensor-core kernels.
 2. Kernel against plain version (TF32 off): the fused CQT kernel at every
    precision tier on the training recipe (B=4096), the 3 s serving recipe,
    a reflect-padded recipe and a hop-1000 recipe, each against its plain
@@ -75,22 +75,23 @@
    same weights served unfused.
 13. The raw CQT frame GEMM (B9) through its entry point
    ``cqt_cuda.cqt_frame_gemm``: the training recipe at B=256 at every tier
-   and ``serving_cnn`` at B=64, ``default``, one launch each (the
-   ``default`` ones on the tensor-core kernel); each against
-   ``frame_gemm_plain``, deterministic, and through the plain epilogue
-   against the fused B1 kernel's dB; times, bound, frame-GEMM yardstick.
+   and ``serving_cnn`` at B=64, ``default``, one launch each, every one on
+   a tensor-core kernel; each against ``frame_gemm_plain``, deterministic,
+   and through the plain epilogue against the fused B1 kernel's dB;
+   ``highest`` against float64 as accurate as the fp32 plain version;
+   times, bound, occupancy, frame-GEMM yardstick.
 14. The stem front's GEMM with statistics (B8) against its plain version on
    random operands and on the real 224^2 front at B=256 (y against
    ``precomposed_conv1_quadrant``, channel sums against B2's
    ``stem_stats``); then its entry point, the ported
    ``tools/profile_stem_pieces``, with its launches counted.
 15. The 3x3 conv with a fused ReLU-affine (B10) against its plain version at
-   the probe's three shapes and two odd ones; then its entry point, the
+   the probe's three shapes and four odd ones; then its entry point, the
    ported ``tools/probe_conv``, with cuDNN's times, the parity figures and
    its launches counted.
 
 Then one JSON line of the fourteen kernels' measurements (``cqt_fused`` and
-``cqt_frame_gemm`` with their ``default`` tier's beside), and the status
+``cqt_frame_gemm`` with their other tiers' beside), and the status
 line last.
 Any failed check raises, which exits non-zero.  Needs one CUDA card.
 """
@@ -166,6 +167,10 @@ FRET_AGREEMENT_MIN = 0.99
 #   summation order over up to 23,552 filter rows: per window, max|err| <=
 #   1e-4 max|ref|.
 FRAME_GEMM_REL_TOL = 1e-4
+# - B9 at highest against a float64 contraction of the same inputs: the
+#   tier must be as accurate as fp32, so its per-window max error may be at
+#   most this many times that of the fp32 plain version (TF32 off).
+HIGHEST_F64_FACTOR = 4.0
 # - bf16 outputs of the GEMM kernels (B8, B10) against their plain
 #   versions: both round once from fp32 sums of the same exact products in
 #   another order, so within one bf16 ulp of the larger magnitude; plus
@@ -185,6 +190,28 @@ def _sync_ms(fn, iters: int) -> float:
     from guitar_tablature_classification_tpu_torch.tools.timing import time_ms
 
     return time_ms(fn, iters, torch.device("cuda"))
+
+
+def _kernel_ms(fn, iters: int) -> float:
+    """``_sync_ms``, or where that reads under 0.1 ms (back-to-back calls,
+    where a slow host inflates a small kernel), the profiler's device time
+    of every kernel ``fn`` launches, per call."""
+    ms = _sync_ms(fn, iters)
+    if ms >= 0.1:
+        return ms
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device_ms = sum(_device_ms(evt) for evt in prof.key_averages()  # kernels and copies
+                    if evt.device_type == DeviceType.CUDA and "Activity Buffer" not in evt.key)
+    if device_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return device_ms / iters
 
 
 def tone_windows(batch: int, num_samples: int, sample_rate: int, seed: int):
@@ -610,16 +637,19 @@ COUNTED = ("stem_cuda", "attention_cuda", "bn_cuda", "stem_native_cuda", "conv3x
 def _counts(mods) -> dict:
     cqt_cuda = mods["cqt_cuda"]
     out = {"cqt_fused": cqt_cuda.launches, "cqt_fused_mma": cqt_cuda.mma_launches,
-           "cqt_frame_gemm": cqt_cuda.frame_gemm_launches,
-           "cqt_frame_gemm_mma": cqt_cuda.frame_gemm_mma_launches}
+           "cqt_frame_gemm": cqt_cuda.frame_gemm_launches}
+    for tier, n in cqt_cuda.frame_gemm_mma_launches.items():  # tensor-core launches by tier
+        out[f"cqt_frame_gemm_mma_{tier}"] = n
     for name in COUNTED:
         out.update(mods[name].launches)
     return out
 
 
 def _reset_counts(mods) -> None:
-    for name in ("launches", "mma_launches", "frame_gemm_launches", "frame_gemm_mma_launches"):
+    for name in ("launches", "mma_launches", "frame_gemm_launches"):
         setattr(mods["cqt_cuda"], name, 0)
+    for tier in mods["cqt_cuda"].frame_gemm_mma_launches:
+        mods["cqt_cuda"].frame_gemm_mma_launches[tier] = 0
     for name in COUNTED:
         counts = mods[name].launches
         for key in counts:
@@ -1503,15 +1533,20 @@ def _row(ms, plain_ms, library_ms, nbytes, ops, peak, max_abs_err, **extra) -> d
 
 def frame_gemm_phase(torch, mods) -> dict:
     """B9, the raw CQT frame GEMM, through its entry point
-    ``cqt_cuda.cqt_frame_gemm``: the training recipe at B=256 at all three
-    tiers and ``serving_cnn`` (hop 512, 130 frames, Kw=6,144) at B=64,
-    ``default``.  The counters are set to 0 before the four calls and read
-    after them (one launch each).  Then, per case: the kernel against
-    ``frame_gemm_plain`` (TF32 off), per window max|err| <= 1e-4 max|ref|;
-    two runs identical; ``cqt_epilogue`` of the kernel's output against the
-    fused B1 kernel's dB under the CQT limits; times, bound and the
-    ``unfold`` + ``torch.matmul`` yardstick.  The row is the training recipe
-    at ``highest`` (the flagship's tier)."""
+    ``cqt_cuda.cqt_frame_gemm``: the training recipe (hop 1024) at B=256 at
+    all three tiers and ``serving_cnn`` (hop 512, 130 frames, Kw=6,144) at
+    B=64, ``default``.  The counters are set to 0 before the four calls and
+    read after them: one launch each, every one on a tensor-core kernel
+    (``frame_gemm_mma_launches`` by tier).  Then, per case: the kernel
+    against ``frame_gemm_plain`` (TF32 off), per window max|err| <= 1e-4
+    max|ref|; two runs identical; ``cqt_epilogue`` of the kernel's output
+    against the fused B1 kernel's dB under the CQT limits; at ``highest``
+    the per-window error against a float64 contraction of the same inputs
+    at most HIGHEST_F64_FACTOR times the fp32 plain version's; times,
+    bound, the kernels' occupancy and the library yardstick (one
+    ``torch.matmul`` of the prebuilt frames: fp32 with TF32 off for
+    ``highest`` and ``bf16x3``, bf16 for ``default``).  The rows: the
+    training recipe at each tier."""
     cqt_cuda, cqt = mods["cqt_cuda"], mods["cqt"]
     CQTConfig = mods["CQTConfig"]
     F = torch.nn.functional
@@ -1537,9 +1572,12 @@ def frame_gemm_phase(torch, mods) -> dict:
     counts = _counts(mods)
     want_counts = {key: 0 for key in counts}
     want_counts["cqt_frame_gemm"] = len(cases)
-    want_counts["cqt_frame_gemm_mma"] = sum(case[3] == "default" for case in cases)
+    for *_, prec in cases:
+        want_counts[f"cqt_frame_gemm_mma_{prec}"] += 1
     if counts != want_counts:
         raise AssertionError(f"frame GEMM phase launches {counts}, expected {want_counts}")
+    occupancy = cqt_cuda.frame_gemm_mma_kernel_info()
+    print("cqt_frame_gemm tensor-core kernels on the card: " + json.dumps(occupancy), flush=True)
 
     rows = {}
     for i, ((name, base, batch, prec), (fe, x, padded, kern)) in enumerate(zip(cases, inputs)):
@@ -1548,48 +1586,61 @@ def frame_gemm_phase(torch, mods) -> dict:
         want = cqt.frame_gemm_plain(padded, kern, hop_length=cfg.hop_length,
                                     n_frames=cfg.n_frames, precision=prec)
         again = torch.equal(call(i), got)
-        per_window = ((got - want).abs().amax(dim=(1, 2))
-                      / want.abs().amax(dim=(1, 2)).clamp_min(1e-30))
+        scale = want.abs().amax(dim=(1, 2)).clamp_min(1e-30)
+        per_window = (got - want).abs().amax(dim=(1, 2)) / scale
         db = cqt.cqt_epilogue(got, n_bins=cfg.n_bins, magnitude_power=cfg.magnitude_power,
                               amin=cfg.amin, top_db=cfg.top_db,
                               gate_threshold_db=cfg.gate_threshold_db,
                               gate_floor_db=cfg.gate_floor_db)
         vs_b1 = compare_db(db, fe(x), cfg.gate_floor_db, cfg.gate_threshold_db)
-        ms = _sync_ms(lambda: call(i), 10)
+        extra = {}
+        if prec == "highest":  # both against float64: the tier must be as accurate as fp32
+            ref = cqt.frame_gemm_plain(padded.double(), kern.double(), hop_length=cfg.hop_length,
+                                       n_frames=cfg.n_frames, precision="highest")
+            scale64 = ref.abs().amax(dim=(1, 2))
+            extra["f64_err"] = float(((got.double() - ref).abs().amax(dim=(1, 2))
+                                      / scale64).max())
+            extra["plain_f64_err"] = float(((want.double() - ref).abs().amax(dim=(1, 2))
+                                            / scale64).max())
+            del ref
+        ms = _kernel_ms(lambda: call(i), 10)
         plain_ms = _sync_ms(lambda: cqt.frame_gemm_plain(
             padded, kern, hop_length=cfg.hop_length, n_frames=cfg.n_frames, precision=prec), 3)
-        library_ms = None  # one torch.matmul of the prebuilt frames, fp32 or bf16
-        if prec != "bf16x3":
-            dt = torch.bfloat16 if prec == "default" else torch.float32
-            frames = padded.unfold(-1, kern.shape[0], cfg.hop_length)[:, :cfg.n_frames]
-            frames = frames.reshape(-1, kern.shape[0]).to(dt).contiguous()
-            kern_dt = kern.to(dt)
-            library_ms = _sync_ms(lambda: torch.matmul(frames, kern_dt), 10)
-            del frames, kern_dt
+        # one torch.matmul of the prebuilt frames: fp32 for the fp32-class tiers
+        dt = torch.bfloat16 if prec == "default" else torch.float32
+        frames = padded.unfold(-1, kern.shape[0], cfg.hop_length)[:, :cfg.n_frames]
+        frames = frames.reshape(-1, kern.shape[0]).to(dt).contiguous()
+        kern_dt = kern.to(dt)
+        library_ms = _kernel_ms(lambda: torch.matmul(frames, kern_dt), 10)
+        del frames, kern_dt
         # bound: the fp32 inputs read once and the output written once; the
-        # dense products at highest on the FP32 pipes, at default one bf16
-        # tensor-core pass, at bf16x3 three
+        # dense products at default one bf16 tensor-core pass, at bf16x3
+        # three; at highest the least time of fp32-accurate work: the FP32
+        # pipes, or six bf16 passes on the tensor cores, whichever is less
         products = 2 * got.shape[0] * got.shape[1] * got.shape[2] * kern.shape[0]
-        ops, peak = {"highest": (products, "fp32"), "bf16x3": (3 * products, "bf16"),
-                     "default": (products, "bf16")}[prec]
+        ops, peak = {"highest": min((products, "fp32"), (6 * products, "bf16"),
+                                    key=lambda op: op[0] / PEAK_FLOPS[op[1]]),
+                     "bf16x3": (3 * products, "bf16"), "default": (products, "bf16")}[prec]
+        route = cqt_cuda.frame_gemm_route(prec, cfg.hop_length)
         row = _row(ms, plain_ms, library_ms, 4 * (padded.numel() + kern.numel() + got.numel()),
                    ops, peak, float((got - want).abs().max()),
                    max_rel_err_per_window=float(per_window.max()), deterministic=again,
-                   splits=cqt_cuda.frame_gemm_splits(got.shape[0] * got.shape[1], got.shape[2],
-                                                     kern.shape[0], prec),
-                   epilogue_vs_b1=vs_b1)
-        if prec == "default":
-            row["occupancy"] = cqt_cuda.frame_gemm_mma_kernel_info()
+                   route=route, splits=cqt_cuda.frame_gemm_splits(
+                       got.shape[0] * got.shape[1], got.shape[2], kern.shape[0], prec,
+                       ring=route == "ring"),
+                   epilogue_vs_b1=vs_b1, **extra)
         print(f"cqt_frame_gemm {name} {prec} B={batch}: " + json.dumps(row), flush=True)
         if (per_window.max() > FRAME_GEMM_REL_TOL or not again or vs_b1["bad_flips"]
-                or vs_b1["max_err_db"] > DB_TOL):
+                or vs_b1["max_err_db"] > DB_TOL
+                or extra.get("f64_err", 0) > HIGHEST_F64_FACTOR * extra.get("plain_f64_err", 1)):
             raise AssertionError(f"frame GEMM kernel disagrees on {name}/{prec}: {row}")
         rows[(name, prec)] = row
         del got, want, db
     del outs, inputs
     torch.cuda.empty_cache()
     return {"rows": {"cqt_frame_gemm": rows[("train", "highest")]},
-            "default": rows[("train", "default")], "launches": counts}
+            "bf16x3": rows[("train", "bf16x3")], "default": rows[("train", "default")],
+            "launches": counts}
 
 
 def gemm_stats_phase(torch, mods, batch: int = 256) -> dict:
@@ -1683,11 +1734,12 @@ def gemm_stats_phase(torch, mods, batch: int = 256) -> dict:
 
 def conv3x3_phase(torch, mods, batch: int = 256) -> dict:
     """B10, the 3x3 conv with a fused ReLU-affine: the probe's three cases
-    at B=256 and two small odd ones ([3, 7, 7, 64] -> 64: ragged pixel
-    tiles and the halo of a small map; [2, 5, 9, 40] -> 136: C off the
-    32-channel step, F off the 64-column tile), each against
-    ``conv3x3_plain`` (TF32 off) within one bf16 ulp, and two runs
-    identical.  Then the entry point: the ported ``probe_conv`` run once in
+    at B=256 (each with its output block, the kernel's L2 reads and its
+    occupancy) and four small odd ones ([3, 7, 7, 64] -> 64: ragged blocks
+    and the halo of a small map; [2, 5, 9, 40] -> 136: C off the 16-channel
+    chunk, F off the 64-column tile; [1, 1, 37, 8] -> 8: B=1, H=1, C=F=8;
+    [2, 9, 13, 1024] -> 16: the largest C), each against ``conv3x3_plain``
+    (TF32 off) within one bf16 ulp, and two runs identical.  Then the entry point: the ported ``probe_conv`` run once in
     this process, counters set to 0 before it and read after; every parity
     figure within one bf16 ulp of max|ref|.  The row is the (56, 64 -> 64)
     case: the kernel's time and cuDNN ``F.conv2d``'s on the same bf16
@@ -1695,7 +1747,7 @@ def conv3x3_phase(torch, mods, batch: int = 256) -> dict:
     conv3x3, conv3x3_cuda = mods["conv3x3"], mods["conv3x3_cuda"]
     gen = torch.Generator(device="cuda").manual_seed(51)
     cases = [(batch, 56, 56, 64, 64), (batch, 28, 28, 128, 128), (batch, 14, 14, 256, 256),
-             (3, 7, 7, 64, 64), (2, 5, 9, 40, 136)]
+             (3, 7, 7, 64, 64), (2, 5, 9, 40, 136), (1, 1, 37, 8, 8), (2, 9, 13, 1024, 16)]
     checks, first = {}, None
     for b, h, w, c, f in cases:
         x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
@@ -1707,7 +1759,11 @@ def conv3x3_phase(torch, mods, batch: int = 256) -> dict:
         again = torch.equal(conv3x3_cuda.conv3x3(x, w9, s, o), got)
         torch.cuda.synchronize()
         key = f"[{b}, {h}, {w}, {c}] -> {f}"
-        checks[key] = {**_within_one_bf16_ulp(torch, got, want), "deterministic": again}
+        checks[key] = {**_within_one_bf16_ulp(torch, got, want), "deterministic": again,
+                       "block": conv3x3_cuda.tile_shape(h, w)}
+        if b == batch:
+            checks[key]["l2_bytes"] = conv3x3_cuda.l2_bytes(b, h, w, c, f)
+            checks[key]["occupancy"] = conv3x3_cuda.conv3x3_kernel_info(c)
         if not checks[key]["within_one_ulp"] or not again:
             raise AssertionError(f"conv3x3 kernel disagrees at {key}: {checks[key]}")
         if first is None:  # the row's plain time, bytes, operations and error
@@ -1816,19 +1872,21 @@ def attention_build_report(mods, log: str) -> None:
 
 
 def cqt_mma_build_report(builds: dict) -> None:
-    """The -Xptxas -v lines (stack, spills, registers) of the CQT
-    tensor-core kernels from this run's build (their occupancy on the card
-    is printed with the default tier's rows)."""
+    """The -Xptxas -v lines (stack, spills, registers) of the tensor-core
+    kernels of the CQT (B1, B9: frame_gemm_ring_kernel<parts> at each
+    tier's count of bf16 pieces) and of the conv3x3 (B10) from this run's
+    build (their occupancy on the card is printed with their phases)."""
     from guitar_tablature_classification_tpu_torch.ops.nvcc import ptxas_report
 
-    for source in ("cqt_fused", "cqt_frame_gemm"):
+    for source in ("cqt_fused", "cqt_frame_gemm", "conv3x3"):
         log = builds[source][1]
         print(f"{source} build, -Xptxas -v:" + ("" if log else " (already built: no log)"))
         for entry, lines in ptxas_report(log).items():
-            found = re.search(r"(cqt_mma|frame_gemm_mma|frame_gemm_ring|to_bf16)_kernel(ILb[01]E)?",
-                              entry)
+            found = re.search(r"(cqt_mma|frame_gemm_mma|frame_gemm_ring|to_parts|conv3x3)_kernel"
+                              r"(ILb[01]E|ILi[123]E)?", entry)
             if found:
-                label = found.group(0).replace("ILb1E", "<ldmatrix>").replace("ILb0E", "<16-bit>")
+                label = (found.group(0).replace("ILb1E", "<ldmatrix>").replace("ILb0E", "<16-bit>")
+                         .replace("ILi1E", "<1>").replace("ILi2E", "<2>").replace("ILi3E", "<3>"))
                 print(f"  {label}: {lines}")
     sys.stdout.flush()
 
@@ -1943,7 +2001,8 @@ def main() -> int:
     )
     timed("path_b_serving", native_fused_serving_phase, torch, mods)
     frame_gemm = timed("frame_gemm", frame_gemm_phase, torch, mods)
-    frame_gemm["default"]["launches"] = frame_gemm["launches"]["cqt_frame_gemm_mma"]
+    for tier in ("bf16x3", "default"):  # the tier's tensor-core launches in the entry point's run
+        frame_gemm[tier]["launches"] = frame_gemm["launches"][f"cqt_frame_gemm_mma_{tier}"]
     gemm_stats = timed("gemm_stats", gemm_stats_phase, torch, mods)
     conv = timed("conv3x3", conv3x3_phase, torch, mods)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
@@ -1975,13 +2034,15 @@ def main() -> int:
         "launches": run["launches"][name],
         **{k: rows[name][k] for k in fields},
     } for name, (src, tpu, rows, run) in kernel_sources.items()]
-    # the default tier's tensor-core kernels beside the highest tier's fields:
-    # B1 at the native-best serving shape (launches: the serving phase's),
-    # B9 at the training recipe (launches: its entry point's run)
+    # the other tiers beside the highest tier's fields: B1's default tier at
+    # the native-best serving shape (launches: the serving phase's), B9's
+    # bf16x3 and default tiers at the training recipe (launches: its entry
+    # point's run)
+    tiers = {"cqt_fused": {"default": serving_row},
+             "cqt_frame_gemm": {"bf16x3": frame_gemm["bf16x3"], "default": frame_gemm["default"]}}
     for entry in kernels:
-        row = {"cqt_fused": serving_row, "cqt_frame_gemm": frame_gemm["default"]}.get(entry["name"])
-        if row is not None:
-            entry["default"] = {k: row[k] for k in ("launches", *fields)}
+        for tier, row in tiers.get(entry["name"], {}).items():
+            entry[tier] = {k: row[k] for k in ("launches", *fields)}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,37 +20,63 @@
 // peak; bytes (x once, out once) 205.5 / 102.8 / 51.4 MB -> 0.061 / 0.031 /
 // 0.015 ms.
 //
-// Design.  An implicit GEMM with M = B*H*W output pixels, N = F and depth
-// 9*C, walked tap by tap in steps of 32 channels:
-// * A CTA owns 128 pixels x BN filters (BN = 128 when F % 128 == 0, else
-//   64).  Each step stages the 128 pixels' shifted inputs for one tap and
-//   32 channels: a thread loads 8 channels of a pixel (16 bytes), applies
-//   the affine and ReLU once per staged element, on bf16 pairs (mul.rn,
-//   add.rn, max.NaN: the same two roundings, three instructions for two
-//   values), writes zero for a pixel whose tap falls outside the image or a
-//   channel past C, and stores the bf16 values as [128][32 + 8]; w9's
-//   [32][BN] slice is staged as it is, [32][BN + 8].  The row padding keeps
-//   ldmatrix free of bank conflicts.  The next step's raw values are loaded
-//   into registers while the current step computes.
+// Design.  An implicit GEMM whose A operand is built in shared memory from
+// one staged halo block (implicit im2col):
+// * A CTA owns a TH x TW block of output pixels of one image (at most
+//   kBM = 256; ops/conv3x3_cuda.tile_shape picks the block: the fewest
+//   blocks a map, then the smallest halo) and kBN = 64 filters.  It walks
+//   the channels in chunks of kKC = 16.  Each chunk stages the block's halo
+//   (TH+2) x (TW+2) x 16 channels of x once and w9's [9][16][64] slice.
+// * The affine and ReLU are applied once per staged element, shared ->
+//   shared, by the thread that copied it (so its own cp.async wait is
+//   enough), on bf16 pairs (mul.rn, add.rn, max.NaN: the same two
+//   roundings, three instructions for two values); a halo pixel outside
+//   the image or a channel past C is written as zero, after the affine.
+// * The nine taps are nine shifted ldmatrix base addresses over that one
+//   staged block: output pixel (r, c) of tap (dy, dx) reads halo pixel
+//   (r + dy, c + dx).  Pixels lie 48 bytes apart, so 8 consecutive pixels
+//   of an ldmatrix hit 8 distinct bank groups; w9 rows lie 144 bytes apart.
+// * A ring of kStages = 3 stages filled by cp.async (zero-fill past C and
+//   F), two chunks ahead of the tensor cores, one barrier a chunk: after its
+//   products a thread waits for its own copies of the next chunk and
+//   transforms them; the barrier at the top of the next chunk publishes
+//   them and frees the oldest slot.
 // * Tensor cores through mma.sync m16n8k16 (bf16 operands, fp32
-//   accumulation; the products of bf16 values are exact): 8 warps, each a
-//   (128 / (8 / (BN / 32))) x 32 block of the output, fragments read with
-//   ldmatrix (.trans for w9).
+//   accumulation; the products of bf16 values are exact): 8 warps, each 32
+//   pixels (two m16 tiles) x 64 filters, 64 fp32 accumulators a thread; two
+//   CTAs an SM (110.6 KB of ring each).
 // * Epilogue: the accumulators are rounded once to bf16 into a tile in
 //   shared memory, which leaves in 16-byte stores.  Every output is one
-//   warp's sum in a fixed order: two runs give the same bits.
+//   thread's sum in a fixed order (chunks in order, taps in order within a
+//   chunk): two runs give the same bits.
+// L2 reads (ops/conv3x3_cuda.l2_bytes) at 56², 28² and 14²: x 129 / 118 /
+// 103 MB and w9 264 / 302 / 302 MB.  The earlier design, which staged one
+// tap of 128 pixels a step, read x nine times (925 / 462 / 462 MB) and w9
+// once per 128 pixels (462 MB at each case).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "frame_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBM = 128;     // output pixels per CTA
-constexpr int kBK = 32;      // channels per step
-constexpr int kMaxC = 1024;  // ops/conv3x3_cuda.MAX_CHANNELS
-constexpr int kLdA = kBK + 8;  // A row stride (bf16)
+constexpr int kBM = 256;       // output pixel slots per CTA
+constexpr int kBN = 64;        // filters per CTA
+constexpr int kKC = 16;        // channels per chunk (one k16 step a tap)
+constexpr int kHaloMax = 336;  // staged halo pixels at most (ops/conv3x3_cuda.HALO_MAX)
+constexpr int kStages = 3;
+constexpr int kMaxC = 1024;    // ops/conv3x3_cuda.MAX_CHANNELS
+constexpr int kLdA = kKC + 8;  // halo pixel stride (bf16): 48 bytes
+constexpr int kLdB = kBN + 8;  // w9 row stride (bf16): 144 bytes
+constexpr int kXVals = kHaloMax * kLdA;
+constexpr int kStageVals = kXVals + 9 * kKC * kLdB;
+constexpr int kXVecs = (kHaloMax * 2 + kThreads - 1) / kThreads;  // x copies a thread
+constexpr int kWVecs = (9 * kKC * kBN / 8 + kThreads - 1) / kThreads;
+constexpr size_t kRingBytes = (size_t)kStages * kStageVals * sizeof(__nv_bfloat16);
+static_assert(kBM * kLdB <= kStages * kStageVals, "the epilogue tile fits in the ring");
 
 // relu(bf16(bf16(x*s) + o)) on two bf16 values at once: the product and the
 // sum each rounded to bf16 (nearest even; .rn keeps ptxas from fusing them
@@ -63,56 +89,26 @@ __device__ __forceinline__ uint32_t affine_relu2(uint32_t x, uint32_t s, uint32_
   return r;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+size_t smem_bytes(int C) { return kRingBytes + (size_t)C * 2 * sizeof(__nv_bfloat16); }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// d += a * b, m16n8k16, bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <int kBN>
 __global__ void __launch_bounds__(kThreads, 2)
     conv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ w9,
                    const __nv_bfloat16* __restrict__ s,
                    const __nv_bfloat16* __restrict__ o,
-                   __nv_bfloat16* __restrict__ out, int B, int H, int W, int C,
-                   int F) {
-  constexpr int kLdB = kBN + 8;                       // B and C row stride (bf16)
-  constexpr int kWarpsN = kBN / 32, kWarpsM = 8 / kWarpsN;
-  constexpr int kMI = kBM / kWarpsM / 16;             // m16 tiles of a warp
-  constexpr int kBLoads = kBK * kBN / 8 / kThreads;   // 16-byte w9 loads a thread
-  constexpr int kStage = kBM * kLdA + kBK * kLdB;
-  constexpr int kSmem = kStage > kBM * kLdB ? kStage : kBM * kLdB;
-  __shared__ __align__(16) __nv_bfloat16 smem[kSmem];
-  __shared__ uint32_t s_sh[kMaxC / 2], o_sh[kMaxC / 2];  // bf16 pairs (c, c + 1)
-  __nv_bfloat16* As = smem;              // [kBM][kLdA]
-  __nv_bfloat16* Bs = smem + kBM * kLdA;  // [kBK][kLdB]
-  __nv_bfloat16* Cs = smem;              // [kBM][kLdB], after the last step
+                   __nv_bfloat16* __restrict__ out, int H, int W, int C, int F,
+                   int TH, int TW, int tiles_h, int tiles_w) {
+  extern __shared__ __align__(16) __nv_bfloat16 ring[];
+  // bf16 pairs (c, c + 1) of s and o, after the ring
+  uint32_t* s_sh = reinterpret_cast<uint32_t*>(ring + kStages * kStageVals);
+  uint32_t* o_sh = s_sh + C / 2;
 
-  const int tid = threadIdx.x;
-  const long long M = (long long)B * H * W;
-  const long long m0 = (long long)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tw_i = blockIdx.x % tiles_w;
+  const int th_i = (blockIdx.x / tiles_w) % tiles_h;
+  const int b = blockIdx.x / tiles_w / tiles_h;
+  const int h0 = th_i * TH, w0 = tw_i * TW, n0 = blockIdx.y * kBN;
+  const int hw2 = TW + 2, halo = (TH + 2) * hw2, pixels = TH * TW;
   for (int i = tid; i < C / 2; i += kThreads) {
     const __nv_bfloat162 sp = __halves2bfloat162(s[2 * i], s[2 * i + 1]);
     const __nv_bfloat162 op = __halves2bfloat162(o[2 * i], o[2 * i + 1]);
@@ -120,154 +116,191 @@ __global__ void __launch_bounds__(kThreads, 2)
     o_sh[i] = *reinterpret_cast<const uint32_t*>(&op);
   }
 
-  // A staging: this thread's pixel (row r of the tile) and its two 8-channel
-  // groups q and q + 2 of each 32-channel step
-  const int a_r = tid % kBM;
-  const int a_q = tid / kBM;  // 0 or 1
-  const long long a_m = m0 + a_r;
-  int a_b = 0, a_h = 0, a_w = 0;
-  const bool a_valid = a_m < M;
-  if (a_valid) {
-    a_w = (int)(a_m % W);
-    const long long bh = a_m / W;
-    a_h = (int)(bh % H);
-    a_b = (int)(bh / H);
+  // this thread's x copies: vector j = tid + 256 i is half j % 2 (8
+  // channels) of halo pixel j / 2, image pixel x_pix; x_pix < 0 marks a
+  // pixel outside the image, j >= 2 * halo a vector that is never read
+  int x_pix[kXVecs];
+#pragma unroll
+  for (int i = 0; i < kXVecs; ++i) {
+    const int j = tid + kThreads * i, hp = j >> 1;
+    const int hh = h0 - 1 + hp / hw2, ww = w0 - 1 + hp % hw2;
+    x_pix[i] = (j < 2 * halo && hh >= 0 && hh < H && ww >= 0 && ww < W)
+        ? (b * H + hh) * W + ww : -1;
   }
-
-  uint4 a_raw[2], b_raw[kBLoads];
-  bool a_in[2];
-  auto load = [&](int tap, int c0) {
-    const int dy = tap / 3, dx = tap % 3;
-    const int hh = a_h + dy - 1, ww = a_w + dx - 1;
-    const bool inside = a_valid && hh >= 0 && hh < H && ww >= 0 && ww < W;
+  auto x_slot = [&](int slot) { return ring + (size_t)slot * kStageVals; };
+  auto w_slot = [&](int slot) { return ring + (size_t)slot * kStageVals + kXVals; };
+  auto issue = [&](int step) {
+    const int c0 = step * kKC, slot = step % kStages;
+    __nv_bfloat16* xs = x_slot(slot);
 #pragma unroll
-    for (int g = 0; g < 2; ++g) {
-      const int c = c0 + (a_q + 2 * g) * 8;
-      a_in[g] = inside && c < C;
-      a_raw[g] = a_in[g]
-          ? *reinterpret_cast<const uint4*>(
-                x + (((long long)a_b * H + hh) * W + ww) * C + c)
-          : make_uint4(0, 0, 0, 0);
+    for (int i = 0; i < kXVecs; ++i) {
+      const int j = tid + kThreads * i;
+      const int c = c0 + 8 * (j & 1);
+      if (x_pix[i] >= 0 && c < C)
+        frame_mma::cp_async16(xs + (j >> 1) * kLdA + 8 * (j & 1), x + (long long)x_pix[i] * C + c);
     }
+    __nv_bfloat16* ws = w_slot(slot);
 #pragma unroll
-    for (int i = 0; i < kBLoads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int k = idx / (kBN / 8), n = n0 + (idx % (kBN / 8)) * 8;
-      const int c = c0 + k;
-      b_raw[i] = (c < C && n < F)
-          ? *reinterpret_cast<const uint4*>(w9 + ((long long)tap * C + c) * F + n)
-          : make_uint4(0, 0, 0, 0);
-    }
-  };
-  auto stage = [&](int c0) {
-#pragma unroll
-    for (int g = 0; g < 2; ++g) {
-      const int kq = (a_q + 2 * g) * 8;
-      uint4 packed = make_uint4(0, 0, 0, 0);  // zero outside the image and past C
-      if (a_in[g]) {
-        const int p = (c0 + kq) / 2;  // pair index of the first channel
-        packed = make_uint4(affine_relu2(a_raw[g].x, s_sh[p], o_sh[p]),
-                            affine_relu2(a_raw[g].y, s_sh[p + 1], o_sh[p + 1]),
-                            affine_relu2(a_raw[g].z, s_sh[p + 2], o_sh[p + 2]),
-                            affine_relu2(a_raw[g].w, s_sh[p + 3], o_sh[p + 3]));
+    for (int i = 0; i < kWVecs; ++i) {
+      const int j = tid + kThreads * i;  // (tap, k, 8-column group)
+      if (j < 9 * kKC * kBN / 8) {
+        const int tap = j / (kKC * kBN / 8), k = (j / (kBN / 8)) % kKC, q = j % (kBN / 8);
+        const int c = c0 + k, n = n0 + 8 * q;
+        const bool in = c < C && n < F;
+        frame_mma::cp_async16_zfill(ws + (tap * kKC + k) * kLdB + 8 * q,
+                                    in ? w9 + ((long long)tap * C + c) * F + n : w9,
+                                    in ? 16 : 0);
       }
-      *reinterpret_cast<uint4*>(As + a_r * kLdA + kq) = packed;
     }
+  };
+  // the affine on this thread's own copies of a landed chunk, in place
+  auto transform = [&](int step) {
+    const int c0 = step * kKC;
+    __nv_bfloat16* xs = x_slot(step % kStages);
 #pragma unroll
-    for (int i = 0; i < kBLoads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int k = idx / (kBN / 8), n = (idx % (kBN / 8)) * 8;
-      *reinterpret_cast<uint4*>(Bs + k * kLdB + n) = b_raw[i];
+    for (int i = 0; i < kXVecs; ++i) {
+      const int j = tid + kThreads * i;
+      if (j >= 2 * halo) continue;
+      const int c = c0 + 8 * (j & 1);
+      uint4* v = reinterpret_cast<uint4*>(xs + (j >> 1) * kLdA + 8 * (j & 1));
+      uint4 t = make_uint4(0, 0, 0, 0);  // zero outside the image and past C
+      if (x_pix[i] >= 0 && c < C) {
+        const uint4 raw = *v;
+        const int p = c / 2;
+        t = make_uint4(affine_relu2(raw.x, s_sh[p], o_sh[p]),
+                       affine_relu2(raw.y, s_sh[p + 1], o_sh[p + 1]),
+                       affine_relu2(raw.z, s_sh[p + 2], o_sh[p + 2]),
+                       affine_relu2(raw.w, s_sh[p + 3], o_sh[p + 3]));
+      }
+      *v = t;
     }
   };
 
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
-  float acc[kMI][4][4];
+  // A rows of this lane: output pixel p of the block -> halo pixel of tap (0, 0)
+  int a_hp[2];
 #pragma unroll
-  for (int i = 0; i < kMI; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const int p = warp * 32 + i * 16 + frame_mma::ldm_row(lane);
+    a_hp[i] = p < pixels ? (p / TW) * hw2 + p % TW : 0;  // a padding slot reads pixel 0
+  }
+  float acc[2][8][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][t][e] = 0.0f;
 
-  const int c_steps = (C + kBK - 1) / kBK;
-  const int steps = 9 * c_steps;
+  const int steps = (C + kKC - 1) / kKC;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < steps) issue(st);
+    frame_mma::cp_async_commit();
+  }
   __syncthreads();  // s_sh, o_sh
-  load(0, 0);
+  frame_mma::cp_async_wait<kStages - 2>();
+  transform(0);
   for (int step = 0; step < steps; ++step) {
-    stage((step % c_steps) * kBK);
-    __syncthreads();
-    if (step + 1 < steps) load((step + 1) / c_steps, ((step + 1) % c_steps) * kBK);
+    __syncthreads();  // chunk `step` transformed; every warp done with step - 1's slot
+    if (step + kStages - 1 < steps) issue(step + kStages - 1);
+    frame_mma::cp_async_commit();
+    const __nv_bfloat16* xs = x_slot(step % kStages);
+    const __nv_bfloat16* ws = w_slot(step % kStages);
 #pragma unroll
-    for (int k0 = 0; k0 < kBK; k0 += 16) {
-      uint32_t a[kMI][4], b[4][2];
+    for (int tap = 0; tap < 9; ++tap) {
+      const int toff = (tap / 3) * hw2 + tap % 3;
+      uint32_t a[2][4], bf[4][4];
 #pragma unroll
-      for (int i = 0; i < kMI; ++i) {
-        // lanes 0-15: rows r..r+15 at k0; lanes 16-31: the same rows at k0 + 8
-        const int r = wm * kMI * 16 + i * 16 + (lane % 16);
-        ldmatrix_x4(a[i], As + r * kLdA + k0 + (lane / 16) * 8);
-      }
+      for (int i = 0; i < 2; ++i)
+        frame_mma::ldmatrix_x4(a[i], xs + (a_hp[i] + toff) * kLdA + frame_mma::ldm_k(lane));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // lanes 0-7: rows k0..k0+7, lanes 8-15: k0+8..k0+15, at column n
-        const int n = wn * 32 + j * 8;
-        ldmatrix_x2_trans(b[j], Bs + (k0 + (lane % 16)) * kLdB + n);
-      }
+      for (int j = 0; j < 4; ++j)
+        frame_mma::ldmatrix_x4_trans(
+            bf[j], ws + (tap * kKC + frame_mma::ldm_row(lane)) * kLdB + 16 * j +
+                       frame_mma::ldm_k(lane));
 #pragma unroll
-      for (int i = 0; i < kMI; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+        for (int t = 0; t < 8; ++t)
+          frame_mma::mma_bf16(acc[i][t], a[i], bf[t / 2][2 * (t & 1)], bf[t / 2][2 * (t & 1) + 1]);
     }
-    __syncthreads();
+    frame_mma::cp_async_wait<kStages - 2>();  // this thread's copies of step + 1
+    if (step + 1 < steps) transform(step + 1);
   }
+  frame_mma::cp_async_wait<0>();
+  __syncthreads();  // every warp done with the ring: it holds the C tile now
 
-  // round once into the C tile: accumulator e of tile (i, j) is row
-  // (lane / 4) + 8 * (e / 2), column 2 * (lane % 4) + e % 2
+  // round once into the C tile [kBM][kLdB]: accumulator e of tile (i, t) is
+  // pixel (lane / 4) + 8 * (e / 2), filter 2 * (lane % 4) + e % 2
+  __nv_bfloat16* cs = ring;
+  const int g = lane >> 2, cq = lane & 3;
 #pragma unroll
-  for (int i = 0; i < kMI; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * kMI * 16 + i * 16 + lane / 4 + 8 * h;
-        const int n = wn * 32 + j * 8 + 2 * (lane % 4);
-        *reinterpret_cast<__nv_bfloat162*>(Cs + r * kLdB + n) =
-            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      for (int t = 0; t < 8; ++t) {
+        const int r = warp * 32 + i * 16 + g + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(cs + r * kLdB + 8 * t + 2 * cq) =
+            __floats2bfloat162_rn(acc[i][t][2 * h], acc[i][t][2 * h + 1]);
       }
   __syncthreads();
-  for (int i = tid; i < kBM * (kBN / 8); i += kThreads) {
-    const int r = i / (kBN / 8), n = (i % (kBN / 8)) * 8;
-    if (m0 + r < M && n0 + n < F)
-      *reinterpret_cast<uint4*>(out + (m0 + r) * F + n0 + n) =
-          *reinterpret_cast<const uint4*>(Cs + r * kLdB + n);
+  for (int j = tid; j < kBM * (kBN / 8); j += kThreads) {
+    const int r = j / (kBN / 8), q = j % (kBN / 8);
+    const int hh = h0 + r / TW, ww = w0 + r % TW, n = n0 + 8 * q;
+    if (r < pixels && hh < H && ww < W && n < F)
+      *reinterpret_cast<uint4*>(out + (((long long)b * H + hh) * W + ww) * F + n) =
+          *reinterpret_cast<const uint4*>(cs + r * kLdB + 8 * q);
   }
 }
 
 }  // namespace
 
-// x [B, H, W, C], w9 [9, C, F], s, o [C] -> out [B, H, W, F], all bf16.
-// Needs C % 8 == 0, C <= 1024, F % 8 == 0, x, w9 and out 16-byte aligned.
+// x [B, H, W, C], w9 [9, C, F], s, o [C] -> out [B, H, W, F], all bf16, in
+// TH x TW output blocks (ops/conv3x3_cuda.tile_shape).  Needs C % 8 == 0,
+// C <= 1024, F % 8 == 0, x, w9 and out 16-byte aligned, TH * TW <= 256 and
+// (TH + 2) * (TW + 2) <= 336.
 extern "C" int conv3x3_launch(const void* x, const void* w9, const void* s,
                               const void* o, void* out, int B, int H, int W,
-                              int C, int F, void* stream_ptr) {
+                              int C, int F, int TH, int TW, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long M = (long long)B * H * W;
   if (B < 1 || H < 1 || W < 1 || C < 8 || C % 8 || C > kMaxC || F < 8 || F % 8 ||
-      (M + kBM - 1) / kBM > 0x7fffffffLL)
+      TH < 1 || TW < 1 || TH > H || TW > W || TH * TW > kBM ||
+      (TH + 2) * (TW + 2) > kHaloMax || (F + kBN - 1) / kBN > 65535)
     return (int)cudaErrorInvalidValue;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wb = static_cast<const __nv_bfloat16*>(w9);
-  const auto* sb = static_cast<const __nv_bfloat16*>(s);
-  const auto* ob = static_cast<const __nv_bfloat16*>(o);
-  auto* yb = static_cast<__nv_bfloat16*>(out);
-  const unsigned m_tiles = (unsigned)((M + kBM - 1) / kBM);
-  if (F % 128 == 0) {
-    conv3x3_kernel<128><<<dim3(m_tiles, F / 128), kThreads, 0, stream>>>(
-        xb, wb, sb, ob, yb, B, H, W, C, F);
-  } else {
-    conv3x3_kernel<64><<<dim3(m_tiles, (F + 63) / 64), kThreads, 0, stream>>>(
-        xb, wb, sb, ob, yb, B, H, W, C, F);
-  }
+  const int tiles_h = (H + TH - 1) / TH, tiles_w = (W + TW - 1) / TW;
+  const long long ctas = (long long)B * tiles_h * tiles_w;
+  if (ctas > 0x7fffffffLL || (long long)B * H * W > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  conv3x3_kernel<<<dim3((unsigned)ctas, (F + kBN - 1) / kBN), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w9),
+      static_cast<const __nv_bfloat16*>(s), static_cast<const __nv_bfloat16*>(o),
+      static_cast<__nv_bfloat16*>(out), H, W, C, F, TH, TW, tiles_h, tiles_w);
   return (int)cudaGetLastError();
+}
+
+// The kernel as the card runs it at C channels: info = {registers a thread,
+// local (spill) bytes a thread, shared bytes a CTA, threads a CTA, resident
+// CTAs per SM}.  Returns 0, or the cudaError_t of the failed query.
+extern "C" int conv3x3_kernel_info(int C, int* info) {
+  const size_t smem = smem_bytes(C);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, conv3x3_kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(conv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, conv3x3_kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)(attr.sharedSizeBytes + smem);
+  info[3] = kThreads;
+  info[4] = ctas;
+  return 0;
 }

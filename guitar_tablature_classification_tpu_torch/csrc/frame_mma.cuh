@@ -1,6 +1,8 @@
 // The bf16 tensor-core core of the CQT frame GEMM, shared by csrc/cqt.cu
-// (the fused CQT, B1) and csrc/cqt_frame_gemm.cu (the raw frame GEMM, B9)
-// at the `default` tier:
+// (the fused CQT, B1) at the `default` tier and csrc/cqt_frame_gemm.cu (the
+// raw frame GEMM, B9) at every tier (there on bf16 pieces of the operands);
+// csrc/conv3x3.cu (B10) uses its ldmatrix, mma and cp.async helpers.  At
+// the `default` tier:
 //   out[(b, t), n] = sum_k bf16(padded[b, t*hop + k]) * bf16(K[k, n])
 // with the products on the tensor cores (mma.sync m16n8k16, bf16 operands,
 // fp32 accumulators): the products of bf16 operands are exact and the sums
@@ -71,6 +73,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gsrc) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem_dst)),
                "l"(gsrc));
+}
+// The same copy reading `bytes` (0 or 16) from gsrc and zero-filling the
+// rest: bytes = 0 writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16_zfill(void* smem_dst, const void* gsrc, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem_dst)),
+               "l"(gsrc), "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N>

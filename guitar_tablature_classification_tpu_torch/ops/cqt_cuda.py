@@ -25,8 +25,10 @@ enqueues two kernels (the coefficients, then the per-window dB epilogue).
 ``ops/cqt_pallas.py::cqt_frame_gemm`` and, as there, its own entry point:
 raw coefficients ``[B, T, 2F]`` with no epilogue, for any filterbank.  It
 is built from its own source (``build_frame_gemm``) and counted in
-``frame_gemm_launches``, its ``default`` tier (tensor cores) also in
-``frame_gemm_mma_launches``.
+``frame_gemm_launches``, and by tier in ``frame_gemm_mma_launches`` where
+it ran on the tensor cores: every tier at a hop that is a multiple of 8
+(the ring kernels on bf16 pieces of the operands, :func:`frame_gemm_copies`),
+``default`` at any hop.
 """
 
 from __future__ import annotations
@@ -55,14 +57,24 @@ FRAME_GEMM_SOURCE = os.path.join(nvcc.CSRC_DIR, "cqt_frame_gemm.cu")
 NVCC_FLAGS = nvcc.BASE_FLAGS
 FRAME_GEMM_TILE = 64  # output rows and columns per CTA; csrc/cqt_frame_gemm.cu kBM, kBN
 FRAME_GEMM_STEP = 16  # filter rows per step; kBK
-# the default tier's tensor-core kernel: rows, columns and filter rows a step
+# the tensor-core kernels: rows, columns and filter rows a step
 FRAME_GEMM_MMA_TILE = (128, 96, 32)  # csrc/cqt_frame_gemm.cu kMM, kMN, kMK
-TARGET_CTAS = 2 * 132  # two CTAs on each of the H100's SMs
+# bf16 pieces of each operand the ring kernel takes at a tier (frame_gemm_ring_kernel<parts>)
+FRAME_GEMM_PARTS = {"highest": 3, "bf16x3": 2, "default": 1}
+# the products of pieces (A piece, B piece) each tier issues, in the ring
+# kernel's order (csrc/cqt_frame_gemm.cu prod_a, prod_b)
+FRAME_GEMM_PRODUCTS = {
+    "highest": ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0)),
+    "bf16x3": ((1, 0), (0, 1), (0, 0)),
+    "default": ((0, 0),),
+}
+SMS = 132  # the H100's SMs
+TARGET_CTAS = 2 * SMS  # two CTAs on each SM
 
 launches = 0  # fused launches since import (or since a caller reset it)
 mma_launches = 0  # those of them on the default tier's tensor-core kernel
 frame_gemm_launches = 0  # cqt_frame_gemm launches, counted the same way
-frame_gemm_mma_launches = 0  # those of them on the tensor-core kernel (default)
+frame_gemm_mma_launches = {p: 0 for p in PRECISION_CODES}  # those on the tensor cores, by tier
 _lib = None
 _frame_gemm_lib = None
 
@@ -697,11 +709,11 @@ def _frame_gemm_library():
 
 
 def frame_gemm_mma_kernel_info() -> dict[str, dict[str, int]]:
-    """The default tier's two tensor-core kernels as the card runs them
-    (the keys of :func:`mma_kernel_info`): ``ring`` (bf16 copies, hop a
-    multiple of 8) and ``fp32_loads`` (any hop)."""
+    """The frame GEMM's tensor-core kernels as the card runs them (the keys
+    of :func:`mma_kernel_info`): ``ring`` (default), ``fp32_loads``
+    (default at a hop off the 8-grid), ``ring_bf16x3`` and ``ring_highest``."""
     out = {}
-    for which, name in enumerate(("ring", "fp32_loads")):
+    for which, name in enumerate(("ring", "fp32_loads", "ring_bf16x3", "ring_highest")):
         info = (ctypes.c_int * 5)()
         rc = _frame_gemm_library().frame_gemm_mma_kernel_info(which, info)
         if rc != 0:
@@ -710,32 +722,51 @@ def frame_gemm_mma_kernel_info() -> dict[str, dict[str, int]]:
     return out
 
 
-def frame_gemm_tile(precision: str = "highest") -> tuple[int, int, int]:
-    """(rows, columns, filter rows a step) of the kernel's CTA at a tier."""
-    if precision == "default":
+def frame_gemm_route(precision: str, hop: int) -> str:
+    """The kernel a call runs: ``ring`` (tensor cores on bf16 pieces, hop a
+    multiple of 8), ``fp32_loads`` (default tier, any other hop) or
+    ``simt`` (highest and bf16x3 at any other hop)."""
+    if hop % 8 == 0:
+        return "ring"
+    return "fp32_loads" if precision == "default" else "simt"
+
+
+def frame_gemm_tile(precision: str = "highest", ring: bool = False) -> tuple[int, int, int]:
+    """(rows, columns, filter rows a step) of the kernel's CTA at a tier;
+    ``ring``: the hop is a multiple of 8."""
+    if precision == "default" or ring:
         return FRAME_GEMM_MMA_TILE
     return FRAME_GEMM_TILE, FRAME_GEMM_TILE, FRAME_GEMM_STEP
 
 
-def frame_gemm_splits(rows: int, cols: int, depth: int, precision: str = "highest") -> int:
-    """Ranges the kernel cuts the depth into, so that about TARGET_CTAS
-    CTAs run (the tensor-core kernel: at most that many, one wave); fixed
-    by the shape and tier (two runs add in the same order)."""
-    bm, bn, _ = frame_gemm_tile(precision)
+def frame_gemm_splits(rows: int, cols: int, depth: int, precision: str = "highest",
+                      ring: bool = False) -> int:
+    """Ranges the kernel cuts the depth into; fixed by the shape, tier and
+    kernel (two runs add in the same order), each at least 512 rows.  The
+    SIMT kernel: about TARGET_CTAS CTAs.  The default tier's tensor-core
+    kernels: at most TARGET_CTAS (one wave of two an SM).  The split tiers'
+    ring kernels (one CTA an SM): the count whose last wave is fullest, the
+    least waves per unit of depth, the fewer ranges on a tie."""
+    bm, bn, _ = frame_gemm_tile(precision, ring)
     tiles = _cdiv(rows, bm) * _cdiv(cols, bn)
     most = max(1, depth // 512)  # at least 512 rows a range
-    fill = TARGET_CTAS // tiles if precision == "default" else _cdiv(TARGET_CTAS, tiles)
+    if precision == "default":
+        fill = TARGET_CTAS // tiles
+    elif ring:
+        return min(range(1, most + 1), key=lambda n: (_cdiv(tiles * n, SMS) / n, n))
+    else:
+        fill = _cdiv(TARGET_CTAS, tiles)
     return max(1, min(fill, most))
 
 
 def frame_gemm_copies(p: int, n_frames: int, hop: int, kw: int, n: int,
                       precision: str) -> tuple[int, int, int] | None:
-    """(P8, K32, N96) of the bf16 copies the default tier's ring kernel
-    reads (audio rows of P8, filterbank of K32 rows and N96 columns, zero
-    padded; csrc/cqt_frame_gemm.cu), or None where it does not run: the
-    other tiers, and a hop that is not a multiple of 8 (there the default
-    tier's tensor-core kernel loads the fp32 operands itself)."""
-    if precision != "default" or hop % 8:
+    """(P8, K32, N96) of the bf16 copies the ring kernels read (each of the
+    tier's FRAME_GEMM_PARTS pieces of the audio in rows of P8, of the
+    filterbank in K32 rows and N96 columns, zero padded;
+    csrc/cqt_frame_gemm.cu), or None where they do not run: a hop that is
+    not a multiple of 8."""
+    if frame_gemm_route(precision, hop) != "ring":
         return None
     _, bn, bk = FRAME_GEMM_MMA_TILE
     k32 = _cdiv(kw, bk) * bk
@@ -743,11 +774,12 @@ def frame_gemm_copies(p: int, n_frames: int, hop: int, kw: int, n: int,
     return p8, k32, _cdiv(n, bn) * bn
 
 
-def frame_gemm_ranges(depth: int, splits: int, precision: str = "highest") -> list[tuple[int, int]]:
+def frame_gemm_ranges(depth: int, splits: int, precision: str = "highest",
+                      ring: bool = False) -> list[tuple[int, int]]:
     """The depth ranges [k_begin, k_end) of the splits, as
     ``cqt_frame_gemm_launch`` cuts them (each a multiple of the step long;
     trailing ranges may be empty)."""
-    step = frame_gemm_tile(precision)[2]
+    step = frame_gemm_tile(precision, ring)[2]
     chunk = _cdiv(_cdiv(depth, splits), step) * step
     return [(min(depth, z * chunk), min(depth, (z + 1) * chunk)) for z in range(splits)]
 
@@ -772,8 +804,10 @@ def cqt_frame_gemm(
     change nothing on the GPU (``batch_block`` is still checked as there).
     A CPU tensor goes to :func:`.cqt.frame_gemm_plain`; a CUDA tensor to the
     kernel of ``csrc/cqt_frame_gemm.cu``, which raises if it cannot launch.
-    Each launch adds one to ``frame_gemm_launches``."""
-    global frame_gemm_launches, frame_gemm_mma_launches
+    Each launch adds one to ``frame_gemm_launches``, and one to
+    ``frame_gemm_mma_launches[precision]`` where it ran on the tensor cores
+    (:func:`frame_gemm_route`)."""
+    global frame_gemm_launches
     if padded.ndim != 2 or kernels.ndim != 2:
         raise ValueError(
             f"expected padded [B, P] and kernels [Kw, 2F], got "
@@ -806,15 +840,17 @@ def cqt_frame_gemm(
         raise ValueError(f"the frame GEMM kernel takes 1 to {65535 * FRAME_GEMM_TILE} "
                          f"rows (B * n_frames), got {rows}")
     out = torch.empty((b, n_frames, two_f), device=padded.device, dtype=torch.float32)
-    splits = frame_gemm_splits(rows, two_f, kw, precision)
+    route = frame_gemm_route(precision, hop_length)
+    splits = frame_gemm_splits(rows, two_f, kw, precision, ring=route == "ring")
     partial = (torch.empty((splits, rows, two_f), device=padded.device,
                            dtype=torch.float32) if splits > 1 else None)
     copies = frame_gemm_copies(p, n_frames, hop_length, kw, two_f, precision)
     abf = kbf = None
     if copies is not None:
         p8, k32, n96 = copies
-        abf = torch.empty(b * p8, device=padded.device, dtype=torch.bfloat16)
-        kbf = torch.empty(k32 * n96, device=padded.device, dtype=torch.bfloat16)
+        parts = FRAME_GEMM_PARTS[precision]
+        abf = torch.empty(parts * b * p8, device=padded.device, dtype=torch.bfloat16)
+        kbf = torch.empty(parts * k32 * n96, device=padded.device, dtype=torch.bfloat16)
     with torch.cuda.device(padded.device):
         rc = _frame_gemm_library().cqt_frame_gemm_launch(
             padded.data_ptr(), kernels.data_ptr(), out.data_ptr(),
@@ -827,6 +863,6 @@ def cqt_frame_gemm(
     if rc != 0:
         raise RuntimeError(f"CQT frame GEMM kernel launch failed: CUDA error {rc}")
     frame_gemm_launches += 1
-    if precision == "default":
-        frame_gemm_mma_launches += 1
+    if route != "simt":
+        frame_gemm_mma_launches[precision] += 1
     return out

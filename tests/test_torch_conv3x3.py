@@ -138,3 +138,109 @@ def test_probe_conv_runs_on_the_cpu():
     assert [r["route"] for r in rows] == ["cuDNN", "cuDNN+affine", "kernel sum9/concat"]
     assert rows[2]["parity"] <= 2.0**-7
     assert conv3x3_cuda.launches == before
+
+
+# ---- the kernel's tile plan (csrc/conv3x3.cu), walked in float64 NumPy
+
+def _walk_kernel_plan(t, w9, f_cols=None):
+    """float64 walk of csrc/conv3x3.cu's plan on the affine's output ``t``
+    [B, H, W, C] (what the kernel's transform leaves in shared memory) and
+    w9 [9, C, F]: per CTA a TH x TW block of one image (tile_shape) and 64
+    filters; per 16-channel chunk the halo block (TH+2) x (TW+2) staged once
+    (zero outside the image and past C), w9's [9][16][64] slice (zero past C
+    and F); the nine taps as shifted halo addresses of the kernel's lane
+    formula (a padding slot reads halo pixel 0); chunks in order, taps in
+    order.  Returns the output and how often each output was written."""
+    b, h, w, c = t.shape
+    f = w9.shape[-1]
+    th, tw = conv3x3_cuda.tile_shape(h, w)
+    bm, bn, kc = conv3x3_cuda.TILE_PIXELS, conv3x3_cuda.COLS, conv3x3_cuda.CHUNK
+    hw2, halo = tw + 2, (th + 2) * (tw + 2)
+    assert th * tw <= bm and halo <= conv3x3_cuda.HALO_MAX
+    p = np.arange(bm)
+    a_hp = np.where(p < th * tw, (p // tw) * hw2 + p % tw, 0)
+    taps = [(tap // 3) * hw2 + tap % 3 for tap in range(9)]
+    assert a_hp.max() + max(taps) < halo
+    out = np.zeros((b, h, w, f))
+    written = np.zeros((b, h, w, f), np.int32)
+    steps = -(-c // kc)
+    for bi in range(b):
+        for h0 in range(0, h, th):
+            for w0 in range(0, w, tw):
+                hp = np.arange(halo)
+                hh, ww = h0 - 1 + hp // hw2, w0 - 1 + hp % hw2
+                inside = (hh >= 0) & (hh < h) & (ww >= 0) & (ww < w)
+                for n0 in range(0, f, bn):
+                    acc = np.zeros((bm, bn))
+                    for step in range(steps):
+                        c0 = step * kc
+                        chans = c0 + np.arange(kc)
+                        stage = np.zeros((halo, kc))
+                        cl = chans < c
+                        stage[np.ix_(inside, cl)] = t[bi, hh[inside], ww[inside]][:, chans[cl]]
+                        cols = n0 + np.arange(bn)
+                        ws = np.zeros((9, kc, bn))
+                        fl = cols < f
+                        ws[np.ix_(np.arange(9), cl, fl)] = w9[:, chans[cl]][:, :, cols[fl]]
+                        for tap in range(9):
+                            acc += stage[a_hp + taps[tap]] @ ws[tap]
+                    r = p[p < th * tw]
+                    oh, ow = h0 + r // tw, w0 + r % tw
+                    keep = (oh < h) & (ow < w)
+                    cols = n0 + np.arange(bn)
+                    fl = cols < f
+                    out[bi, oh[keep][:, None], ow[keep][:, None], cols[fl][None, :]] = \
+                        acc[r[keep]][:, fl]
+                    written[bi, oh[keep][:, None], ow[keep][:, None], cols[fl][None, :]] += 1
+    return out, written
+
+
+def _dense_conv64(t, w9):
+    b, h, w, c = t.shape
+    tp = np.pad(t, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    return sum(tp[:, dy:dy + h, dx:dx + w] @ w9[dy * 3 + dx]
+               for dy in range(3) for dx in range(3))
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 56, 56, 64, 64), (1, 28, 28, 128, 128), (1, 14, 14, 256, 256),  # the probe's maps
+    (3, 7, 7, 64, 64), (2, 5, 9, 40, 136),  # ragged blocks, C off the chunk, F off the tile
+    (1, 1, 37, 8, 8), (2, 40, 3, 24, 16), (1, 2, 300, 8, 72),  # H or W under the block
+])
+def test_kernel_plan_matches_dense_conv(shape):
+    """The kernel's blocks, halo addressing, channel chunks and w9 slices
+    sum exactly the dense conv of the affine's output (float64, rtol
+    1e-9), each output written once."""
+    b, h, w, c, f = shape
+    rng = np.random.default_rng(sum(shape))
+    x, w9, s, o = (torch.from_numpy(a) for a in (
+        rng.standard_normal((b, h, w, c)).astype(np.float32),
+        (0.05 * rng.standard_normal((9, c, f))).astype(np.float32),
+        rng.uniform(0.5, 1.5, c).astype(np.float32),
+        (0.1 * rng.standard_normal(c)).astype(np.float32)))
+    x, w9, s, o = (a.to(torch.bfloat16) for a in (x, w9, s, o))
+    t = conv3x3.affine_relu(x, s, o).double().numpy()
+    w9d = w9.double().numpy()
+    got, written = _walk_kernel_plan(t, w9d)
+    assert written.min() == 1 and written.max() == 1
+    want = _dense_conv64(t, w9d)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12 * np.abs(want).max())
+
+
+def test_tile_plan_at_the_probe_shapes():
+    """The blocks the kernel takes at the probe's maps, and the L2 reads
+    they imply at B=256: x 129 / 118 / 103 MB (a design that stages one tap
+    of 128 pixels a step reads 925 / 462 / 462), w9 264 / 302 / 302 MB (462
+    when each 128 pixels read it)."""
+    assert conv3x3_cuda.tile_shape(56, 56) == (28, 8)
+    assert conv3x3_cuda.tile_shape(28, 28) == (14, 14)
+    assert conv3x3_cuda.tile_shape(14, 14) == (14, 14)
+    for (h, c), x_mb, w9_mb in (((56, 64), 129, 264), ((28, 128), 118, 302),
+                                ((14, 256), 103, 302)):
+        got = conv3x3_cuda.l2_bytes(256, h, h, c, c)
+        assert round(got["x"] / 1e6) == x_mb and round(got["w9"] / 1e6) == w9_mb
+    for h in range(1, 80):
+        for w in (1, 2, 7, 8, 9, 37, 56, 200, 300):
+            th, tw = conv3x3_cuda.tile_shape(h, w)
+            assert th <= h and tw <= w and th * tw <= conv3x3_cuda.TILE_PIXELS
+            assert (th + 2) * (tw + 2) <= conv3x3_cuda.HALO_MAX

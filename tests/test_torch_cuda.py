@@ -558,10 +558,10 @@ def test_frame_gemm_default_runs_on_tensor_cores(card, shape):
         kw = kernels.shape[0]
         padded = torch.nn.functional.pad(x, (kw // 2, kw // 2))
         hop, t = fe.cfg.hop_length, fe.cfg.n_frames
-    before = (cqt_cuda.frame_gemm_launches, cqt_cuda.frame_gemm_mma_launches)
+    before = (cqt_cuda.frame_gemm_launches, cqt_cuda.frame_gemm_mma_launches["default"])
     got = cqt_cuda.cqt_frame_gemm(padded, kernels, hop_length=hop, n_frames=t,
                                   batch_block=4, precision="default")
-    assert (cqt_cuda.frame_gemm_launches, cqt_cuda.frame_gemm_mma_launches) == (
+    assert (cqt_cuda.frame_gemm_launches, cqt_cuda.frame_gemm_mma_launches["default"]) == (
         before[0] + 1, before[1] + 1)
     want = frame_gemm_plain(padded, kernels, hop_length=hop, n_frames=t, precision="default")
     err = (got - want).abs().amax(dim=(1, 2))
@@ -576,6 +576,51 @@ def test_frame_gemm_default_runs_on_tensor_cores(card, shape):
     with pytest.raises(ValueError, match="rows"):  # as the SIMT tiers: B = 0 is refused
         cqt_cuda.cqt_frame_gemm(padded[:0], kernels, hop_length=hop, n_frames=t,
                                 batch_block=1, precision="default")
+
+
+SPLIT_TIER_CFGS = {
+    "train": CQTConfig(),  # hop 1024
+    "serving_cnn": CQTConfig.serving_cnn(),  # hop 512
+    "hop1000": RECIPE_CFGS["hop1000"],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+@pytest.mark.parametrize("name", list(SPLIT_TIER_CFGS))
+def test_frame_gemm_split_tiers_run_on_tensor_cores(card, name, precision):
+    """highest and bf16x3 at hops 1024, 512 and 1000: one tensor-core launch
+    of the tier a call; per window max|err| <= 1e-4 max|ref| against
+    frame_gemm_plain (TF32 off); two runs identical; at highest, the
+    per-window error against a float64 contraction of the same inputs at
+    most 4x that of the fp32 plain version (the tier is as accurate as
+    fp32)."""
+    fe = CQTFrontend(SPLIT_TIER_CFGS[name])
+    cfg = fe.cfg
+    kernels = fe.kernels_on(card)
+    x = _windows(cfg, 8, seed=14, device=card)
+    kw = kernels.shape[0]
+    padded = torch.nn.functional.pad(x, (kw // 2, kw // 2))
+    hop, t = cfg.hop_length, cfg.n_frames
+    kw_args = dict(hop_length=hop, n_frames=t, batch_block=4, precision=precision)
+    before = (cqt_cuda.frame_gemm_launches, dict(cqt_cuda.frame_gemm_mma_launches))
+    got = cqt_cuda.cqt_frame_gemm(padded, kernels, **kw_args)
+    torch.cuda.synchronize()
+    assert cqt_cuda.frame_gemm_launches == before[0] + 1
+    assert {k: v - before[1][k] for k, v in cqt_cuda.frame_gemm_mma_launches.items()} == {
+        "highest": int(precision == "highest"), "bf16x3": int(precision == "bf16x3"),
+        "default": 0}
+    want = frame_gemm_plain(padded, kernels, hop_length=hop, n_frames=t, precision=precision)
+    err = (got - want).abs().amax(dim=(1, 2))
+    assert bool((err <= 1e-4 * want.abs().amax(dim=(1, 2))).all()), err
+    assert torch.equal(cqt_cuda.cqt_frame_gemm(padded, kernels, **kw_args), got)
+    if precision == "highest":
+        ref = frame_gemm_plain(padded.double(), kernels.double(), hop_length=hop, n_frames=t,
+                               precision="highest")
+        scale = ref.abs().amax(dim=(1, 2))
+        f64_err = float(((got.double() - ref).abs().amax(dim=(1, 2)) / scale).max())
+        plain_err = float(((want.double() - ref).abs().amax(dim=(1, 2)) / scale).max())
+        assert f64_err <= 4 * plain_err, (f64_err, plain_err)
 
 
 @pytest.mark.cuda
@@ -652,12 +697,14 @@ def _conv_case(card, b, h, w, c, f, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 8, 8, 16, 32), (3, 7, 7, 64, 64), (2, 5, 9, 40, 136),
-                                   (1, 14, 14, 256, 256)])
+                                   (1, 14, 14, 256, 256), (1, 1, 37, 8, 8),
+                                   (2, 9, 13, 1024, 16), (2, 30, 57, 16, 8), (1, 56, 56, 8, 72)])
 def test_conv3x3_kernel_matches_plain(card, shape):
     """The conv against conv3x3_plain (TF32 off): within one bf16 ulp;
-    two runs identical; one launch a call.  The shapes take ragged pixel
-    tiles, the halo of small maps, C not a multiple of 32 and F off the
-    64-column tile."""
+    two runs identical; one launch a call.  The shapes take ragged output
+    blocks (W not a multiple of the block's width), the halo of small
+    maps, B=1, H=1, C=8 and C=1024, C off the 16-channel chunk, and F=8 and
+    F off the 64-column tile."""
     x, w9, s, o = _conv_case(card, *shape)
     before = conv3x3_cuda.launches["conv3x3"]
     got = conv3x3.conv3x3_affine_relu(x, w9, s, o)
