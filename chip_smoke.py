@@ -10,7 +10,8 @@
    ``csrc/stem_gemm.cu``, ``csrc/conv3x3.cu``: one ``nvcc`` each, started
    together); the attention kernels' ``-Xptxas -v`` lines (registers,
    spills) and their occupancy on the card (shared bytes, CTAs per SM);
-   the same -Xptxas -v lines of the CQT and conv3x3 tensor-core kernels.
+   the same -Xptxas -v lines of the CQT and conv3x3 tensor-core kernels
+   and of the stem tail's kernels (csrc/stem.cu).
 2. Kernel against plain version (TF32 off): the fused CQT kernel at every
    precision tier on the training recipe (B=4096), the 3 s serving recipe,
    a reflect-padded recipe and a hop-1000 recipe, each against its plain
@@ -27,7 +28,8 @@
 4. A short ``--arch resnet18`` transcription through the CLI.
 5. (a) The three stem-tail kernels against their plain versions at the
    flagship's training shape (B=256: y [256, 2, 56, 7168] bf16 from the
-   quadrant GEMM of real CQT features), directly and through the
+   quadrant GEMM of real CQT features), directly (``stem_bwd`` twice:
+   identical; its plan and occupancy on the card printed) and through the
    ``autograd.Function``; each timed beside its plain version, the
    ``torch.var_mean`` yardstick and the cuDNN BN -> ReLU -> max-pool
    composition.
@@ -531,12 +533,14 @@ def stem_kernel_phase(torch, mods, batch: int = 256) -> dict:
     sums, sums_p = stem_cuda.stats(yq), stem_tail.stats_plain(yq)
     pooled, pooled_p = stem_cuda.fwd(yq, se, oe), stem_tail.fwd_plain(yq, se, oe)
     dy, sdz, sdzy = stem_cuda.bwd(yq, gout, se, oe)
+    again = stem_cuda.bwd(yq, gout, se, oe)
     dy_p, sdz_p, sdzy_p = stem_tail.bwd_plain(yq, gout, se, oe)
     torch.cuda.synchronize()
     checks = {
         "stats_rel_err": rel(sums, sums_p),
         "fwd_equal": bool(torch.equal(pooled, pooled_p)),
         "bwd_dy_equal": bool(torch.equal(dy, dy_p)),
+        "bwd_deterministic": all(torch.equal(a, w) for a, w in zip(again, (dy, sdz, sdzy))),
         "bwd_sum_dz_rel_err": rel(sdz, sdz_p),
         "bwd_sum_dzy_rel_err": rel(sdzy, sdzy_p),
     }
@@ -547,7 +551,7 @@ def stem_kernel_phase(torch, mods, batch: int = 256) -> dict:
                         float((sdz - sdz_p).abs().max()),
                         float((sdzy - sdzy_p).abs().max())),
     }
-    del pooled_p, dy_p
+    del pooled_p, dy_p, again
 
     # through the autograd.Function: kernels against plain versions
     def train_op():
@@ -567,7 +571,7 @@ def stem_kernel_phase(torch, mods, batch: int = 256) -> dict:
     torch.cuda.empty_cache()
     print("stem kernels vs plain, B=%d: %s" % (b, json.dumps(
         {**checks, "abs_err": errs, "autograd_function_rel_err": function_err})), flush=True)
-    if not (checks["fwd_equal"] and checks["bwd_dy_equal"]
+    if not (checks["fwd_equal"] and checks["bwd_dy_equal"] and checks["bwd_deterministic"]
             and max(checks["stats_rel_err"], checks["bwd_sum_dz_rel_err"],
                     checks["bwd_sum_dzy_rel_err"]) <= SUM_REL_TOL):
         raise AssertionError(f"stem kernels disagree with their plain versions: {checks}")
@@ -624,6 +628,10 @@ def stem_kernel_phase(torch, mods, batch: int = 256) -> dict:
     context = {"cudnn_bn_relu_maxpool_fwd_ms": comp_fwd,
                "cudnn_bn_relu_maxpool_fwd_bwd_ms": comp_fwd_bwd,
                "var_mean_ms": library["stem_stats"]}
+    # stem_bwd's plan and occupancy on the card (band rows, channel slice,
+    # registers, spills, shared bytes, CTAs per SM)
+    rows["stem_bwd"]["occupancy"] = stem_cuda.bwd_kernel_info(yq)
+    print("stem_bwd on the card: " + json.dumps(rows["stem_bwd"]["occupancy"]), flush=True)
     print("stem kernel rows: " + json.dumps(rows), flush=True)
     print("stem yardsticks (composition, context only): " + json.dumps(context), flush=True)
     del nhwc, xin, yq, gout
@@ -1891,6 +1899,24 @@ def cqt_mma_build_report(builds: dict) -> None:
     sys.stdout.flush()
 
 
+def stem_build_report(log: str) -> None:
+    """The -Xptxas -v lines (stack, spills, registers) of csrc/stem.cu's
+    kernels from this run's build (stem_bwd's occupancy on the card is
+    printed with the stem phase)."""
+    from guitar_tablature_classification_tpu_torch.ops.nvcc import ptxas_report
+
+    print("stem build, -Xptxas -v:" + ("" if log else " (already built: no log)"))
+    for entry, lines in ptxas_report(log).items():
+        found = re.search(r"(stem_(?:stats|fwd|bwd)_kernel|reduce_partials_kernel)"
+                          r"(?:I(13__nv_bfloat16|f)Li(\d+)E)?", entry)
+        if found:
+            name, dtype, n = found.groups()
+            label = name + (f"<{'bf16' if dtype.startswith('13') else 'fp32'}, {n}>"
+                            if dtype else "")
+            print(f"  {label}: {lines}")
+    sys.stdout.flush()
+
+
 def main() -> int:
     import torch
 
@@ -1926,6 +1952,7 @@ def main() -> int:
         print(f"  {name}: {os.path.relpath(path)} " + " | ".join(regs))
     attention_build_report(mods, builds["attention"][1])
     cqt_mma_build_report(builds)
+    stem_build_report(builds["stem"][1])
 
     phase_s = {}
 

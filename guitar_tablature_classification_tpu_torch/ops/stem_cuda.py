@@ -21,6 +21,7 @@ sums, then their fixed-order reduction); each counts as one.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 
 import torch
@@ -33,10 +34,13 @@ GEMM_SOURCE = os.path.join(nvcc.CSRC_DIR, "stem_gemm.cu")
 GEMM_TILE = 128  # rows and columns of y per CTA; csrc/stem_gemm.cu kTile
 GEMM_MAX_K = 128  # csrc/stem_gemm.cu kMaxK
 THREADS = 256  # csrc/stem.cu kThreads
-VEC_STATS, VEC_FWD, VEC_BWD = 8, 8, 2  # channels per thread of each kernel
+VEC_STATS, VEC_FWD = 8, 8  # channels per thread of each kernel
 MAX_PARTS = 1024  # CTAs that write partial sums (fixed: deterministic sums)
 MAX_FWD_CTAS = 132 * 16
-BWD_RUN = 8  # quad rows a backward thread walks down
+BWD_BAND = 8  # quad rows a backward CTA owns
+# dynamic shared bytes a backward CTA may take: two CTAs an SM (228 KB, 1 KB
+# reserved a CTA, 1 KB of static shared memory)
+BWD_SMEM_BUDGET = 112 * 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"stem_stats": 0, "stem_fwd": 0, "stem_bwd": 0, "gemm_stats": 0}
@@ -59,7 +63,9 @@ def _library():
         lib.stem_stats_launch.argtypes = [p, p, p, ll, i, i, i, p]
         lib.stem_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.stem_bwd_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
-        for fn in (lib.stem_stats_launch, lib.stem_fwd_launch, lib.stem_bwd_launch):
+        lib.stem_bwd_kernel_info.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
+        for fn in (lib.stem_stats_launch, lib.stem_fwd_launch, lib.stem_bwd_launch,
+                   lib.stem_bwd_kernel_info):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -91,11 +97,10 @@ def _check(t: torch.Tensor, name: str, dtype=None, vec: int = 8) -> None:
 
 
 def _check_channels(c: int) -> None:
-    for vec in (VEC_STATS, VEC_FWD, VEC_BWD):
-        if c < vec or c % vec or THREADS % (c // vec):
-            raise ValueError(
-                f"the stem kernels need C % 8 == 0 and {THREADS} % (C/2) == 0, got C={c}"
-            )
+    if c < 8 or c % 8 or THREADS % (c // 2):
+        raise ValueError(
+            f"the stem kernels need C % 8 == 0 and {THREADS} % (C/2) == 0, got C={c}"
+        )
 
 
 def _check_affine(se: torch.Tensor, oe: torch.Tensor, c: int, device) -> None:
@@ -159,32 +164,100 @@ def fwd(yq: torch.Tensor, se: torch.Tensor, oe: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward kernel's tiling (``csrc/stem.cu`` stem_bwd_kernel).
+
+    CTA ``(b, band, slice)`` (block index ``(b * n_bands + band) *
+    n_slices + slice``) owns image b, quad rows ``[band * band_rows,
+    min(H2, (band + 1) * band_rows))`` and channels ``[slice * cs, (slice +
+    1) * cs)``: two 16-byte vectors a pixel (16 bf16 or 8 fp32 channels),
+    or one where C is 8 in bf16.  ``smem_bytes`` is the dynamic shared
+    memory of a full band; ``parts`` the rows of the partial-sum table."""
+
+    cs: int
+    band_rows: int
+    n_bands: int
+    n_slices: int
+    smem_bytes: int
+    parts: int
+    grid: int
+
+
+def bwd_smem_bytes(h2: int, w2: int, cs: int, elem: int, band_rows: int) -> int:
+    """Dynamic shared bytes of a full band (``csrc/stem.cu``
+    bwd_smem_bytes): 2R+3 source rows and R+1 gradient rows of the slice,
+    and one tap byte per window and channel."""
+    r = min(band_rows, h2)
+    n_win = min(r + 1, h2)
+    half_row = w2 * cs * elem  # one column-parity half of a row
+    return (2 * r + 3) * 2 * half_row + n_win * half_row + n_win * w2 * cs
+
+
+def bwd_plan(b: int, h2: int, w2: int, c: int, dtype: torch.dtype) -> BwdPlan:
+    """The tiling of :func:`bwd` at this shape: the widest band of at most
+    ``BWD_BAND`` quad rows whose CTA fits ``BWD_SMEM_BUDGET``.  Raises a
+    ValueError where even one quad row does not fit (W2 too wide)."""
+    elem = torch.finfo(dtype).bits // 8
+    cs = min(c, 32 // elem)
+    band = BWD_BAND
+    while band > 1 and bwd_smem_bytes(h2, w2, cs, elem, band) > BWD_SMEM_BUDGET:
+        band //= 2
+    smem = bwd_smem_bytes(h2, w2, cs, elem, band)
+    if smem > BWD_SMEM_BUDGET:
+        widest = max(x for x in range(1, w2 + 1)
+                     if bwd_smem_bytes(h2, x, cs, elem, 1) <= BWD_SMEM_BUDGET)
+        raise ValueError(f"the stem backward kernel needs W2 <= {widest} at {dtype} "
+                         f"(a band's rows in {BWD_SMEM_BUDGET} shared bytes), got W2={w2}")
+    n_bands = -(-h2 // band)
+    n_slices = c // cs
+    return BwdPlan(cs=cs, band_rows=band, n_bands=n_bands, n_slices=n_slices,
+                   smem_bytes=smem, parts=b * n_bands, grid=b * n_bands * n_slices)
+
+
 def bwd(
     yq: torch.Tensor, g: torch.Tensor, se: torch.Tensor, oe: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradient of :func:`fwd` at the BN input: quadrant-layout y, pooled
     gradient g [B, H2, W2*C] (y's dtype) -> (dy like y, sum dz [C],
-    sum dz*y [C]), dz the gradient at the BN output, dy = dz*se."""
-    _check(yq, "yq", vec=VEC_BWD)
+    sum dz*y [C]), dz the gradient at the BN output, dy = dz*se.  y, g are
+    16-byte aligned (the kernel copies 16-byte vectors)."""
+    _check(yq, "yq", vec=16 // yq.element_size())
     b, h2, w2, c = _geometry(yq)
-    _check(g, "g", dtype=yq.dtype, vec=VEC_BWD)
+    _check(g, "g", dtype=yq.dtype, vec=16 // yq.element_size())
     if g.shape != (b, h2, w2 * c):
         raise ValueError(f"g must be [{b}, {h2}, {w2 * c}], got {tuple(g.shape)}")
     _check_channels(c)
     _check_affine(se, oe, c, yq.device)
-    parts = _parts(b * -(-h2 // BWD_RUN) * w2, THREADS // (c // VEC_BWD))
+    plan = bwd_plan(b, h2, w2, c, yq.dtype)
     dy = torch.empty_like(yq)
-    partial = torch.empty((parts, 2, c), device=yq.device, dtype=torch.float32)
+    partial = torch.empty((plan.parts, 2, c), device=yq.device, dtype=torch.float32)
     sums = torch.empty((2, c), device=yq.device, dtype=torch.float32)
     with torch.cuda.device(yq.device):
         rc = _library().stem_bwd_launch(
             yq.data_ptr(), g.data_ptr(), se.data_ptr(), oe.data_ptr(),
             dy.data_ptr(), partial.data_ptr(), sums.data_ptr(), b, h2, w2, c,
-            BWD_RUN, parts, _DTYPES[yq.dtype], _stream(yq.device),
+            plan.cs, plan.band_rows, _DTYPES[yq.dtype], _stream(yq.device),
         )
     _raise_if(rc, "stem backward")
     launches["stem_bwd"] += 1
     return dy, sums[0], sums[1]
+
+
+_INFO_KEYS = ("registers", "local_bytes", "shared_bytes", "threads", "ctas_per_sm")
+
+
+def bwd_kernel_info(yq: torch.Tensor) -> dict:
+    """The backward kernel as the card runs it for ``yq``'s shape and
+    dtype: its plan, registers and local (spill) bytes a thread, shared
+    bytes (static + dynamic) and threads a CTA, resident CTAs per SM."""
+    b, h2, w2, c = _geometry(yq)
+    plan = bwd_plan(b, h2, w2, c, yq.dtype)
+    info = (ctypes.c_int * 5)()
+    rc = _library().stem_bwd_kernel_info(h2, w2, plan.cs, plan.band_rows,
+                                         _DTYPES[yq.dtype], info)
+    _raise_if(rc, "stem_bwd_kernel_info")
+    return {**dataclasses.asdict(plan), **dict(zip(_INFO_KEYS, info))}
 
 
 # ------------------------------------------------- front GEMM + stats (B8)

@@ -165,6 +165,52 @@ def test_stem_kernels_match_plain(card, dtype):
     assert torch.equal(again[1], sdz) and torch.equal(again[2], sdzy)
 
 
+STEM_BWD_EDGES = {  # name: (B, H2, C): the cuts of the backward kernel's tiling
+    "b1_flagship": (1, 56, 64),  # one image: 7 bands x 4 slices
+    "h2_1": (2, 1, 16),  # one quad row: no window below, no halo above
+    "h2_off_band": (2, 9, 64),  # a full band and a band of one row
+    "c8": (2, 3, 8),  # one vector a pixel in bf16
+    "c128": (1, 12, 128),  # eight bf16 slices
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(STEM_BWD_EDGES))
+def test_stem_bwd_edge_shapes_match_plain(card, name, dtype):
+    """stem_bwd at the shapes that cut its bands and channel slices, on
+    tie-rich quarter-grid input: dy equal to the plain version, the channel
+    sums to rtol 1e-5, and two runs identical."""
+    b, h2, c = STEM_BWD_EDGES[name]
+    rng = np.random.default_rng(h2 + c)
+    y = np.round(rng.standard_normal((b, 2, h2, 2 * h2 * c)) * 4) / 4
+    g = rng.standard_normal((b, h2, h2 * c))
+    se = rng.uniform(-1.5, 1.5, c)
+    oe = rng.standard_normal(c) * 0.1
+    to = lambda a, dt: torch.from_numpy(np.asarray(a)).to(card, dt)  # noqa: E731
+    yq, gq, se, oe = to(y, dtype), to(g, dtype), to(se, torch.float32), to(oe, torch.float32)
+    before = stem_cuda.launches["stem_bwd"]
+    dy, sdz, sdzy = stem_cuda.bwd(yq, gq, se, oe)
+    again = stem_cuda.bwd(yq, gq, se, oe)
+    want_dy, want_sdz, want_sdzy = stem_tail.bwd_plain(yq, gq, se, oe)
+    torch.cuda.synchronize()
+    assert stem_cuda.launches["stem_bwd"] - before == 2
+    assert torch.equal(dy, want_dy)
+    torch.testing.assert_close(sdz, want_sdz, rtol=1e-5, atol=1e-2)
+    torch.testing.assert_close(sdzy, want_sdzy, rtol=1e-5, atol=1e-2)
+    assert all(torch.equal(a, w) for a, w in zip(again, (dy, sdz, sdzy)))
+
+
+@pytest.mark.cuda
+def test_stem_bwd_holds_two_ctas_an_sm_without_spills(card):
+    """The backward kernel at the flagship shape: at most 128 registers, no
+    local memory, two 93 KB CTAs an SM."""
+    yq = torch.empty((256, 2, 56, 2 * 56 * 64), device=card, dtype=torch.bfloat16)
+    info = stem_cuda.bwd_kernel_info(yq)
+    assert info["registers"] <= 128 and info["local_bytes"] == 0
+    assert info["ctas_per_sm"] >= 2 and info["band_rows"] == 8
+
+
 @pytest.mark.cuda
 def test_stem_train_op_on_card_matches_cpu(card):
     """bn_relu_pool_train through its autograd.Function: card (kernels)
@@ -198,6 +244,13 @@ def test_stem_wrappers_reject_what_the_kernels_do_not_take(card):
         stem_cuda.fwd(yq, se.double(), oe)
     with pytest.raises(ValueError, match="g must be"):
         stem_cuda.bwd(yq, g[:, :1], se, oe)
+    unaligned = torch.empty(g.numel() + 8, device=card, dtype=g.dtype)[1:g.numel() + 1]
+    with pytest.raises(ValueError, match="aligned"):
+        stem_cuda.bwd(yq, unaligned.view(g.shape), se, oe)
+    wide = torch.empty((1, 2, 400, 2 * 400 * 64), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"needs W2 <= \d+"):
+        stem_cuda.bwd(wide, wide[:, 0, :, :400 * 64].contiguous(),
+                      torch.ones(64, device=card), torch.zeros(64, device=card))
 
 
 @pytest.mark.cuda

@@ -243,3 +243,168 @@ def test_precomposed_front_gradient_reaches_conv1_weight():
     (stem_fusion.precomposed_conv1_quadrant(_t(x), tw, dtype=torch.float32) * _t(g)).sum().backward()
     ref = np.asarray(want).transpose(3, 2, 0, 1)
     np.testing.assert_allclose(tw.grad.numpy(), ref, atol=1e-4 * np.abs(ref).max(), rtol=1e-4)
+
+
+# ------------------------------------------- the backward kernel's plan walk
+
+
+def _bwd_case(b, h2, c, dtype, seed, mixed_sign=False):
+    """Quadrant-layout y on a quarter grid (tie-rich windows in either
+    dtype), a pooled gradient and BN affine terms, as the card test's."""
+    rng = np.random.default_rng(seed)
+    y = np.round(rng.standard_normal((b, 2, h2, 2 * h2 * c)) * 4) / 4
+    lo = -1.5 if mixed_sign else 0.5
+    se = rng.uniform(lo, 1.5, c).astype(np.float32)
+    oe = (rng.standard_normal(c) * 0.1).astype(np.float32)
+    g = rng.standard_normal((b, h2, h2 * c)).astype(np.float32)
+    return (torch.from_numpy(y).to(dtype), torch.from_numpy(se), torch.from_numpy(oe),
+            torch.from_numpy(g).to(dtype))
+
+
+def _walk_bwd(yq, g, se, oe, fault=None):
+    """``csrc/stem.cu`` stem_bwd_kernel walked CTA by CTA over its plan
+    (``stem_cuda.bwd_plan``) in fp32 on the CPU, vectorised over a row's
+    columns and the CTA's channels: stage the slice of source rows 2*h0-1
+    .. 2*h1+1 (slots outside the map stay NaN and are read as the -1 fill
+    only), find each window's first-max tap once, gather each source from
+    its windows (h+1, w+1), (h+1, w), (h, w+1), (h, w), mask, write dy.
+    ``fault`` plants a bug the walk must not hide: "halo" treats O[h0-1] as
+    outside the map, "order" gathers in the reverse window order, "slice"
+    stages y from the next channel slice.  Returns (dy, float64 partial
+    table [parts, 2, C])."""
+    b, _, h2, lanes = yq.shape
+    c = lanes // (2 * h2)
+    w2 = h2
+    plan = stem_cuda.bwd_plan(b, h2, w2, c, yq.dtype)
+    assert plan.smem_bytes <= stem_cuda.BWD_SMEM_BUDGET
+    R, cs = plan.band_rows, plan.cs
+    assert cs * yq.element_size() in (16, 32) and c % cs == 0
+    y6 = yq.reshape(b, 2, h2, 2, w2, c)
+    g4 = g.reshape(b, h2, w2, c)
+    dy = torch.zeros_like(y6)
+    written = torch.zeros(y6.shape, dtype=torch.int64)
+    partial = torch.zeros((plan.parts, 2, c), dtype=torch.float64)
+    part_written = torch.zeros((plan.parts, 2, c), dtype=torch.int64)
+    order = [(1, 1), (1, 0), (0, 1), (0, 0)]
+    if fault == "order":
+        order = order[::-1]
+    left = (torch.arange(w2) > 0)[:, None]
+    for cta in range(plan.grid):
+        sl = cta % plan.n_slices
+        band = (cta // plan.n_slices) % plan.n_bands
+        bi = cta // (plan.n_slices * plan.n_bands)
+        h0, h1 = band * R, min(h2, band * R + R)
+        last = min(h1, h2 - 1)
+        n_win, n_slots = last - h0 + 1, 2 * (h1 - h0) + 3
+        ch = slice(sl * cs, (sl + 1) * cs)
+        s, o = se[ch], oe[ch]
+        # 1. stage: slot k holds image row 2*h0 - 1 + k, [2 col parities, W2, cs]
+        ych = ch if fault != "slice" else slice((sl + 1) % plan.n_slices * cs,
+                                                 (sl + 1) % plan.n_slices * cs + cs)
+        ys = torch.full((n_slots, 2, w2, cs), float("nan"))
+        for k in range(n_slots):
+            q = 2 * h0 - 1 + k
+            if 0 <= q < 2 * h2:
+                ys[k] = y6[bi, q % 2, q // 2, :, :, ych].float()
+        gs = g4[bi, h0:last + 1, :, ch].float()
+        # 2. first-max tap of windows (h0 + i, j): rows O[h-1], E[h], O[h] =
+        #    slots 2i..2i+2, columns O[j-1], E[j], O[j]
+        taps = torch.empty((n_win, w2, cs), dtype=torch.int64)
+        for i in range(n_win):
+            top = h0 + i > 0 and not (fault == "halo" and i == 0)
+            rows = ys[2 * i:2 * i + 3]
+            o_prev = torch.cat([rows[:, 1, :1], rows[:, 1, :-1]], dim=1)  # O[j-1]
+            cols = (o_prev, rows[:, 0], rows[:, 1])
+            r, m = [], torch.full((w2, cs), -1.0)
+            for a in range(3):
+                for bb in range(3):
+                    t = torch.maximum(cols[bb][a] * s + o, torch.zeros(()))
+                    inside = (a > 0 or top) & (left if bb == 0 else torch.ones((), dtype=bool))
+                    t = torch.where(inside, t, torch.full((), -1.0))
+                    r.append(t)
+                    m = torch.maximum(m, t)
+            first = torch.full((w2, cs), 9, dtype=torch.int64)
+            for tap in reversed(range(9)):
+                first = torch.where(r[tap] == m, tap, first)
+            taps[i] = first
+        # 3. gather, mask, dy, sums
+        for hl in range(h1 - h0):
+            h = h0 + hl
+            for sr in range(2):
+                for sc in range(2):
+                    acc = torch.zeros((w2, cs))
+                    for di, dj in order:
+                        a, bb = sr + 1 - 2 * di, sc + 1 - 2 * dj
+                        if a < 0 or bb < 0 or h + di >= h2:
+                            continue
+                        tw = torch.full((w2, cs), 9, dtype=torch.int64)
+                        gw = torch.zeros((w2, cs))
+                        tw[:w2 - dj] = taps[hl + di, dj:]
+                        gw[:w2 - dj] = gs[hl + di, dj:]
+                        acc = torch.where(tw == a * 3 + bb, acc + gw, acc)
+                    yk = ys[2 * hl + 1 + sr, sc]
+                    dz = torch.where(yk * s + o > 0, acc, torch.zeros(()))
+                    dy[bi, sr, h, sc, :, ch] = (dz * s).to(yq.dtype)
+                    written[bi, sr, h, sc, :, ch] += 1
+                    row = bi * plan.n_bands + band
+                    partial[row, 0, ch] += dz.double().sum(0)
+                    partial[row, 1, ch] += (dz.double() * yk.double()).sum(0)
+        part_written[bi * plan.n_bands + band, :, ch] += 1
+    assert torch.all(written == 1), "every source is written by exactly one CTA"
+    assert torch.all(part_written == 1), "every partial cell is written once"
+    return dy.reshape(yq.shape), partial
+
+
+BWD_WALKS = {  # name: (B, H2, C, dtype, mixed-sign se)
+    "flagship_bf16": (1, 56, 64, torch.bfloat16, False),
+    "flagship_fp32": (1, 56, 64, torch.float32, False),
+    "h2_1": (2, 1, 16, torch.bfloat16, False),
+    "h2_3_fp32": (2, 3, 16, torch.float32, True),
+    "h2_9": (2, 9, 16, torch.bfloat16, False),
+    "c8_bf16": (2, 9, 8, torch.bfloat16, True),
+    "c8_fp32": (2, 5, 8, torch.float32, False),
+    "c128": (1, 12, 128, torch.bfloat16, False),
+}
+
+
+@pytest.mark.parametrize("name", list(BWD_WALKS))
+def test_bwd_kernel_plan_walk_matches_plain(name):
+    """The backward kernel's tiling, walked on the CPU, against bwd_plain:
+    dy equal (torch.equal: the same fp32 ops in the same order, one
+    rounding), the partial table's float64 column sums against the plain
+    version's fp32 sums (rtol 1e-5, the card test's)."""
+    b, h2, c, dtype, mixed = BWD_WALKS[name]
+    yq, se, oe, g = _bwd_case(b, h2, c, dtype, seed=h2 + c, mixed_sign=mixed)
+    dy, partial = _walk_bwd(yq, g, se, oe)
+    want_dy, want_sdz, want_sdzy = stem_tail.bwd_plain(yq, g, se, oe)
+    assert torch.equal(dy, want_dy)
+    sums = partial.sum(0)
+    torch.testing.assert_close(sums[0], want_sdz.double(), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(sums[1], want_sdzy.double(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("fault", ["halo", "order", "slice"])
+def test_bwd_kernel_plan_walk_catches_planted_faults(fault):
+    """The walk's comparison sees a dropped halo row (O[h0-1] taken as
+    padding), a gather in the wrong window order (fp32 adds do not
+    associate where three or four windows route to one source) and y
+    staged from the wrong channel slice."""
+    yq, se, oe, g = _bwd_case(1, 56, 64, torch.float32, seed=3)
+    want_dy, _, _ = stem_tail.bwd_plain(yq, g, se, oe)
+    dy, _ = _walk_bwd(yq, g, se, oe, fault=fault)
+    assert not torch.equal(dy, want_dy)
+
+
+def test_bwd_plan_fits_two_ctas_an_sm_and_names_its_limit():
+    """The flagship's plan (8-row bands, 16 bf16 channels: 92,288 shared
+    bytes, 7 bands x 4 slices an image) and the budget's narrower bands and
+    its named limit on wide maps."""
+    plan = stem_cuda.bwd_plan(256, 56, 56, 64, torch.bfloat16)
+    assert (plan.cs, plan.band_rows, plan.n_bands, plan.n_slices) == (16, 8, 7, 4)
+    assert plan.smem_bytes == 92288 and plan.grid == 256 * 28 and plan.parts == 256 * 7
+    assert stem_cuda.bwd_plan(1, 56, 56, 64, torch.float32).cs == 8
+    assert stem_cuda.bwd_plan(1, 56, 56, 8, torch.bfloat16).cs == 8
+    wide = stem_cuda.bwd_plan(1, 200, 200, 64, torch.bfloat16)
+    assert wide.band_rows < 8 and wide.smem_bytes <= stem_cuda.BWD_SMEM_BUDGET
+    with pytest.raises(ValueError, match=r"needs W2 <= \d+"):
+        stem_cuda.bwd_plan(1, 400, 400, 64, torch.bfloat16)
