@@ -11,7 +11,7 @@
    together); the attention kernels' ``-Xptxas -v`` lines (registers,
    spills) and their occupancy on the card (shared bytes, CTAs per SM);
    the same -Xptxas -v lines of the CQT and conv3x3 tensor-core kernels
-   and of the stem tail's kernels (csrc/stem.cu).
+   and of the stem tails' kernels (csrc/stem.cu, csrc/stem_native.cu).
 2. Kernel against plain version (TF32 off): the fused CQT kernel at every
    precision tier on the training recipe (B=4096), the 3 s serving recipe,
    a reflect-padded recipe and a hop-1000 recipe, each against its plain
@@ -59,12 +59,16 @@
    ``bn_grad_sums``) against their plain versions at the flagship's four
    trunk shapes (B=256, bf16, NCHW and channels last), one fp32 shape and
    one native trunk shape (B=4096); two runs identical; times at
-   [256, 64, 56, 56] beside the plain version, the bound and
-   ``torch.var_mean``.
+   [256, 64, 56, 56] (:func:`_kernel_ms`: the profiler's device time under
+   0.1 ms) beside the plain version, the bound and ``torch.var_mean``.
 11. (a) The native stem kernels (``native_stats``, ``native_fwd``,
    ``native_bwd``) against their plain versions on ``native-best``'s conv1
    planes (ye, yo [4096, 24, 384]) at bf16 and fp32 and on a tie-rich
-   input; times beside the plain versions, the bounds and ``torch.var_mean``.
+   input; times (:func:`_kernel_ms`; ``native_bwd`` also by ``_sync_ms``)
+   beside the plain versions, the bounds and ``torch.var_mean``;
+   ``native_bwd``'s plan and occupancy on the card, and
+   ``native_bwd`` on the planes without a pad column (w_pad=0, [4096, 24,
+   320]): checked and timed.
 12. (b) Path A: the flagship with ``bn_fusion="on"`` (B=256, 20 steps:
    ``bn_sums`` and ``bn_grad_sums`` +19 a step beside the stem and CQT
    kernels), the kernels-vs-plain step, a profile, the memory format each
@@ -197,7 +201,10 @@ def _sync_ms(fn, iters: int) -> float:
 def _kernel_ms(fn, iters: int) -> float:
     """``_sync_ms``, or where that reads under 0.1 ms (back-to-back calls,
     where a slow host inflates a small kernel), the profiler's device time
-    of every kernel ``fn`` launches, per call."""
+    of every kernel ``fn`` launches, per call.  A trace with no device time
+    is taken again, three times at most; one whose count of device ops is
+    not a multiple of ``iters`` lost records, and is printed as such (its
+    time then reads low)."""
     ms = _sync_ms(fn, iters)
     if ms >= 0.1:
         return ms
@@ -205,15 +212,22 @@ def _kernel_ms(fn, iters: int) -> float:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    device_ms = sum(_device_ms(evt) for evt in prof.key_averages()  # kernels and copies
-                    if evt.device_type == DeviceType.CUDA and "Activity Buffer" not in evt.key)
-    if device_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return device_ms / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [evt for evt in prof.key_averages()  # kernels and copies
+                  if evt.device_type == DeviceType.CUDA and "Activity Buffer" not in evt.key]
+        device_ms = sum(_device_ms(evt) for evt in events)
+        ops = sum(evt.count for evt in events)
+        if device_ms > 0:
+            if ops % iters:
+                print(f"_kernel_ms: the profiler lost records ({ops} device ops for {iters} "
+                      f"calls, {device_ms / iters:.6f} ms a call; _sync_ms {ms:.6f})", flush=True)
+            return device_ms / iters
+    raise AssertionError("the profiler saw no device time, three times")
 
 
 def tone_windows(batch: int, num_samples: int, sample_rate: int, seed: int):
@@ -1293,9 +1307,9 @@ def bn_kernel_phase(torch, mods) -> dict:
         torch.cuda.empty_cache()
 
     y, g = row_inputs
-    ms = {"bn_sums": (_sync_ms(lambda: bn_cuda.sums(y), 20),
+    ms = {"bn_sums": (_kernel_ms(lambda: bn_cuda.sums(y), 20),
                       _sync_ms(lambda: bn_fused.sums_plain(y), 5)),
-          "bn_grad_sums": (_sync_ms(lambda: bn_cuda.grad_sums(y, g), 20),
+          "bn_grad_sums": (_kernel_ms(lambda: bn_cuda.grad_sums(y, g), 20),
                            _sync_ms(lambda: bn_fused.grad_sums_plain(y, g), 5))}
     # batch_norm_backward_reduce (SyncBatchNorm's reduction) with mean 0 and
     # invstd 1 returns (sum g, sum g*(y - 0)): the same two sums
@@ -1305,8 +1319,8 @@ def bn_kernel_phase(torch, mods) -> dict:
     def reduce():
         return torch.batch_norm_backward_reduce(g, y, mean, invstd, None, True, False, False)
 
-    library = {"bn_sums": _sync_ms(lambda: torch.var_mean(y, dim=(0, 2, 3), correction=0), 10),
-               "bn_grad_sums": _sync_ms(reduce, 10)}
+    library = {"bn_sums": _kernel_ms(lambda: torch.var_mean(y, dim=(0, 2, 3), correction=0), 10),
+               "bn_grad_sums": _kernel_ms(reduce, 10)}
     lib_g = torch.stack(reduce()[:2])
     if _rel(lib_g, bn_fused.grad_sums_plain(y, g)) > SUM_REL_TOL:
         raise AssertionError("batch_norm_backward_reduce does not compute bn_grad_sums' sums")
@@ -1400,17 +1414,17 @@ def native_stem_kernel_phase(torch, mods, batch: int = 4096) -> dict:
     b, h2, lanes = ye.shape
     wp = lanes // c
     ms = {
-        "native_stats": (_sync_ms(lambda: snc.stats(ye, yo), 20),
+        "native_stats": (_kernel_ms(lambda: snc.stats(ye, yo), 20),
                          _sync_ms(lambda: sn.stats_plain(ye, yo), 5)),
-        "native_fwd": (_sync_ms(lambda: snc.fwd(ye, yo, se, oe, wreal), 20),
+        "native_fwd": (_kernel_ms(lambda: snc.fwd(ye, yo, se, oe, wreal), 20),
                        _sync_ms(lambda: sn.fwd_plain(ye, yo, se, oe, wreal), 3)),
-        "native_bwd": (_sync_ms(lambda: snc.bwd(ye, yo, gout, se, oe, wreal), 20),
+        "native_bwd": (_kernel_ms(lambda: snc.bwd(ye, yo, gout, se, oe, wreal), 20),
                        _sync_ms(lambda: sn.bwd_plain(ye, yo, gout, se, oe, wreal), 3)),
     }
     # yardstick of the stats: torch.var_mean of the same values per channel,
     # pad columns left out, over one tensor holding both planes
     both = torch.cat([ye, yo]).view(2 * b * h2, wp, c)
-    library = {"native_stats": _sync_ms(
+    library = {"native_stats": _kernel_ms(
         lambda: torch.var_mean(both[:, :wreal], dim=(0, 1), correction=0), 10),
         "native_fwd": None, "native_bwd": None}
     # context only: batch_norm -> relu -> max_pool2d on the NCHW conv output
@@ -1445,6 +1459,13 @@ def native_stem_kernel_phase(torch, mods, batch: int = 4096) -> dict:
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "library_ms": library[name], "bytes": bytes_[name],
         }
+    # the parent commit's yardstick for native_bwd (its ms above is the same
+    # timer wherever it reads 0.1 ms or more)
+    rows["native_bwd"]["sync_ms"] = _sync_ms(lambda: snc.bwd(ye, yo, gout, se, oe, wreal), 20)
+    rows["native_bwd"]["occupancy"] = snc.bwd_kernel_info(ye)
+    print("native_bwd_kernel_info, bf16 [4096, 24, 384]: "
+          + json.dumps(rows["native_bwd"]["occupancy"]), flush=True)
+    rows["native_bwd"]["w_pad0"] = native_bwd_without_pad(torch, mods, feats, model, se, oe, gout)
     context = {"batch_norm_relu_maxpool_fwd_ms": comp_fwd,
                "batch_norm_relu_maxpool_fwd_bwd_ms": comp_fwd_bwd,
                "var_mean_ms": library["native_stats"]}
@@ -1454,6 +1475,40 @@ def native_stem_kernel_phase(torch, mods, batch: int = 4096) -> dict:
     del inputs, ye, yo, gout, feats, model
     torch.cuda.empty_cache()
     return {"rows": rows, "checks": checks, "context": context}
+
+
+def native_bwd_without_pad(torch, mods, feats, model, se, oe, gout) -> dict:
+    """native_bwd on conv1's planes with no pad column (w_pad=0: ye, yo
+    [4096, 24, 320] bf16, Wp = Wreal = 5) against its plain version (dye,
+    dyo equal, sums rtol 1e-5, two runs identical), timed beside the same
+    bound as the padded row's counting: the real columns read, dy written."""
+    sn, snc = mods["stem_native"], mods["stem_native_cuda"]
+    wreal = 5
+    with torch.no_grad():
+        ye, yo = sn.conv1_parity_native(feats, model.resnet.conv1.weight, w_pad=0,
+                                        dtype=torch.bfloat16)
+    dye, dyo, sdz, sdzy = snc.bwd(ye, yo, gout, se, oe, wreal)
+    pdye, pdyo, psdz, psdzy = sn.bwd_plain(ye, yo, gout, se, oe, wreal)
+    again = snc.bwd(ye, yo, gout, se, oe, wreal)
+    torch.cuda.synchronize()
+    r = {"planes": list(ye.shape),
+         "bwd_dy_equal": bool(torch.equal(dye, pdye) and torch.equal(dyo, pdyo)),
+         "bwd_sum_dz_rel_err": _rel(sdz, psdz), "bwd_sum_dzy_rel_err": _rel(sdzy, psdzy),
+         "deterministic": all(bool(torch.equal(a, w))
+                              for a, w in zip(again, (dye, dyo, sdz, sdzy)))}
+    if not (r["bwd_dy_equal"] and r["deterministic"]
+            and max(r["bwd_sum_dz_rel_err"], r["bwd_sum_dzy_rel_err"]) <= SUM_REL_TOL):
+        raise AssertionError(f"native_bwd disagrees without a pad column: {r}")
+    del pdye, pdyo, again
+    r["ms"] = _kernel_ms(lambda: snc.bwd(ye, yo, gout, se, oe, wreal), 20)
+    r["sync_ms"] = _sync_ms(lambda: snc.bwd(ye, yo, gout, se, oe, wreal), 20)
+    c = se.shape[0]
+    # ye, yo read and dye, dyo written (every column is real), g read
+    nbytes = ye.element_size() * (4 * ye.numel() + gout.numel()) + 8 * c + 8 * wreal * c
+    r["bound_ms"] = 1e3 * nbytes / PEAK_BYTES_PER_S
+    r["plan"] = snc.bwd_kernel_info(ye)
+    print("native_bwd without a pad column: " + json.dumps(r), flush=True)
+    return r
 
 
 def native_fused_serving_phase(torch, mods, batch: int = 2048, n_batches: int = 4) -> dict:
@@ -1899,15 +1954,16 @@ def cqt_mma_build_report(builds: dict) -> None:
     sys.stdout.flush()
 
 
-def stem_build_report(log: str) -> None:
-    """The -Xptxas -v lines (stack, spills, registers) of csrc/stem.cu's
-    kernels from this run's build (stem_bwd's occupancy on the card is
-    printed with the stem phase)."""
+def stem_build_report(source: str, log: str) -> None:
+    """The -Xptxas -v lines (stack, spills, registers) of the stem tails'
+    kernels (csrc/stem.cu, csrc/stem_native.cu) from this run's build
+    (stem_bwd's and native_bwd's occupancy on the card are printed with
+    their phases)."""
     from guitar_tablature_classification_tpu_torch.ops.nvcc import ptxas_report
 
-    print("stem build, -Xptxas -v:" + ("" if log else " (already built: no log)"))
+    print(f"{source} build, -Xptxas -v:" + ("" if log else " (already built: no log)"))
     for entry, lines in ptxas_report(log).items():
-        found = re.search(r"(stem_(?:stats|fwd|bwd)_kernel|reduce_partials_kernel)"
+        found = re.search(r"((?:stem|native)_(?:stats|fwd|bwd)_kernel|reduce_parts\w*_kernel)"
                           r"(?:I(13__nv_bfloat16|f)Li(\d+)E)?", entry)
         if found:
             name, dtype, n = found.groups()
@@ -1952,7 +2008,8 @@ def main() -> int:
         print(f"  {name}: {os.path.relpath(path)} " + " | ".join(regs))
     attention_build_report(mods, builds["attention"][1])
     cqt_mma_build_report(builds)
-    stem_build_report(builds["stem"][1])
+    for source in ("stem", "stem_native"):
+        stem_build_report(source, builds[source][1])
 
     phase_s = {}
 
@@ -2024,7 +2081,8 @@ def main() -> int:
         expect={"cqt_fused": 1, "cqt_fused_mma": 1, "native_stats": 1, "native_fwd": 1,
                 "native_bwd": 1, **trunk},
         trunk_bn=True, compare={**plain_all, "plain_cqt": False},
-        profile={"column_sums": sums_kernels, "native_stem": ("native_", "reduce_parts")},
+        profile={"column_sums": sums_kernels, "native_stem": ("native_", "reduce_parts"),
+                 "native_bwd": ("native_bwd",)},
     )
     timed("path_b_serving", native_fused_serving_phase, torch, mods)
     frame_gemm = timed("frame_gemm", frame_gemm_phase, torch, mods)

@@ -7,6 +7,7 @@ without them; there ``tests/conftest.py`` (which sets JAX up) is left out:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -468,46 +469,102 @@ def test_bn_wrappers_reject_what_the_kernel_does_not_take(card):
         bn_cuda.sums(torch.zeros(4, 3, device=card))
 
 
-def _native_case(dtype, device, batch=64, seed=0):
-    """Parity planes [B, 24, 6*64] on a quarter grid (many exact ties in
-    the pooling windows), a pad column of 7.7, BN affine terms and a pooled
-    gradient [B, 24, 3, 64]."""
+def _native_case(dtype, device, batch=64, seed=0, h2=24, wp=6, wreal=5, c=64, nan=False):
+    """Parity planes [B, H2, Wp*C] on a quarter grid (many exact ties in
+    the pooling windows), pad columns of 7.7, BN affine terms (mixed signs
+    where ``nan``) and a pooled gradient [B, H2, Wout, C]; ``nan`` puts one
+    NaN in a real column of yo."""
     rng = np.random.default_rng(seed)
-    planes = np.round(rng.standard_normal((2, batch, 24, 6, 64)) * 4) / 4
-    planes[:, :, :, 5] = 7.7
-    se = rng.uniform(0.5, 1.5, 64).astype(np.float32)
-    oe = (rng.standard_normal(64) * 0.1).astype(np.float32)
-    g = rng.standard_normal((batch, 24, 3, 64))
+    planes = np.round(rng.standard_normal((2, batch, h2, wp, c)) * 4) / 4
+    planes[:, :, :, wreal:] = 7.7
+    if nan:
+        planes[1, batch // 2, h2 // 2, wreal // 2, c // 3] = np.nan
+    se = rng.uniform(-1.5 if nan else 0.5, 1.5, c).astype(np.float32)
+    oe = (rng.standard_normal(c) * 0.1).astype(np.float32)
+    g = rng.standard_normal((batch, h2, stem_native.pool_out_width(wreal), c))
     to = lambda a, dt: torch.from_numpy(np.asarray(a)).to(device, dt)  # noqa: E731
-    ye, yo = (to(p.reshape(batch, 24, 384), dtype) for p in planes)
+    ye, yo = (to(p.reshape(batch, h2, wp * c), dtype) for p in planes)
     return ye, yo, to(se, torch.float32), to(oe, torch.float32), to(g, dtype)
+
+
+NATIVE_EDGES = {  # name: (B, H2, Wp, Wreal, C, NaN): the cuts of the backward kernel's plan
+    "b64": (64, 24, 6, 5, 64, False),
+    "b1": (1, 24, 6, 5, 64, False),
+    "ragged_37": (37, 24, 6, 5, 64, False),  # one image a CTA
+    "ragged_529": (529, 24, 6, 5, 64, False),  # three images a CTA, the last CTA one
+    "b4096": (4096, 24, 6, 5, 64, False),  # the model shape: 16 images a CTA
+    "h2_1": (3, 1, 6, 5, 16, False),
+    "w_pad0": (64, 24, 5, 5, 64, False),
+    "c8": (5, 24, 6, 5, 8, False),
+    "c128": (9, 24, 6, 5, 128, False),  # two bf16 slices, four fp32 ones
+    "nan": (64, 24, 6, 5, 64, True),
+}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_native_stem_kernels_match_plain(card, dtype):
+@pytest.mark.parametrize("name", list(NATIVE_EDGES))
+def test_native_stem_kernels_match_plain(card, name, dtype):
     """native_stats, native_fwd and native_bwd against their plain versions
-    on tie-rich card tensors: pooled output, dye and dyo bit for bit (same
-    fp32 rounding and tie-break, no FMA contraction), per-lane sums to rtol
-    1e-5, two runs identical, each launch counted."""
-    ye, yo, se, oe, g = _native_case(dtype, card)
+    on tie-rich card tensors at the shapes that cut the backward kernel's
+    plan: pooled output, dye and dyo bit for bit (same fp32 rounding and
+    tie-break, no FMA contraction; a NaN where the plain version has one),
+    per-lane sums to rtol 1e-5, two runs identical, each launch counted."""
+    b, h2, wp, wreal, c, nan = NATIVE_EDGES[name]
+    ye, yo, se, oe, g = _native_case(dtype, card, b, h2=h2, wp=wp, wreal=wreal, c=c, nan=nan)
     before = dict(stem_native_cuda.launches)
     sums = stem_native.stats(ye, yo)
-    pooled = stem_native.fwd(ye, yo, se, oe, 5)
-    dye, dyo, sdz, sdzy = stem_native.bwd(ye, yo, g, se, oe, 5)
+    pooled = stem_native.fwd(ye, yo, se, oe, wreal)
+    dye, dyo, sdz, sdzy = stem_native.bwd(ye, yo, g, se, oe, wreal)
     torch.cuda.synchronize()
     assert {k: stem_native_cuda.launches[k] - before[k] for k in before} == {
         "native_stats": 1, "native_fwd": 1, "native_bwd": 1}
-    want = stem_native.stats_plain(ye, yo)
-    torch.testing.assert_close(sums, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
-    assert torch.equal(pooled, stem_native.fwd_plain(ye, yo, se, oe, 5))
-    wdye, wdyo, wsdz, wsdzy = stem_native.bwd_plain(ye, yo, g, se, oe, 5)
+
+    def close(got, ref, exact=False):
+        tol = 0.0 if exact else 1e-5
+        atol = tol * float(ref.nan_to_num().abs().max())
+        torch.testing.assert_close(got, ref, rtol=tol, atol=atol, equal_nan=nan)
+
+    close(sums, stem_native.stats_plain(ye, yo))
+    close(pooled, stem_native.fwd_plain(ye, yo, se, oe, wreal), exact=True)
+    wdye, wdyo, wsdz, wsdzy = stem_native.bwd_plain(ye, yo, g, se, oe, wreal)
     assert torch.equal(dye, wdye) and torch.equal(dyo, wdyo)
-    for got, ref in ((sdz, wsdz), (sdzy, wsdzy)):
-        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
-    again = stem_native.bwd(ye, yo, g, se, oe, 5)
-    assert torch.equal(again[2], sdz) and torch.equal(again[3], sdzy)
-    assert torch.equal(stem_native.stats(ye, yo), sums)
+    close(sdz, wsdz)
+    close(sdzy, wsdzy)
+    assert bool(torch.isnan(sdzy).any()) == nan
+    again = stem_native.bwd(ye, yo, g, se, oe, wreal)
+    for a, w in zip((*again, stem_native.stats(ye, yo)), (dye, dyo, sdz, sdzy, sums)):
+        torch.testing.assert_close(a, w, rtol=0, atol=0, equal_nan=True)  # NaNs in place
+
+
+@pytest.mark.cuda
+def test_native_bwd_holds_two_ctas_an_sm_without_spills(card):
+    """The backward kernel at the model shape (bf16 [4096, 24, 384]): at most
+    128 registers, no local memory, two CTAs an SM, 16 images a CTA."""
+    ye = torch.empty((4096, 24, 384), device=card, dtype=torch.bfloat16)
+    info = stem_native_cuda.bwd_kernel_info(ye)
+    assert info["registers"] <= 128 and info["local_bytes"] == 0
+    assert info["ctas_per_sm"] >= 2 and info["threads"] == stem_native_cuda.BWD_THREADS
+    assert info["images_per_cta"] == 16 and info["cs"] == 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_native_bwd_plan_is_what_the_kernel_addresses(card, dtype):
+    """The plan owns the backward kernel's row groups and shared bytes; the
+    source checks them against the layout the kernel addresses: at every
+    edge shape it takes the plan's bytes and refuses 16 fewer, and refuses
+    more row groups than its threads hold."""
+    lib, info = stem_native_cuda._library(), (ctypes.c_int * 5)()
+    code = 1 if dtype == torch.bfloat16 else 0
+    for b, h2, wp, _, c, _ in NATIVE_EDGES.values():
+        plan = stem_native_cuda.bwd_plan(b, h2, wp, c, dtype)
+        args = (h2, wp, plan.cs, plan.row_groups)
+        assert lib.native_bwd_kernel_info(*args, plan.smem_bytes, code, info) == 0
+        assert info[2] >= plan.smem_bytes
+        assert lib.native_bwd_kernel_info(*args, plan.smem_bytes - 16, code, info) != 0
+        assert lib.native_bwd_kernel_info(h2, wp, plan.cs, 2 * plan.row_groups,
+                                          1 << 20, code, info) != 0
 
 
 @pytest.mark.cuda
@@ -523,6 +580,18 @@ def test_native_stem_wrappers_reject_what_the_kernels_do_not_take(card):
         stem_native_cuda.fwd(ye, yo, se.double(), oe, 5)
     with pytest.raises(ValueError, match="g must be"):
         stem_native_cuda.bwd(ye, yo, g[:, :1], se, oe, 5)
+
+    def unaligned(t):  # contiguous, one element off a 16-byte boundary
+        return torch.empty(t.numel() + 8, device=card, dtype=t.dtype)[1:t.numel() + 1].view(t.shape)
+
+    with pytest.raises(ValueError, match="aligned"):
+        stem_native_cuda.bwd(ye, yo, unaligned(g), se, oe, 5)
+    with pytest.raises(ValueError, match="aligned"):
+        stem_native_cuda.bwd(unaligned(ye), yo, g, se, oe, 5)
+    tall = torch.zeros((1, 400, 384), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"needs H2 <= \d+"):
+        stem_native_cuda.bwd(tall, tall.clone(), torch.zeros((1, 400, 3, 64), device=card,
+                                                              dtype=torch.bfloat16), se, oe, 5)
 
 
 @pytest.mark.cuda

@@ -224,6 +224,208 @@ def test_cpu_tensors_take_the_plain_version():
         stem_native.stats(tye.to("meta"), tyo.to("meta"))
 
 
+# ------------------------------------------- the backward kernel's tiling walk
+
+
+def _bwd_walk_case(b, h2, wp, wreal, c, dtype, seed, mixed_sign=False, nan=False):
+    """Parity planes on a quarter grid (tie-rich windows in either dtype)
+    with pad columns of 7.7, a pooled gradient and BN affine terms; ``nan``
+    puts one NaN in a real column of yo."""
+    rng = np.random.default_rng(seed)
+    planes = np.round(rng.standard_normal((2, b, h2, wp, c)) * 4) / 4
+    planes[:, :, :, wreal:] = 7.7
+    if nan:
+        planes[1, b // 2, h2 // 2, wreal // 2, c // 3] = np.nan
+    lo = -1.5 if mixed_sign else 0.5
+    se = rng.uniform(lo, 1.5, c).astype(np.float32)
+    oe = (rng.standard_normal(c) * 0.1).astype(np.float32)
+    g = rng.standard_normal((b, h2, stem_native.pool_out_width(wreal), c))
+    ye, yo = (torch.from_numpy(p.reshape(b, h2, wp * c)).to(dtype) for p in planes)
+    return ye, yo, torch.from_numpy(g).to(dtype), torch.from_numpy(se), torch.from_numpy(oe)
+
+
+def _walk_native_bwd(ye, yo, g, se, oe, wreal, fault=None):
+    """``csrc/stem_native.cu`` native_bwd_kernel walked CTA by CTA over its
+    plan (``stem_native_cuda.bwd_plan``) in fp32 on the CPU, vectorised over
+    a CTA's channel slice: each CTA walks its run of images in order; an
+    image's real columns are staged (the other slots stay NaN, so a read of
+    one shows), each window's first-max tap is found once by the kernel's
+    scan (a tap only where z exceeds all before it, from 0 at the first
+    real tap; a NaN window none), and each gather thread's quads (rows rg,
+    rg + RG, ..., column pair q) add their windows (i+1, q+1), (i+1, q),
+    (i, q+1), (i, q), mask, and write dye, dyo and the lane sums.
+    ``fault`` plants a bug the walk must not hide: "order" gathers in the
+    reverse window order, "slice" and "image" stage y from the next channel
+    slice or image, "pad" reads the pad column as a real one.  Returns
+    (dye, dyo, float64 partial table [parts, 2, Wp*C])."""
+    b, h2, lanes = ye.shape
+    c = se.shape[0]
+    wp, wout = lanes // c, stem_native.pool_out_width(wreal)
+    plan = stem_native_cuda.bwd_plan(b, h2, wp, c, ye.dtype)
+    assert plan.smem_bytes <= stem_native_cuda.BWD_SMEM_BUDGET
+    assert plan.parts <= stem_native_cuda.BWD_CTAS
+    cs, ipc = plan.cs, plan.images_per_cta
+    nv = cs * ye.element_size() // 16
+    assert nv in (1, 2, 4, 8) and c % cs == 0 and stem_native_cuda.BWD_THREADS % nv == 0
+    wq = (wp + 1) // 2
+    rg_n = plan.row_groups
+    assert rg_n * wq * nv <= stem_native_cuda.BWD_THREADS
+    real = wp if fault == "pad" else wreal
+    planes = [p.reshape(b, h2, wp, c) for p in (ye, yo)]
+    g4 = g.reshape(b, h2, wout, c)
+    dy = [torch.zeros_like(planes[0]) for _ in range(2)]
+    written = torch.zeros((2, b, h2, wp, c), dtype=torch.int64)
+    walked = torch.zeros((b, plan.n_slices), dtype=torch.int64)
+    partial = torch.zeros((plan.parts, 2, wp, c), dtype=torch.float64)
+    part_written = torch.zeros((plan.parts, 2, wp, c), dtype=torch.int64)
+    order = [(1, 1), (1, 0), (0, 1), (0, 0)]
+    if fault == "order":
+        order = order[::-1]
+    zero = torch.zeros(())
+    for cta in range(plan.grid):
+        sl, grp = cta % plan.n_slices, cta // plan.n_slices
+        ch = slice(sl * cs, (sl + 1) * cs)
+        s, o = se[ch], oe[ch]
+        ych = ch
+        if fault == "slice":
+            nxt = (sl + 1) % plan.n_slices
+            ych = slice(nxt * cs, (nxt + 1) * cs)
+        sums = torch.zeros((2, wp, cs), dtype=torch.float64)
+        for bi in range(grp * ipc, min(b, (grp + 1) * ipc)):  # the ring, in order
+            walked[bi, sl] += 1
+            # 1. stage: ys [2 planes, H2, Wp, cs], real columns only
+            src = (bi + 1) % b if fault == "image" else bi
+            ys = torch.full((2, h2, wp, cs), float("nan"))
+            for p in range(2):
+                ys[p, :, :real] = planes[p][src, :, :real, ych].float()
+            gs = g4[bi, :, :, ch].float()
+            # 2. each window's first-max tap, vectorised over (i, j)
+            yp = torch.full((2, h2 + 1, wp + 2, cs), float("nan"))  # row -1, cols -1 and Wp
+            yp[:, 1:, 1:wp + 1] = ys
+            i_ = torch.arange(h2)[:, None, None]
+            j_ = torch.arange(wout)[None, :, None]
+            first = (torch.where(i_ > 0, 0, 3) + torch.where(j_ > 0, 0, 1)).expand(h2, wout, cs)
+            m = torch.zeros((h2, wout, cs))
+            for a in range(3):
+                p, dh = (0, 0) if a == 1 else (1, -1 if a == 0 else 0)
+                for bb in range(3):
+                    inside = ((a > 0) | (i_ > 0)) & ((bb != 0) | (j_ > 0)) & (
+                        (bb != 2) | (2 * j_ + 1 < real))
+                    y = yp[p, 1 + dh:1 + dh + h2, bb:bb + 2 * wout - 1:2]
+                    z = torch.where(inside, y * s + o, torch.full((), -1.0))
+                    first = torch.where(z > m, a * 3 + bb, first)
+                    m = torch.maximum(m, z)
+            taps = torch.where(torch.isnan(m), 9, first)
+            # 3. the gather threads' quads
+            for rg in range(rg_n):
+                for q in range(wq):
+                    for i in range(rg, h2, rg_n):
+                        tw, gw = {}, {}
+                        for di in range(2):
+                            for dj in range(2):
+                                inw = (di == 0 or i + 1 < h2) and q + dj < wout
+                                tw[di, dj] = taps[i + di, q + dj] if inw else torch.full((cs,), 9)
+                                gw[di, dj] = gs[i + di, q + dj] if inw else torch.zeros(cs)
+                        for sr in range(2):
+                            for sc in range(2):
+                                w = 2 * q + sc
+                                if w >= wp:
+                                    continue
+                                acc = torch.zeros(cs)
+                                for di, dj in order:
+                                    a, bb = sr + 1 - 2 * di, sc + 1 - 2 * dj
+                                    if a >= 0 and bb >= 0:
+                                        acc = torch.where(tw[di, dj] == a * 3 + bb,
+                                                          acc + gw[di, dj], acc)
+                                yk = ys[sr, i, w] if w < real else torch.zeros(cs)
+                                dz = torch.where((w < real) & (yk * s + o > 0), acc, zero)
+                                dy[sr][bi, i, w, ch] = (dz * s).to(ye.dtype)
+                                written[sr, bi, i, w, ch] += 1
+                                sums[0, w] += dz.double()
+                                sums[1, w] += dz.double() * yk.double()
+        # 4. this CTA's row of the partial table, at its slice
+        partial[grp, :, :, ch] = sums
+        part_written[grp, :, :, ch] += 1
+    assert torch.all(walked == 1), "every image is walked once at every slice"
+    assert torch.all(written == 1), "every source is written by exactly one thread"
+    assert torch.all(part_written == 1), "every partial cell is written once"
+    return dy[0].reshape(ye.shape), dy[1].reshape(yo.shape), partial.reshape(plan.parts, 2, -1)
+
+
+NATIVE_BWD_WALKS = {  # name: (B, H2, Wp, Wreal, C, dtype, CTAs, mixed-sign se, NaN)
+    "model_bf16": (5, 24, 6, 5, 64, torch.bfloat16, 2, False, False),  # runs of 3 and 2
+    "model_fp32": (5, 24, 6, 5, 64, torch.float32, 4, True, False),  # two 32-channel slices
+    "b1": (1, 24, 6, 5, 64, torch.bfloat16, 264, False, False),
+    "h2_1": (3, 1, 6, 5, 16, torch.bfloat16, 2, True, False),
+    "w_pad0_bf16": (4, 24, 5, 5, 64, torch.bfloat16, 3, False, False),
+    "w_pad0_fp32": (3, 7, 5, 5, 16, torch.float32, 264, True, False),
+    "c8_bf16": (3, 24, 6, 5, 8, torch.bfloat16, 2, True, False),
+    "c8_fp32": (2, 9, 6, 5, 8, torch.float32, 264, False, False),
+    "c128": (3, 12, 6, 5, 128, torch.bfloat16, 4, True, False),
+    "narrow_odd": (2, 5, 4, 3, 24, torch.bfloat16, 264, False, False),  # Wout 2, a pad pair
+    "nan": (3, 24, 6, 5, 64, torch.bfloat16, 2, False, True),
+    "nan_fp32": (2, 24, 6, 5, 16, torch.float32, 264, True, True),
+}
+
+
+@pytest.mark.parametrize("name", list(NATIVE_BWD_WALKS))
+def test_native_bwd_walk_matches_plain(name, monkeypatch):
+    """The backward kernel's tiling, walked on the CPU, against bwd_plain:
+    dye and dyo equal (torch.equal: the same fp32 ops in the same order,
+    one rounding), the partial table's float64 column sums against the
+    plain version's fp32 sums (rtol 1e-5, the card test's; a NaN lane in
+    both)."""
+    b, h2, wp, wreal, c, dtype, ctas, mixed, nan = NATIVE_BWD_WALKS[name]
+    monkeypatch.setattr(stem_native_cuda, "BWD_CTAS", ctas)  # runs of images at B <= 8
+    ye, yo, g, se, oe = _bwd_walk_case(b, h2, wp, wreal, c, dtype, seed=h2 + c + b,
+                                       mixed_sign=mixed, nan=nan)
+    dye, dyo, partial = _walk_native_bwd(ye, yo, g, se, oe, wreal)
+    want_dye, want_dyo, want_sdz, want_sdzy = stem_native.bwd_plain(ye, yo, g, se, oe, wreal)
+    assert torch.equal(dye, want_dye) and torch.equal(dyo, want_dyo)
+    sums = partial.sum(0)
+    torch.testing.assert_close(sums[0], want_sdz.double(), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(sums[1], want_sdzy.double(), rtol=1e-5, atol=1e-4,
+                               equal_nan=nan)
+    assert torch.isnan(sums[1]).any() == nan
+
+
+@pytest.mark.parametrize("fault", ["order", "slice", "image", "pad"])
+def test_native_bwd_walk_catches_planted_faults(fault, monkeypatch):
+    """The walk's comparison sees a gather in the wrong window order (fp32
+    adds do not associate where three or four windows route to one source),
+    y staged from the wrong channel slice or image, and the pad column (7.7)
+    read as a real one."""
+    ye, yo, g, se, oe = _bwd_walk_case(4, 24, 6, 5, 64, torch.float32, seed=3)
+    want_dye, want_dyo, _, _ = stem_native.bwd_plain(ye, yo, g, se, oe, 5)
+    monkeypatch.setattr(stem_native_cuda, "BWD_CTAS", 3)
+    assert stem_native_cuda.bwd_plan(4, 24, 6, 64, torch.float32).n_slices == 2
+    dye, dyo, _ = _walk_native_bwd(ye, yo, g, se, oe, 5, fault=fault)
+    assert not (torch.equal(dye, want_dye) and torch.equal(dyo, want_dyo))
+
+
+def test_native_bwd_plan_fits_two_ctas_an_sm_and_names_its_limit():
+    """The model shape's plan (all 64 bf16 channels a CTA, 16 images a CTA
+    on 256 CTAs, 96,768 shared bytes: two CTAs an SM), fp32's two slices,
+    the narrower slices of tall maps and the named limit."""
+    plan = stem_native_cuda.bwd_plan(4096, 24, 6, 64, torch.bfloat16)
+    assert (plan.cs, plan.n_slices, plan.images_per_cta, plan.parts, plan.grid) == (
+        64, 1, 16, 256, 256)
+    assert plan.smem_bytes == 96768 and plan.row_groups == 8
+    assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+    assert stem_native_cuda.bwd_plan(4096, 24, 5, 64, torch.bfloat16).smem_bytes == 84480
+    fp32 = stem_native_cuda.bwd_plan(4096, 24, 6, 64, torch.float32)
+    assert (fp32.cs, fp32.n_slices, fp32.grid) == (32, 2, 256)
+    assert stem_native_cuda.bwd_plan(37, 24, 6, 64, torch.bfloat16).parts == 37
+    ragged = stem_native_cuda.bwd_plan(529, 24, 6, 64, torch.bfloat16)
+    assert ragged.images_per_cta == 3 and ragged.parts == 177  # the last CTA takes one
+    tall = stem_native_cuda.bwd_plan(2, 100, 6, 64, torch.bfloat16)
+    assert tall.cs < 64 and tall.smem_bytes <= stem_native_cuda.BWD_SMEM_BUDGET
+    with pytest.raises(ValueError, match=r"needs H2 <= \d+"):
+        stem_native_cuda.bwd_plan(1, 400, 6, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 8"):
+        stem_native_cuda.bwd_plan(1, 24, 6, 12, torch.bfloat16)
+
+
 # ------------------------------------------------- model: native-best fused
 
 
