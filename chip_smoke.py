@@ -14,12 +14,17 @@
    and of the stem tails' kernels (csrc/stem.cu, csrc/stem_native.cu).
 2. Kernel against plain version (TF32 off): the fused CQT kernel at every
    precision tier on the training recipe (B=4096), the 3 s serving recipe,
-   a reflect-padded recipe and a hop-1000 recipe, each against its plain
-   PyTorch version on the same inputs, two runs identical, the ``default``
-   tier on the tensor-core kernel (its launch counted, its occupancy
-   printed), with the bound and the frame-GEMM yardstick of the reflect and
-   hop-1000 recipes (the shapes of TPU kernels B3 and B4), plus the kernel
-   at highest against the repo's NumPy golden fixture.
+   a reflect-padded recipe, a hop-1000 recipe and a hop-333 one, each
+   against its plain PyTorch version on the same inputs, two runs
+   identical, each launch on the kernel ``cqt_cuda.cqt_route`` names for
+   the tier, hop and batch (the counters by tier), each tier's
+   tensor-core occupancy printed, with the bound and the frame-GEMM
+   yardstick of the reflect and hop-1000 recipes (the shapes of TPU
+   kernels B3 and B4) at every tier, plus the kernel at highest against
+   the repo's NumPy golden fixture, its error there at most
+   HIGHEST_F64_FACTOR times the fp32 plain version's.  The route sweep:
+   at highest and bf16x3, both kernels timed at the batches either side
+   of the route's limit, beside the kernel the route picks.
 3. The ``native-best`` serving path: a seeded random-init ``Transcriber``
    (batch 2048) transcribes synthetic tracks and one 4096-window batch;
    the kernel's launch count must rise, every launch on the tensor-core
@@ -38,7 +43,8 @@
    each stem counter and the CQT counter rise by exactly one per step, the
    loss stays finite, and one step with the kernels agrees with one step
    with the plain versions from the same state.  (d) A ``torch.profiler``
-   table of the step's top 15 device ops.
+   table of the step's top 15 device ops, and the stem's and the CQT's
+   device time a step and share of it.
 7. (c) Native training: ``resnet18_native``, ``native-best`` CQT tier,
    B=4096, 20 steps.
 8. (a) The attention kernels against the plain version on strided q, k, v
@@ -97,9 +103,10 @@
    its launches counted.
 
 Then one JSON line of the fourteen kernels' measurements (``cqt_fused`` and
-``cqt_frame_gemm`` with their other tiers' beside), and the status
-line last.
-Any failed check raises, which exits non-zero.  Needs one CUDA card.
+``cqt_frame_gemm`` with their other tiers' beside: B1's ``bf16x3`` at the
+flagship shape, B=256, ``highest`` on the tensor cores at the kernel
+phase's B=4096, and ``default`` at the serving shape), and the status line
+last.  Any failed check raises, which exits non-zero.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -173,9 +180,10 @@ FRET_AGREEMENT_MIN = 0.99
 #   summation order over up to 23,552 filter rows: per window, max|err| <=
 #   1e-4 max|ref|.
 FRAME_GEMM_REL_TOL = 1e-4
-# - B9 at highest against a float64 contraction of the same inputs: the
-#   tier must be as accurate as fp32, so its per-window max error may be at
-#   most this many times that of the fp32 plain version (TF32 off).
+# - B9 at highest against a float64 contraction of the same inputs, and B1
+#   at highest against the float64 golden fixture (off-gate cells): the
+#   tier must be as accurate as fp32, so its max error may be at most this
+#   many times that of the fp32 plain version (TF32 off).
 HIGHEST_F64_FACTOR = 4.0
 # - bf16 outputs of the GEMM kernels (B8, B10) against their plain
 #   versions: both round once from fp32 sums of the same exact products in
@@ -280,6 +288,80 @@ def compare_db(got, want, gate: float, threshold: float) -> dict:
             "max_err_db": err, "cells": got.numel()}
 
 
+def _cqt_counts(cqt_cuda) -> dict:
+    """The fused CQT's counters: its launches, those on the tensor cores,
+    and those by tier."""
+    out = {"cqt_fused": cqt_cuda.launches, "cqt_fused_mma": cqt_cuda.mma_launches}
+    for tier, n in cqt_cuda.mma_launches_by_tier.items():
+        out[f"cqt_fused_mma_{tier}"] = n
+    return out
+
+
+def _cqt_launches_since(cqt_cuda, before: dict) -> dict:
+    return {k: v - before[k] for k, v in _cqt_counts(cqt_cuda).items() if v != before[k]}
+
+
+def _cqt_expect(route: str, precision: str, n: int = 1) -> dict:
+    """The counters a run of n calls at a tier on ``route`` (what
+    cqt_cuda.cqt_route picks for them) must add: every call a launch, and
+    on the tensor cores where the route says so."""
+    if route != "mma":
+        return {"cqt_fused": n}
+    return {"cqt_fused": n, "cqt_fused_mma": n, f"cqt_fused_mma_{precision}": n}
+
+
+def _route(frontend, batch: int) -> str:
+    """The kernel cqt_cuda.cqt_route picks for ``batch`` windows."""
+    import torch
+
+    return frontend.route(batch, frontend.cfg.window_samples,
+                          torch.device("cuda", torch.cuda.current_device()))
+
+
+# the route sweep's shapes: at highest, batches either side of the route's
+# limit (the tensor-core grid's fill of its waves, cqt_cuda.MMA_MIN_FILL);
+# at bf16x3, the smallest and the largest (and the flagship's B=256)
+ROUTE_SWEEP = {
+    "train": ({"highest": (64, 256, 384, 512, 768, 1024, 4096),
+               "bf16x3": (64, 256, 4096)}, {}),
+    "serving_cnn_3s": ({"highest": (16, 32, 64, 256), "bf16x3": (16, 256)}, None),
+    "reflect": ({"highest": (64, 512), "bf16x3": (64, 512)}, {"pad_mode": "reflect"}),
+    "hop1000": ({"highest": (64, 128, 256, 512), "bf16x3": (64, 512)},
+                {"hop_length": 1000, "window_seconds": 0.25, "hop_seconds": 0.125}),
+}
+
+
+def cqt_route_sweep(torch, cqt_cuda, CQTConfig, CQTFrontend) -> list:
+    """Both CQT kernels timed (``_sync_ms``) at the split tiers over the
+    ROUTE_SWEEP shapes, beside the one cqt_cuda.cqt_route picks: the
+    evidence for the route, not a check (times move between runs)."""
+    rows = []
+    for name, (tiers, change) in ROUTE_SWEEP.items():
+        base = CQTConfig.serving_cnn() if change is None else dataclasses.replace(
+            CQTConfig(), **change)
+        for prec, batches in tiers.items():
+            fe = CQTFrontend(dataclasses.replace(base, precision=prec))
+            plan = fe.kernel_plan(base.window_samples, torch.device("cuda", 0), "mma")
+            for batch in batches:
+                x = tone_windows(batch, base.window_samples, base.sample_rate, seed=3)
+                ms = {r: _sync_ms(lambda: cqt_cuda.cqt_fused(x, fe, route=r), 10)
+                      for r in ("mma", "simt")}
+                ctas = plan.n_ctas(batch)
+                route = _route(fe, batch)
+                rows.append({
+                    "recipe": name, "tier": prec, "batch": batch, "route": route,
+                    "mma_ms": ms["mma"], "simt_ms": ms["simt"], "mma_ctas": ctas,
+                    "mma_fill": ctas / (cqt_cuda.SMS * -(-ctas // cqt_cuda.SMS)),
+                    "mma_windows_per_cta": plan.shape.windows,
+                    "route_is_faster": ms[route] <= min(ms.values()),
+                })
+                print("cqt route sweep: " + json.dumps(rows[-1]), flush=True)
+                del x
+    print(f"cqt route sweep: the route took the faster kernel at "
+          f"{sum(r['route_is_faster'] for r in rows)} of {len(rows)} shapes", flush=True)
+    return rows
+
+
 def kernel_phase(torch, cqt_cuda, CQTConfig, CQTFrontend) -> dict:
     recipes = {
         "train": (CQTConfig(), 4096),
@@ -288,56 +370,69 @@ def kernel_phase(torch, cqt_cuda, CQTConfig, CQTFrontend) -> dict:
         "hop1000": (dataclasses.replace(
             CQTConfig(), hop_length=1000, window_seconds=0.25,
             hop_seconds=0.125), 512),
+        # off the 8-sample hop grid: highest and bf16x3 on the SIMT kernel
+        "hop333": (dataclasses.replace(CQTConfig(), hop_length=333), 256),
     }
     results = {}
+    occupancy = {}
     for name, (base, batch) in recipes.items():
         x = tone_windows(batch, base.window_samples, base.sample_rate, seed=1)
         for prec in ("highest", "bf16x3", "default"):
             fe = CQTFrontend(dataclasses.replace(base, precision=prec))
-            cqt_cuda.launches = cqt_cuda.mma_launches = 0
+            route = _route(fe, batch)
+            before = _cqt_counts(cqt_cuda)
             got = fe(x)
             torch.cuda.synchronize()
-            launches, mma_launches = cqt_cuda.launches, cqt_cuda.mma_launches
+            launches = _cqt_launches_since(cqt_cuda, before)
             want = fe.plain(x)
             again = fe(x)
             torch.cuda.synchronize()
             r = compare_db(got, want, base.gate_floor_db, base.gate_threshold_db)
             r.update(
-                batch=batch, launches=launches, tensor_core_launches=mma_launches,
+                batch=batch, route=route, launches=launches,
                 deterministic=bool(torch.equal(again, got)),
                 kernel_ms=_sync_ms(lambda: fe(x), 5),
                 plain_ms=_sync_ms(lambda: fe.plain(x), 3),
             )
-            if prec == "default":
-                r["occupancy"] = cqt_cuda.mma_kernel_info(fe.kernel_plan(x.shape[1], x.device))
+            if cqt_cuda.mma_takes(prec, base.hop_length):
+                r["occupancy"] = cqt_cuda.mma_kernel_info(
+                    fe.kernel_plan(x.shape[1], x.device, "mma"))
+                occupancy.setdefault(prec, r["occupancy"])
             print(f"cqt {name} {prec} B={batch}: " + json.dumps(r), flush=True)
-            if (r["bad_flips"] or r["max_err_db"] > DB_TOL or launches != 1
-                    or mma_launches != (prec == "default") or not r["deterministic"]):
+            if (r["bad_flips"] or r["max_err_db"] > DB_TOL or not r["deterministic"]
+                    or launches != _cqt_expect(route, prec)):
                 raise AssertionError(f"CQT kernel disagrees on {name}/{prec}: {r}")
             results[(name, prec)] = r
             del got, want
         del x
         torch.cuda.empty_cache()
+    # each tier's tensor-core kernel as the card runs it (training recipe)
+    print("cqt_mma_kernel on the card, by tier: " + json.dumps(occupancy), flush=True)
 
     # bound and library yardstick of the recipes that B3 (reflect) and B4
-    # (hop 1000) serve, at the two tiers with a single product per term
+    # (hop 1000) serve, at every tier
     for name in ("reflect", "hop1000"):
         base, batch = recipes[name]
-        for prec in ("highest", "default"):
+        for prec in ("highest", "bf16x3", "default"):
             cqt_kernel_row(torch, cqt_cuda,
                            CQTFrontend(dataclasses.replace(base, precision=prec)),
                            batch, name)
 
-    # the kernel at highest against the float64 NumPy golden fixture
+    # the kernel at highest against the float64 NumPy golden fixture, and
+    # as accurate as the fp32 plain version (TF32 off) against it
     root = os.path.dirname(os.path.abspath(__file__))
     golden = np.load(os.path.join(root, "tests", "data", "cqt_golden.npz"))
     fe = CQTFrontend(CQTConfig())
-    got = fe(torch.from_numpy(golden["input"]).cuda()).cpu().numpy()
+    audio = torch.from_numpy(golden["input"]).cuda()
+    got = fe(audio).cpu().numpy()
+    plain = fe.plain(audio).cpu().numpy()
     want = golden["output"]
     off_gate = np.abs(want + 60.0) >= 0.5
     gerr = float(np.abs(got - want)[off_gate].max())
-    print(f"cqt golden fixture: max_err_db={gerr} (tol {GOLDEN_TOL})", flush=True)
-    if gerr > GOLDEN_TOL:
+    perr = float(np.abs(plain - want)[off_gate].max())
+    print(f"cqt golden fixture: max_err_db={gerr} (tol {GOLDEN_TOL}); the fp32 plain "
+          f"version's {perr} (the kernel's at most {HIGHEST_F64_FACTOR}x it)", flush=True)
+    if gerr > GOLDEN_TOL or gerr > HIGHEST_F64_FACTOR * perr:
         raise AssertionError("CQT kernel disagrees with the golden fixture")
     return results
 
@@ -348,16 +443,16 @@ def cqt_kernel_row(torch, cqt_cuda, frontend, batch: int, label: str) -> dict:
     cfg = frontend.cfg
     fb = frontend.filterbank
     x = tone_windows(batch, cfg.window_samples, cfg.sample_rate, seed=2)
-    before = cqt_cuda.mma_launches
+    before = _cqt_counts(cqt_cuda)
     got, want = frontend(x), frontend.plain(x)
-    mma_launches = cqt_cuda.mma_launches - before
+    launches = _cqt_launches_since(cqt_cuda, before)
+    route = _route(frontend, batch)
     r = compare_db(got, want, cfg.gate_floor_db, cfg.gate_threshold_db)
     kernel_ms = _sync_ms(lambda: frontend(x), 10)
     plain_ms = _sync_ms(lambda: frontend.plain(x), 5)
     # yardstick: one torch.matmul of the prebuilt frame stack with the
     # filterbank (the frame GEMM alone, without the epilogue): bf16 operands
-    # at the default tier, fp32 (TF32 off) at highest
-    assert cfg.precision in ("default", "highest"), cfg.precision
+    # at the default tier, fp32 (TF32 off) at highest and bf16x3
     dt = torch.bfloat16 if cfg.precision == "default" else torch.float32
     kw = fb.kernel_width
     padded = torch.nn.functional.pad(x, (kw // 2, kw // 2))
@@ -366,12 +461,17 @@ def cqt_kernel_row(torch, cqt_cuda, frontend, batch: int, label: str) -> dict:
     kern = frontend.kernels_on(x.device).to(dt)
     library_ms = _sync_ms(lambda: torch.matmul(frames, kern), 10)
     del frames, padded
-    # the bound: the products at the peak of the operands' type (bf16 at
-    # default, fp32 at highest) and each filter value the window needs in
-    # that type; the audio is read as given (fp32) and the dB written as fp32
-    peak, width = (("bf16", 2) if cfg.precision == "default" else ("fp32", 4))
+    # the bound: the products at the peak of the operands' type and each
+    # filter value the window needs in that type (bf16 at default, fp32
+    # else); the audio is read as given (fp32) and the dB written as fp32.
+    # default: one bf16 tensor-core pass; bf16x3: three; highest: the least
+    # time of fp32-accurate work, the FP32 pipes or six bf16 passes
     macs = cqt_cuda.needed_macs(fb, cfg, cfg.window_samples) * batch
-    ops_s = 2 * macs / PEAK_FLOPS[peak]
+    ops, peak = {"highest": min((2 * macs, "fp32"), (12 * macs, "bf16"),
+                                key=lambda op: op[0] / PEAK_FLOPS[op[1]]),
+                 "bf16x3": (6 * macs, "bf16"), "default": (2 * macs, "bf16")}[cfg.precision]
+    width = 2 if cfg.precision == "default" else 4
+    ops_s = ops / PEAK_FLOPS[peak]
     filt_values = cqt_cuda.needed_filter_values(fb, cfg, cfg.window_samples)
     nbytes = (4 * x.numel() + width * filt_values
               + 4 * batch * cfg.n_bins * cfg.n_frames)
@@ -381,14 +481,16 @@ def cqt_kernel_row(torch, cqt_cuda, frontend, batch: int, label: str) -> dict:
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": 1e3 * max(ops_s, bytes_s),
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-        "macs": macs, "bytes": nbytes, "tensor_core_launches": mma_launches,
+        "macs": macs, "ops": ops, "ops_peak": peak, "bytes": nbytes, "route": route,
+        "tensor_core_launches": launches.get("cqt_fused_mma", 0),
     }
-    if cfg.precision == "default":
-        row["occupancy"] = cqt_cuda.mma_kernel_info(frontend.kernel_plan(x.shape[1], x.device))
+    if route == "mma":
+        row["occupancy"] = cqt_cuda.mma_kernel_info(
+            frontend.kernel_plan(x.shape[1], x.device, "mma"))
     print(f"cqt row, {label} {cfg.precision} B={batch}: {json.dumps(row)}",
           flush=True)
     if (r["bad_flips"] or r["max_err_db"] > DB_TOL
-            or mma_launches != (cfg.precision == "default")):
+            or launches != _cqt_expect(route, cfg.precision)):
         raise AssertionError(f"CQT kernel disagrees at the main-path shape: {r}, {row}")
     return row
 
@@ -658,8 +760,7 @@ COUNTED = ("stem_cuda", "attention_cuda", "bn_cuda", "stem_native_cuda", "conv3x
 
 def _counts(mods) -> dict:
     cqt_cuda = mods["cqt_cuda"]
-    out = {"cqt_fused": cqt_cuda.launches, "cqt_fused_mma": cqt_cuda.mma_launches,
-           "cqt_frame_gemm": cqt_cuda.frame_gemm_launches}
+    out = {**_cqt_counts(cqt_cuda), "cqt_frame_gemm": cqt_cuda.frame_gemm_launches}
     for tier, n in cqt_cuda.frame_gemm_mma_launches.items():  # tensor-core launches by tier
         out[f"cqt_frame_gemm_mma_{tier}"] = n
     for name in COUNTED:
@@ -670,8 +771,9 @@ def _counts(mods) -> dict:
 def _reset_counts(mods) -> None:
     for name in ("launches", "mma_launches", "frame_gemm_launches"):
         setattr(mods["cqt_cuda"], name, 0)
-    for tier in mods["cqt_cuda"].frame_gemm_mma_launches:
-        mods["cqt_cuda"].frame_gemm_mma_launches[tier] = 0
+    for counts in (mods["cqt_cuda"].mma_launches_by_tier, mods["cqt_cuda"].frame_gemm_mma_launches):
+        for tier in counts:
+            counts[tier] = 0
     for name in COUNTED:
         counts = mods[name].launches
         for key in counts:
@@ -731,8 +833,9 @@ def compare_step(torch, mods, model_cfg, frontend, batch, *, optim_cfg, smoothin
     plain = one_step(True, plain_cqt)
     plain_launches = {k: v - before[k] - launches[k] for k, v in _counts(mods).items()}
     if not plain_cqt:  # the plain step's CQT ran as the kernel
-        for key in ("cqt_fused", "cqt_fused_mma"):
-            plain_launches[key] -= launches[key]
+        for key in plain_launches:
+            if key.startswith("cqt_fused"):
+                plain_launches[key] -= launches[key]
     cmp = {
         "loss": [kern[0], plain[0]], "grad_norm": [kern[1], plain[1]],
         **agreement(kern, plain),
@@ -1032,7 +1135,8 @@ def vit_serving_phase(torch, mods, batch: int = 128, n_batches: int = 8) -> dict
     }
     print("serving vit_s8: " + json.dumps(out), flush=True)
     want = {key: 0 for key in counts}
-    want.update(cqt_fused=n_batches, attn_fwd=12 * n_batches)
+    want.update(_cqt_expect(_route(t.frontend, batch), cfg.precision, n_batches),
+                attn_fwd=12 * n_batches)
     if counts != want:
         raise AssertionError(f"vit_s8 serving launches {counts}, expected {want}")
     if logits.shape != (len(windows), 6, 19) or not np.isfinite(logits).all():
@@ -1560,7 +1664,8 @@ def native_fused_serving_phase(torch, mods, batch: int = 2048, n_batches: int = 
            "logit_scale": float(np.abs(want_logits).max())}
     print("serving native-best, stem_fusion=fused bn_fusion=on: " + json.dumps(out), flush=True)
     want = {key: 0 for key in counts}
-    want.update(cqt_fused=n_batches, cqt_fused_mma=n_batches, native_fwd=n_batches)
+    want.update(_cqt_expect(_route(t.frontend, batch), t.cqt_cfg.precision, n_batches),
+                native_fwd=n_batches)
     if counts != want:
         raise AssertionError(f"fused native serving launches {counts}, expected {want}")
     # bf16 model tolerance of the repo (tests/test_torch_models.py): 5e-2 of
@@ -1946,10 +2051,11 @@ def cqt_mma_build_report(builds: dict) -> None:
         print(f"{source} build, -Xptxas -v:" + ("" if log else " (already built: no log)"))
         for entry, lines in ptxas_report(log).items():
             found = re.search(r"(cqt_mma|frame_gemm_mma|frame_gemm_ring|to_parts|conv3x3)_kernel"
-                              r"(ILb[01]E|ILi[123]E)?", entry)
-            if found:
-                label = (found.group(0).replace("ILb1E", "<ldmatrix>").replace("ILb0E", "<16-bit>")
-                         .replace("ILi1E", "<1>").replace("ILi2E", "<2>").replace("ILi3E", "<3>"))
+                              r"(I(?:Lb[01]E)?(?:Li[123]E)?)?", entry)
+            if found:  # template arguments: the load path, the bf16 pieces
+                args = re.findall(r"L([bi])(\d)E", found.group(2) or "")
+                names = [v if k == "i" else ("ldmatrix" if v == "1" else "16-bit") for k, v in args]
+                label = f"{found.group(1)}_kernel" + (f"<{', '.join(names)}>" if names else "")
                 print(f"  {label}: {lines}")
     sys.stdout.flush()
 
@@ -2020,6 +2126,7 @@ def main() -> int:
         return result
 
     timed("cqt_kernels", kernel_phase, torch, cqt_cuda, CQTConfig, CQTFrontend)
+    timed("cqt_route_sweep", cqt_route_sweep, torch, cqt_cuda, CQTConfig, CQTFrontend)
     serving = timed("serving", serving_phase, torch, cqt_cuda, RECIPES, mods["Transcriber"],
                     mods["frame_track"])
     serving_row = timed("cqt_serving_row", cqt_kernel_row, torch, cqt_cuda,
@@ -2028,25 +2135,38 @@ def main() -> int:
     timed("resnet18_cli", resnet18_phase, torch, cqt_cuda, mods["cli"])
 
     stem = timed("stem_kernels", stem_kernel_phase, torch, mods)
-    one_each = {"cqt_fused": 1, "stem_stats": 1, "stem_fwd": 1, "stem_bwd": 1}
+
+    def cqt_expect(cqt_cfg, batch):  # the CQT's counters a step of ``batch`` adds
+        return _cqt_expect(_route(CQTFrontend(cqt_cfg), batch), cqt_cfg.precision)
+
+    one_each = {**cqt_expect(CQTConfig(), 256), "stem_stats": 1, "stem_fwd": 1,
+                "stem_bwd": 1}
     flagship = timed(
         "flagship_train", train_phase, torch, mods, "flagship resnet18+fused",
         ModelConfig(arch="resnet18", stem_fusion="fused"), CQTConfig(), 256,
-        expect=one_each, profile={"stem": ("stem_", "reduce_partials")},
+        expect=one_each, profile={"stem": ("stem_", "reduce_partials"), "cqt": ("cqt_",)},
         compare=dict(plain_ctx=lambda model: plain_stem(mods["stem_tail"]),
                      bn=lambda model: model.resnet.bn1),
     )
     native_recipe = RECIPES["native-best"]()
     timed("native_train", train_phase, torch, mods, "native resnet18_native",
           native_recipe.model, native_recipe.cqt, 4096,
-          expect={"cqt_fused": 1, "cqt_fused_mma": 1})
-    # the CQT kernel at the flagship step's shape (training recipe, highest)
+          expect=cqt_expect(native_recipe.cqt, 4096))
+    # the CQT kernel at the flagship step's shape (training recipe, highest:
+    # the route's kernel), at bf16x3 there, and highest on the tensor cores
+    # at the kernel phase's B=4096; no model path runs the last two, so
+    # their launches on a path are 0
     cqt_row = timed("cqt_train_row", cqt_kernel_row, torch, cqt_cuda,
                     CQTFrontend(CQTConfig()), 256, "flagship train")
+    bf16x3_row = timed("cqt_train_row_bf16x3", cqt_kernel_row, torch, cqt_cuda,
+                       CQTFrontend(CQTConfig(precision="bf16x3")), 256, "flagship train")
+    highest_mma_row = timed("cqt_train_row_b4096", cqt_kernel_row, torch, cqt_cuda,
+                            CQTFrontend(CQTConfig()), 4096, "kernel phase train")
+    bf16x3_row["launches"] = highest_mma_row["launches"] = 0
 
     attn = timed("attention_kernels", attention_kernel_phase, torch, mods)
     vit_recipe = RECIPES["vit-reference"]()
-    vit_expect = {"cqt_fused": 1, "attn_fwd": vit_recipe.model.vit_layers,
+    vit_expect = {**cqt_expect(vit_recipe.cqt, vit_recipe.data.batch_size), "attn_fwd": vit_recipe.model.vit_layers,
                   "attn_bwd": vit_recipe.model.vit_layers}
     vit = timed(
         "vit_s8_train", train_phase, torch, mods, "vit_s8 (vit-reference)",
@@ -2058,8 +2178,9 @@ def main() -> int:
     timed("vit_s8_serving", vit_serving_phase, torch, mods)
     small = RECIPES["vit-small-data"]()
     timed("vit_small_data_train", train_phase, torch, mods, "vit_native (vit-small-data)",
-          small.model, small.cqt, small.data.batch_size, expect={"cqt_fused": 1},
-          optim_cfg=small.optim, smoothing=small.optim.label_smoothing, steps=5)
+          small.model, small.cqt, small.data.batch_size,
+          expect=cqt_expect(small.cqt, small.data.batch_size), optim_cfg=small.optim,
+          smoothing=small.optim.label_smoothing, steps=5)
 
     bn = timed("bn_kernels", bn_kernel_phase, torch, mods)
     native_stem = timed("native_stem_kernels", native_stem_kernel_phase, torch, mods)
@@ -2078,7 +2199,7 @@ def main() -> int:
     path_b = timed(
         "path_b_train", train_phase, torch, mods, "path B: native-best+fused+bn_fusion",
         native_fused, native_recipe.cqt, 4096,
-        expect={"cqt_fused": 1, "cqt_fused_mma": 1, "native_stats": 1, "native_fwd": 1,
+        expect={**cqt_expect(native_recipe.cqt, 4096), "native_stats": 1, "native_fwd": 1,
                 "native_bwd": 1, **trunk},
         trunk_bn=True, compare={**plain_all, "plain_cqt": False},
         profile={"column_sums": sums_kernels, "native_stem": ("native_", "reduce_parts"),
@@ -2119,11 +2240,14 @@ def main() -> int:
         "launches": run["launches"][name],
         **{k: rows[name][k] for k in fields},
     } for name, (src, tpu, rows, run) in kernel_sources.items()]
-    # the other tiers beside the highest tier's fields: B1's default tier at
-    # the native-best serving shape (launches: the serving phase's), B9's
-    # bf16x3 and default tiers at the training recipe (launches: its entry
-    # point's run)
-    tiers = {"cqt_fused": {"default": serving_row},
+    # the other tiers beside the highest tier's fields (B1 at the flagship
+    # shape: the kernel its route picks there, the SIMT one): B1's default
+    # tier at the native-best serving shape (launches: the serving phase's),
+    # its bf16x3 tier at the flagship shape and highest on the tensor cores
+    # at B=4096 (no model path runs either: launches 0), B9's bf16x3 and
+    # default tiers at the training recipe (launches: its entry point's run)
+    tiers = {"cqt_fused": {"default": serving_row, "bf16x3": bf16x3_row,
+                           "highest_mma": highest_mma_row},
              "cqt_frame_gemm": {"bf16x3": frame_gemm["bf16x3"], "default": frame_gemm["default"]}}
     for entry in kernels:
         for tier, row in tiers.get(entry["name"], {}).items():

@@ -26,16 +26,34 @@
 // operands against about 81 MB, so the card's bound (chip_smoke.py
 // bound_ms) is set by bytes: about 0.024 ms at 3.35 TB/s, above the 0.020
 // ms the bf16 tensor-core peak gives the operations.
+// At the flagship's B=256 and highest that is 2.5 GFLOP, six bf16 passes
+// of it 15 GFLOP: 0.015 ms at the bf16 tensor-core peak, against 0.037 ms
+// on the FP32 pipes.
 //
-// Two kernels.  highest and bf16x3 run cqt_coeff_kernel, whose products run
-// in fp32 on the FP32 pipes (FFMA; its ceiling is the 67 TFLOP/s FP32
-// rate), exact for bf16 operands:
-//   highest  fp32 operands;
-//   bf16x3   hi = bf16(a), lo = bf16(a - hi); hi*hi + hi*lo + lo*hi.
-// default rounds both operands to bf16 (nearest even) and runs
-// cqt_mma_kernel on the tensor cores (csrc/frame_mma.cuh; its design is
-// described at the kernel).  Both write s = |.|^p, then cqt_db_kernel
-// applies the dB epilogue.
+// Two kernels, routed by the tier, the hop and the batch
+// (ops/cqt_cuda.cqt_route):
+// * cqt_mma_kernel on the tensor cores (csrc/frame_mma.cuh; its design is
+//   described at the kernel) runs the default tier at any hop, bf16x3 at
+//   a hop that is a multiple of 8, and highest there where its grid fills
+//   the card's waves (one CTA holds an SM for a whole wave: at the
+//   flagship's B=256 its 86 CTAs leave 46 SMs idle and the SIMT kernel is
+//   faster).  It splits both operands into
+//   bf16 pieces (nearest even; each piece is the bf16 of what the pieces
+//   before it leave) and issues products of pieces on mma.sync:
+//     default  1 piece,  hi*hi (the operands rounded to bf16);
+//     bf16x3   2 pieces, hi*hi + hi*lo + lo*hi (the JAX package's split);
+//     highest  3 pieces, the six products down to 2^-16 of hi*hi (the TPU
+//              kernel's six-pass HIGHEST, cqt_pallas.py:45-53), as
+//              accurate as fp32: each chunk's products are summed from
+//              zero and added into a round-to-nearest fp32 total.
+//   Its bound at highest is six bf16 tensor-core passes, three at bf16x3
+//   (below the FP32 pipes' time for the same products).
+// * cqt_coeff_kernel on the FP32 pipes (FFMA; its ceiling is the 67
+//   TFLOP/s FP32 rate) runs the rest of highest and bf16x3, exact for
+//   bf16 operands:
+//     highest  fp32 operands;
+//     bf16x3   hi = bf16(a), lo = bf16(a - hi); hi*hi + hi*lo + lo*hi.
+// Both write s = |.|^p, then cqt_db_kernel applies the dB epilogue.
 //
 // Design of cqt_coeff_kernel (simple first; speed is later work).
 // * One CTA per (window, tile of kTileFrames = TT frames).  The padded audio the tile
@@ -251,17 +269,27 @@ __global__ void __launch_bounds__(256) cqt_db_kernel(
   }
 }
 
-// ------------------------------------------------- default: tensor cores
+// ------------------------------------------------------ the tensor cores
 
-constexpr int kMmaThreads = 512;  // 16 warps
-constexpr int kMmaWarps = kMmaThreads / 32;
 constexpr int kBandGroups = 4;    // bin groups a band (a unit's columns); ops/cqt_cuda.MMA_BAND_GROUPS
-constexpr int kUnitTiles = 4;     // m16 tiles a unit (a unit's rows: 64); ops/cqt_cuda.MMA_UNIT_ROWS
-constexpr int kUnitRows = 16 * kUnitTiles;
 constexpr int kPartCols = 8 * kBandGroups;  // (re, im) x 4 bins x groups
 constexpr int kMaxGroups = 64;    // ops/cqt_cuda.MMA_MAX_GROUPS
 constexpr int kMaxBands = kMaxGroups / kBandGroups;
 constexpr int kStageUnroll = 8;   // audio loads a thread keeps in flight
+
+// Threads a CTA at a tier's count of bf16 pieces (ops/cqt_cuda.mma_warps),
+// one CTA an SM: 16 warps at up to 128 registers for one piece; the split
+// tiers' units hold a round-to-nearest total beside the A and B fragments
+// of every piece, so 12 warps at up to 168 registers for two (bf16x3) and
+// 8 at up to 255 for three (highest, which spills at 12).
+__host__ __device__ constexpr int mma_threads(int parts) {
+  return parts == 1 ? 512 : parts == 2 ? 384 : 256;
+}
+// m16 tiles a unit (ops/cqt_cuda.mma_unit_rows): 4 (64 rows) at one piece,
+// 2 (32 rows) at two or three, whose fragments of every piece take the
+// registers and whose CTAs hold few rows (the staged pieces fill the
+// shared memory), so that more of the partial sums' rows are real.
+__host__ __device__ constexpr int unit_tiles(int parts) { return parts == 1 ? 4 : 2; }
 
 // Two bf16 values of a staged row at window-local indices d, d + 1 (zero
 // outside [0, L)), packed as an mma operand register: the 16-bit load path.
@@ -283,60 +311,93 @@ __device__ __forceinline__ int div_small(int a, int d, float inv_d) {
 // index at the walk's x; its element is rpos + x + skew floor(x / hop); a
 // padded row has roff far below 0 and reads zeros) and the walk over the
 // chunks (x = 16 (c - c_s) + koff - i0, q = floor(x / hop), rem = x - q hop).
+template <int kTiles>
 struct UnitRows {
-  int roff[kUnitTiles][2];
-  int rpos[kUnitTiles][2];
+  int roff[kTiles][2];
+  int rpos[kTiles][2];
 };
 struct Walk {
   int x, q, rem;
 };
 
+// Where a unit reads its operands: the staged audio (piece p of the value
+// at element e lies at e + p * pst; zero_off holds 8 zeros in every piece)
+// and the fragment-order filter (piece p's blocks from uint2 p * fpiece).
+struct Operands {
+  uint32_t sbase;
+  const unsigned short* sbuf;
+  int zero_off, L, hop, skew, pst;
+  const uint2* __restrict__ filt;
+  int fpiece;
+};
+
 // Chunks [s0, s1) of a unit on which exactly the band's first K groups are
-// live (their spans nest): NT m16 tiles x K groups of mma.sync a chunk, no
-// predicate; the B fragments of the chunk two ahead are loaded while the
-// current chunk's products run.
-template <bool kLdm, int NT, int K>
+// live (their spans nest): NT m16 tiles x K groups a chunk, no predicate;
+// the B fragments of the chunk two ahead are loaded while the current
+// chunk's products run.  One piece: mma.sync into acc.  kParts pieces: for
+// each (tile, group) the tier's products of pieces, smallest first, into a
+// zeroed sum, which is then added to acc, the unit's round-to-nearest fp32
+// total (the tensor cores' fp32 accumulation is not round-to-nearest over
+// a long chain, and highest must hold fp32's accuracy).
+template <bool kLdm, int kParts, int kTiles, int NT, int K>
 __device__ __forceinline__ void run_segment(
-    int s0, int s1, Walk& wk, const UnitRows& ur, uint32_t sbase,
-    const unsigned short* sbuf, int zero_off, int L, int hop, int skew,
-    const uint2* __restrict__ filt, const int (&gblk)[kBandGroups], int lane,
-    float (&acc)[kUnitTiles][kBandGroups][4]) {
+    int s0, int s1, Walk& wk, const UnitRows<kTiles>& ur, const Operands& op,
+    const int (&gblk)[kBandGroups], int lane, float (&acc)[kTiles][kBandGroups][4]) {
+  static_assert(kLdm || kParts == 1, "the 16-bit load path takes one piece");
   if (s0 >= s1) return;
-  auto load_b = [&](int c, uint2(&b)[K]) {
+  auto load_b = [&](int c, uint2(&b)[kParts][K]) {
 #pragma unroll
-    for (int gi = 0; gi < K; ++gi) b[gi] = __ldg(filt + (size_t)(gblk[gi] + c) * 32 + lane);
+    for (int p = 0; p < kParts; ++p)
+#pragma unroll
+      for (int gi = 0; gi < K; ++gi)
+        b[p][gi] = __ldg(op.filt + (size_t)p * op.fpiece + (size_t)(gblk[gi] + c) * 32 + lane);
   };
-  auto chunk = [&](const uint2(&b)[K]) {
-    uint32_t a[NT][4];
-    const int cterm = wk.x + skew * wk.q;
+  auto chunk = [&](const uint2(&b)[kParts][K]) {
+    uint32_t a[kParts][NT][4];
+    const int cterm = wk.x + op.skew * wk.q;
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
       if (kLdm) {
         const int d = ur.roff[i][0] + wk.x;
-        const int e = (unsigned)d < (unsigned)L ? ur.rpos[i][0] + cterm : zero_off;
-        frame_mma::ldmatrix_x4_at(a[i], sbase + 2u * (uint32_t)e);
+        const int e = (unsigned)d < (unsigned)op.L ? ur.rpos[i][0] + cterm : op.zero_off;
+#pragma unroll
+        for (int p = 0; p < kParts; ++p)
+          frame_mma::ldmatrix_x4_at(a[p][i], op.sbase + 2u * (uint32_t)(e + p * op.pst));
       } else {
-        const unsigned short* lo = sbuf + (ur.rpos[i][0] - ur.roff[i][0]);
-        const unsigned short* hi = sbuf + (ur.rpos[i][1] - ur.roff[i][1]);
+        const unsigned short* lo = op.sbuf + (ur.rpos[i][0] - ur.roff[i][0]);
+        const unsigned short* hi = op.sbuf + (ur.rpos[i][1] - ur.roff[i][1]);
         const int d_lo = ur.roff[i][0] + wk.x, d_hi = ur.roff[i][1] + wk.x;
-        a[i][0] = pair_at(lo, d_lo, L);
-        a[i][1] = pair_at(hi, d_hi, L);
-        a[i][2] = pair_at(lo, d_lo + 8, L);
-        a[i][3] = pair_at(hi, d_hi + 8, L);
+        a[0][i][0] = pair_at(lo, d_lo, op.L);
+        a[0][i][1] = pair_at(hi, d_hi, op.L);
+        a[0][i][2] = pair_at(lo, d_lo + 8, op.L);
+        a[0][i][3] = pair_at(hi, d_hi + 8, op.L);
       }
     }
 #pragma unroll
     for (int i = 0; i < NT; ++i)
 #pragma unroll
-      for (int gi = 0; gi < K; ++gi) frame_mma::mma_bf16(acc[i][gi], a[i], b[gi].x, b[gi].y);
+      for (int gi = 0; gi < K; ++gi) {
+        if constexpr (kParts == 1) {
+          frame_mma::mma_bf16(acc[i][gi], a[0][i], b[0][gi].x, b[0][gi].y);
+        } else {
+          float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int q = 0; q < frame_mma::n_products(kParts); ++q) {
+            const int pa = frame_mma::prod_a(kParts, q), pb = frame_mma::prod_b(kParts, q);
+            frame_mma::mma_bf16(sum, a[pa][i], b[pb][gi].x, b[pb][gi].y);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][gi][e] += sum[e];
+        }
+      }
     wk.x += 16;
     wk.rem += 16;
-    while (wk.rem >= hop) {
-      wk.rem -= hop;
+    while (wk.rem >= op.hop) {
+      wk.rem -= op.hop;
       ++wk.q;
     }
   };
-  uint2 b0[K], b1[K];
+  uint2 b0[kParts][K], b1[kParts][K];
   load_b(s0, b0);
   if (s0 + 1 < s1) load_b(s0 + 1, b1);
   for (int c = s0; c < s1; c += 2) {
@@ -351,34 +412,47 @@ __device__ __forceinline__ void run_segment(
 
 // A unit's piece [ca, cb) of a band: the seven segments of the nested spans
 // (1, 2, 3, 4, 3, 2, 1 live groups), each at its own count.
-template <bool kLdm, int NT>
+template <bool kLdm, int kParts, int kTiles, int NT>
 __device__ __forceinline__ void run_unit(
     int ca, int cb, const int (&glo)[kBandGroups], const int (&ghi)[kBandGroups], Walk& wk,
-    const UnitRows& ur, uint32_t sbase, const unsigned short* sbuf, int zero_off, int L,
-    int hop, int skew, const uint2* __restrict__ filt, const int (&gblk)[kBandGroups],
-    int lane, float (&acc)[kUnitTiles][kBandGroups][4]) {
+    const UnitRows<kTiles>& ur, const Operands& op, const int (&gblk)[kBandGroups], int lane,
+    float (&acc)[kTiles][kBandGroups][4]) {
   static_assert(kBandGroups == 4, "the segment table below is for four groups");
-  const int edge[8] = {glo[0], glo[1], glo[2], glo[3], ghi[3], ghi[2], ghi[1], ghi[0]};
-  const int live[7] = {1, 2, 3, 4, 3, 2, 1};
+  // The edges glo[0..3], ghi[3..0]: one piece keeps the table it was tuned
+  // with; the split tiers pick by selects (an indexed table lives in local
+  // memory, which their kernels otherwise do without).
+  const int table[8] = {glo[0], glo[1], glo[2], glo[3], ghi[3], ghi[2], ghi[1], ghi[0]};
+  const int live_table[7] = {1, 2, 3, 4, 3, 2, 1};  // live groups a segment
+  auto edge = [&](int e) {
+    if constexpr (kParts == 1) {
+      return table[e];
+    } else {
+      return e == 0 ? glo[0] : e == 1 ? glo[1] : e == 2 ? glo[2] : e == 3 ? glo[3]
+           : e == 4 ? ghi[3] : e == 5 ? ghi[2] : e == 6 ? ghi[1] : ghi[0];
+    }
+  };
+  auto live = [&](int seg) {
+    if constexpr (kParts == 1) {
+      return live_table[seg];
+    } else {
+      return seg < 4 ? seg + 1 : 7 - seg;
+    }
+  };
 #pragma unroll 1
   for (int s = 0; s < 7; ++s) {
-    const int s0 = max(edge[s], ca), s1 = min(edge[s + 1], cb);
-    switch (live[s]) {
+    const int s0 = max(edge(s), ca), s1 = min(edge(s + 1), cb);
+    switch (live(s)) {
       case 1:
-        run_segment<kLdm, NT, 1>(s0, s1, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
-                                 gblk, lane, acc);
+        run_segment<kLdm, kParts, kTiles, NT, 1>(s0, s1, wk, ur, op, gblk, lane, acc);
         break;
       case 2:
-        run_segment<kLdm, NT, 2>(s0, s1, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
-                                 gblk, lane, acc);
+        run_segment<kLdm, kParts, kTiles, NT, 2>(s0, s1, wk, ur, op, gblk, lane, acc);
         break;
       case 3:
-        run_segment<kLdm, NT, 3>(s0, s1, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
-                                 gblk, lane, acc);
+        run_segment<kLdm, kParts, kTiles, NT, 3>(s0, s1, wk, ur, op, gblk, lane, acc);
         break;
       default:
-        run_segment<kLdm, NT, 4>(s0, s1, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
-                                 gblk, lane, acc);
+        run_segment<kLdm, kParts, kTiles, NT, 4>(s0, s1, wk, ur, op, gblk, lane, acc);
     }
   }
 }
@@ -386,50 +460,62 @@ __device__ __forceinline__ void run_unit(
 // The CTA's rows are (window, frame) pairs: W windows of its window block
 // times TF frames of its frame tile, in m16 tiles.  It stages their audio
 // once, then its warps take units from one list over all bands (a band:
-// kBandGroups groups, nested spans): a unit is up to kUnitTiles m16 tiles
+// kBandGroups groups, nested spans): a unit is up to kTiles m16 tiles
 // over one of the band's pieces of its 16-row filter chunks (band b cut into
 // pieces[b], from the plan, so that the units' work is about even), for
 // every group of the band: each A fragment feeds the band's groups whose
 // span holds the chunk, each B fragment the unit's m16 tiles (up to 16
-// mma.sync per 4 ldmatrix and 4 B loads).  Each unit parks its partial sums
-// in shared memory; after one barrier every output sums its band's pieces
-// in order (no float sum depends on timing).
+// mma.sync per 4 ldmatrix and 4 B loads at one piece).  Each unit parks its
+// partial sums in shared memory; after one barrier every output sums its
+// band's pieces in order (no float sum depends on timing).
+//
+// kParts: the tier's bf16 pieces of both operands (1 default, 2 bf16x3, 3
+// highest).  Each staged sample and each filter value is split once into
+// its pieces (piece p is the bf16 of what the pieces before it leave, so
+// the pieces add up to the fp32 value); a chunk loads each piece's A and B
+// fragments once and issues the tier's products of pieces
+// (frame_mma::prod_a, prod_b) for each (tile, group).
 //
 // gmeta (int32) = [c_lo | c_hi | blk_off] (n_groups each) + [pieces]
 // (n_bands): group g's filter rows [16 c_lo, 16 c_hi) are packed blocks
-// blk_off .. blk_off + c_hi - c_lo of filt; block (g, c) holds K's rows
-// 16c .. 16c + 15 for the group's 4 bins (re, im interleaved: column 2j re,
-// 2j + 1 im of bin 4g + j) in the mma B-fragment order: lane l's uint2 =
-// {K[16c + 2(l%4) + {0,1}, l/4], K[16c + 2(l%4) + 8 + {0,1}, l/4]}.  A warp
-// loads the B fragments of the chunk two ahead while the tensor cores run
-// the current one's.
+// blk_off .. blk_off + c_hi - c_lo of each piece of filt (fpiece uint2 a
+// piece); block (g, c) holds K's rows 16c .. 16c + 15 for the group's 4
+// bins (re, im interleaved: column 2j re, 2j + 1 im of bin 4g + j) in the
+// mma B-fragment order: lane l's uint2 = {K[16c + 2(l%4) + {0,1}, l/4],
+// K[16c + 2(l%4) + 8 + {0,1}, l/4]}.  A warp loads the B fragments of the
+// chunk two ahead while the tensor cores run the current one's.
 //
 // Staged audio: buffer index i in [i0, i1) of window w (i: padded[t0*hop +
 // 16 c_s + i]; with constant padding [i0, i1) is the 8-aligned span that
-// meets the audio) lies at element w*wstride + d + skew * floor(d / hop),
-// d = i - i0, staged four samples at a time (one 16-byte load where the
-// audio is so aligned).  Row (w, tt) at chunk c reads from d = tt*hop + x,
-// x = 16 (c - c_s) - i0 (+ the lane's k offset), so at w*wstride + tt*(hop
-// + skew) + x + skew * floor(x / hop): with hop and skew multiples of 8,
-// each 8-sample row of an ldmatrix stays 16-byte aligned and inside one
-// skew block, rows of successive frames lie hop + skew apart, which spreads
-// a fragment's frames over the banks, and a row outside [i0, i1) reads a
-// block of 8 zeros.  kLdm = false (hop not a multiple of 8): skew 0, 16-bit
+// meets the audio) lies at element p*pst + w*wstride + d + skew * floor(d /
+// hop) of piece p, d = i - i0, pst = W*wstride + 8, staged four samples at
+// a time (one 16-byte load where the audio is so aligned).  Row (w, tt) at
+// chunk c reads from d = tt*hop + x, x = 16 (c - c_s) - i0 (+ the lane's k
+// offset), so at w*wstride + tt*(hop + skew) + x + skew * floor(x / hop):
+// with hop and skew multiples of 8, each 8-sample row of an ldmatrix stays
+// 16-byte aligned and inside one skew block, rows of successive frames lie
+// hop + skew apart, which spreads a fragment's frames over the banks, and a
+// row outside [i0, i1) reads the piece's block of 8 zeros at W*wstride.
+// kLdm = false (hop not a multiple of 8; one piece only): skew 0, 16-bit
 // loads, staged one sample at a time.
-template <bool kLdm>
-__global__ void __launch_bounds__(kMmaThreads, 1)
+template <bool kLdm, int kParts>
+__global__ void __launch_bounds__(mma_threads(kParts), 1)
     cqt_mma_kernel(const float* __restrict__ x, const uint2* __restrict__ filt,
                    const int* __restrict__ gmeta, float* __restrict__ out, int batch,
                    int num_samples, int n_frames, int n_bins, int hop, int pad, int reflect,
                    int n_groups, int skew, int W, int TF, int wstride, int part_off,
-                   int n_ftiles, float half_power) {
+                   int n_ftiles, int fpiece, float half_power) {
+  constexpr int kThreads = mma_threads(kParts);
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kTiles = unit_tiles(kParts);  // m16 tiles a unit
+  constexpr int kUnitRows = 16 * kTiles;
   extern __shared__ float smem[];  // the same symbol as cqt_coeff_kernel's
   __shared__ int s_meta[3 * kMaxGroups + kMaxBands];
   __shared__ int s_uoff[kMaxBands + 1];  // first unit of each band
   unsigned short* sbuf = reinterpret_cast<unsigned short*>(smem);
   float* part = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(smem) + part_off);
   const int n_bands = (n_groups + kBandGroups - 1) / kBandGroups;
-  for (int i = threadIdx.x; i < 3 * n_groups + n_bands; i += kMmaThreads) s_meta[i] = gmeta[i];
+  for (int i = threadIdx.x; i < 3 * n_groups + n_bands; i += kThreads) s_meta[i] = gmeta[i];
   const int* c_lo = s_meta;
   const int* c_hi = s_meta + n_groups;
   const int* blk_off = s_meta + 2 * n_groups;
@@ -466,7 +552,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const int len = (TF - 1) * hop + 16 * (c_e - c_s);
   const float inv_hop = 1.0f / (float)hop;
 
-  // 1. Stage the audio the tile reads, rounded to bf16: buffer indices
+  // 1. Stage the audio the tile reads as its bf16 pieces: buffer indices
   // [i0, i1), 8-aligned; with constant padding only the part that meets the
   // audio (the rest of [0, len) is zero and reads the zero block).  kLdm:
   // four samples a step (4 divides hop, so they share a skew block), with
@@ -479,20 +565,21 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   }
   const int i0 = i_lo & ~7, i1 = max((i_hi + 7) & ~7, i0);
   const int L = i1 - i0;
-  const int zero_off = W * wstride;  // 8 zeros
-  if (threadIdx.x < 8) sbuf[zero_off + threadIdx.x] = 0;
+  const int zero_off = W * wstride;  // 8 zeros in each piece
+  const int pst = W * wstride + 8;   // elements a piece
+  if (threadIdx.x < 8 * kParts) sbuf[zero_off + (threadIdx.x >> 3) * pst + (threadIdx.x & 7)] = 0;
   constexpr int kVec = kLdm ? 4 : 1;
   const int lv = L / kVec;  // steps a window (L is a multiple of 8)
   // 16-byte loads: the whole step inside the audio and 16-byte aligned
   const bool vec_ok = kLdm && !reflect && num_samples % 4 == 0 && (p0 + i0) % 4 == 0;
   if (lv > 0) {
     const float inv_lv = 1.0f / (float)lv;
-    for (int e0 = 0; e0 < W * lv; e0 += kMmaThreads * kStageUnroll) {
+    for (int e0 = 0; e0 < W * lv; e0 += kThreads * kStageUnroll) {
       float v[kStageUnroll][kVec];
       int dst[kStageUnroll];
 #pragma unroll
       for (int u = 0; u < kStageUnroll; ++u) {
-        const int e = e0 + u * kMmaThreads + threadIdx.x;
+        const int e = e0 + u * kThreads + threadIdx.x;
         const int w = div_small(e, lv, inv_lv);
         const int d = (e - w * lv) * kVec;
         const int i = i0 + d;
@@ -525,12 +612,15 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
       for (int u = 0; u < kStageUnroll; ++u) {
         if (dst[u] < 0) continue;
         if (kLdm) {
-          uint2 q;
-          q.x = (uint32_t)frame_mma::bf16_bits(v[u][0]) |
-                ((uint32_t)frame_mma::bf16_bits(v[u][kVec > 1 ? 1 : 0]) << 16);
-          q.y = (uint32_t)frame_mma::bf16_bits(v[u][kVec > 2 ? 2 : 0]) |
-                ((uint32_t)frame_mma::bf16_bits(v[u][kVec > 3 ? 3 : 0]) << 16);
-          *reinterpret_cast<uint2*>(sbuf + dst[u]) = q;
+#pragma unroll
+          for (int p = 0; p < kParts; ++p) {
+            uint2 q;
+            q.x = (uint32_t)frame_mma::take_piece(v[u][0]) |
+                  ((uint32_t)frame_mma::take_piece(v[u][kVec > 1 ? 1 : 0]) << 16);
+            q.y = (uint32_t)frame_mma::take_piece(v[u][kVec > 2 ? 2 : 0]) |
+                  ((uint32_t)frame_mma::take_piece(v[u][kVec > 3 ? 3 : 0]) << 16);
+            *reinterpret_cast<uint2*>(sbuf + dst[u] + p * pst) = q;
+          }
         } else {
           sbuf[dst[u]] = frame_mma::bf16_bits(v[u][0]);
         }
@@ -543,9 +633,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rstride = hop + (kLdm ? skew : 0);
   const int koff = kLdm ? frame_mma::ldm_k(lane) : 2 * (lane & 3);
-  const uint32_t sbase = frame_mma::smem_addr(sbuf);
+  const Operands op{frame_mma::smem_addr(sbuf), sbuf, zero_off, L, hop, skew, pst, filt, fpiece};
   const int n_units = s_uoff[n_bands];
-  for (int u = warp; u < n_units; u += kMmaWarps) {
+  for (int u = warp; u < n_units; u += kWarps) {
     int band = 0;
     while (s_uoff[band + 1] <= u) ++band;
     const int local = u - s_uoff[band];
@@ -560,13 +650,13 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     c_b = max(min(c_b, c_e), c_a);
     const int nc = c_b - c_a;
     const int ca = c_a + (q * nc) / kp, cb = c_a + ((q + 1) * nc) / kp;
-    const int ntile = min(kUnitTiles, mt - um * kUnitTiles);
-    UnitRows ur;
+    const int ntile = min(kTiles, mt - um * kTiles);
+    UnitRows<kTiles> ur;
 #pragma unroll
-    for (int i = 0; i < kUnitTiles; ++i)
+    for (int i = 0; i < kTiles; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = (um * kUnitTiles + i) * 16 +
+        const int r = (um * kTiles + i) * 16 +
                       (kLdm ? frame_mma::ldm_row(lane) : (lane >> 2) + 8 * h);
         const int w = r / TF, tt = r - (r / TF) * TF;
         ur.roff[i][h] = r < rows ? tt * hop : -(1 << 29);
@@ -582,9 +672,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
       ghi[gi] = c_hi[g];
       gblk[gi] = blk_off[g] - c_lo[g];
     }
-    float acc[kUnitTiles][kBandGroups][4];
+    float acc[kTiles][kBandGroups][4];
 #pragma unroll
-    for (int i = 0; i < kUnitTiles; ++i)
+    for (int i = 0; i < kTiles; ++i)
 #pragma unroll
       for (int gi = 0; gi < kBandGroups; ++gi)
 #pragma unroll
@@ -596,25 +686,23 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     wk.rem = wk.x - wk.q * hop;
     switch (ntile) {
       case 1:
-        run_unit<kLdm, 1>(ca, cb, glo, ghi, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
-                          gblk, lane, acc);
+        run_unit<kLdm, kParts, kTiles, 1>(ca, cb, glo, ghi, wk, ur, op, gblk, lane, acc);
         break;
       case 2:
-        run_unit<kLdm, 2>(ca, cb, glo, ghi, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
-                          gblk, lane, acc);
+        run_unit<kLdm, kParts, kTiles, (kTiles < 2 ? kTiles : 2)>(ca, cb, glo, ghi, wk, ur, op,
+                                                                   gblk, lane, acc);
         break;
       case 3:
-        run_unit<kLdm, 3>(ca, cb, glo, ghi, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
-                          gblk, lane, acc);
+        run_unit<kLdm, kParts, kTiles, (kTiles < 3 ? kTiles : 3)>(ca, cb, glo, ghi, wk, ur, op,
+                                                                   gblk, lane, acc);
         break;
       default:
-        run_unit<kLdm, 4>(ca, cb, glo, ghi, wk, ur, sbase, sbuf, zero_off, L, hop, skew, filt,
-                          gblk, lane, acc);
+        run_unit<kLdm, kParts, kTiles, kTiles>(ca, cb, glo, ghi, wk, ur, op, gblk, lane, acc);
     }
     // the unit's partial sums: part[u][row of the unit][group, bin, re|im]
     float* dstp = part + (size_t)u * kUnitRows * kPartCols;
 #pragma unroll
-    for (int i = 0; i < kUnitTiles; ++i)
+    for (int i = 0; i < kTiles; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float* row = dstp + (i * 16 + (lane >> 2) + 8 * h) * kPartCols + 2 * (lane & 3);
@@ -627,7 +715,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   __syncthreads();
 
   // 3. Each output sums its band's pieces in order: s = (re^2 + im^2)^(p/2).
-  for (int idx = threadIdx.x; idx < rows * n_bins; idx += kMmaThreads) {
+  for (int idx = threadIdx.x; idx < rows * n_bins; idx += kThreads) {
     const int r = idx / n_bins, f = idx - (idx / n_bins) * n_bins;
     const int w = r / TF;
     const int b = b0 + w, t = t0 + r - w * TF;
@@ -644,6 +732,18 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     }
     out[((size_t)b * n_bins + f) * n_frames + t] = powf(re * re + im * im, half_power);
   }
+}
+
+// The tensor-core kernel of a hop's load path (ldm: a hop that is a
+// multiple of 8) and a tier's pieces, or null where there is none.
+using MmaKernel = void (*)(const float*, const uint2*, const int*, float*, int, int, int, int,
+                           int, int, int, int, int, int, int, int, int, int, int, float);
+MmaKernel mma_kernel(bool ldm, int parts) {
+  if (!ldm) return parts == 1 ? cqt_mma_kernel<false, 1> : nullptr;
+  return parts == 1   ? cqt_mma_kernel<true, 1>
+         : parts == 2 ? cqt_mma_kernel<true, 2>
+         : parts == 3 ? cqt_mma_kernel<true, 3>
+                      : nullptr;
 }
 
 template <int PREC>
@@ -668,7 +768,8 @@ cudaError_t launch_coeff(const float* x, const float* filt, const int* meta,
 
 }  // namespace
 
-// The highest and bf16x3 tiers (the default tier: cqt_fused_mma_launch).
+// The highest and bf16x3 tiers on the FP32 pipes (cqt_coeff_kernel), which
+// they take at a hop that is not a multiple of 8 (else cqt_fused_mma_launch).
 // Returns 0 on success, else the cudaError_t of the failed step.
 extern "C" int cqt_fused_launch(
     const float* x, const float* filt, const int* meta, float* out, int batch,
@@ -703,32 +804,34 @@ extern "C" int cqt_fused_launch(
   return (int)cudaGetLastError();
 }
 
-// The default tier on the tensor cores: cqt_mma_kernel, one CTA per (window
-// block, frame tile), then the same dB epilogue.  gmeta carries the plan's
-// pieces per band after the group table.  Returns 0 on success, else
-// the cudaError_t of the failed step.
+// Every tier on the tensor cores (highest and bf16x3 at a hop that is a
+// multiple of 8): cqt_mma_kernel with `parts` bf16 pieces (1 default, 2
+// bf16x3, 3 highest), one CTA per (window block, frame tile), then the same
+// dB epilogue.  filt holds `parts` pieces of piece_blocks fragment-order
+// blocks each; gmeta carries the plan's pieces per band after the group
+// table.  Returns 0 on success, else the cudaError_t of the failed step.
 extern "C" int cqt_fused_mma_launch(
     const float* x, const void* filt, const int* gmeta, float* out, int batch,
     int num_samples, int n_frames, int n_bins, int hop, int pad, int reflect, int n_groups,
-    int skew, int windows, int frames, int wstride, int part_off, int smem_bytes,
-    float magnitude_power, float amin, float top_db, float gate_threshold_db,
+    int skew, int windows, int frames, int wstride, int part_off, int smem_bytes, int parts,
+    int piece_blocks, float magnitude_power, float amin, float top_db, float gate_threshold_db,
     float gate_floor_db, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool ldm = hop % 8 == 0;
-  if (batch < 1 || windows < 1 || frames < 1 || (!ldm && skew != 0) || n_groups < 1 ||
-      n_groups > kMaxGroups)
+  const MmaKernel kernel = mma_kernel(ldm, parts);
+  if (kernel == nullptr || batch < 1 || windows < 1 || frames < 1 || (!ldm && skew != 0) ||
+      n_groups < 1 || n_groups > kMaxGroups || piece_blocks < 1 || piece_blocks > (1 << 25))
     return (int)cudaErrorInvalidValue;
   const int n_ftiles = (n_frames + frames - 1) / frames;
   const long long n_ctas = (long long)n_ftiles * ((batch + windows - 1) / windows);
   if (n_ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kernel = ldm ? cqt_mma_kernel<true> : cqt_mma_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)n_ctas, kMmaThreads, smem_bytes, stream>>>(
+  kernel<<<(unsigned)n_ctas, mma_threads(parts), smem_bytes, stream>>>(
       x, static_cast<const uint2*>(filt), gmeta, out, batch, num_samples, n_frames, n_bins,
       hop, pad, reflect, n_groups, skew, windows, frames, wstride, part_off, n_ftiles,
-      0.5f * magnitude_power);
+      32 * piece_blocks, 0.5f * magnitude_power);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   cqt_db_kernel<<<batch, 256, 0, stream>>>(out, n_bins * n_frames, amin, top_db,
@@ -736,24 +839,27 @@ extern "C" int cqt_fused_mma_launch(
   return (int)cudaGetLastError();
 }
 
-// The tensor-core kernel (ldmatrix variant) as the card runs it at a plan's
-// shared bytes: info = {registers a thread, local (spill) bytes a thread,
-// shared bytes a CTA, threads a CTA, resident CTAs per SM}.  Returns 0, or
-// the cudaError_t of the failed query.
-extern "C" int cqt_mma_kernel_info(int smem_bytes, int* info) {
-  auto kernel = cqt_mma_kernel<true>;
+// The tensor-core kernel (ldmatrix variant) with `parts` pieces as the card
+// runs it at a plan's shared bytes: info = {registers a thread, local
+// (spill) bytes a thread, shared bytes a CTA, threads a CTA, resident CTAs
+// per SM}.  Returns 0, or the cudaError_t of the failed query.
+extern "C" int cqt_mma_kernel_info(int parts, int smem_bytes, int* info) {
+  const MmaKernel kernel = mma_kernel(true, parts);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, (const void*)kernel);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  err = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
   if (err != cudaSuccess) return (int)err;
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kMmaThreads, smem_bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, (const void*)kernel,
+                                                      mma_threads(parts), smem_bytes);
   if (err != cudaSuccess) return (int)err;
   info[0] = attr.numRegs;
   info[1] = (int)attr.localSizeBytes;
   info[2] = (int)attr.sharedSizeBytes + smem_bytes;
-  info[3] = kMmaThreads;
+  info[3] = mma_threads(parts);
   info[4] = ctas;
   return 0;
 }

@@ -419,14 +419,9 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The q-th product (A piece, B piece) of a tier, smallest weight first.
-__host__ __device__ constexpr int prod_a(int parts, int q) {
-  return parts == 3 ? (q == 0 ? 1 : q == 1 ? 2 : q == 3 ? 1 : 0) : (parts == 2 && q == 0 ? 1 : 0);
-}
-__host__ __device__ constexpr int prod_b(int parts, int q) {
-  return parts == 3 ? (q == 0 ? 1 : q == 2 ? 2 : q == 4 ? 1 : 0) : (parts == 2 && q == 1 ? 1 : 0);
-}
-__host__ __device__ constexpr int n_products(int parts) { return parts == 3 ? 6 : parts == 2 ? 3 : 1; }
+using frame_mma::n_products;  // the tier's products of pieces
+using frame_mma::prod_a;
+using frame_mma::prod_b;
 
 template <int kParts>
 __global__ void __launch_bounds__(kMmaThreads, kParts == 1 ? 2 : 1)

@@ -1,8 +1,9 @@
 // The bf16 tensor-core core of the CQT frame GEMM, shared by csrc/cqt.cu
 // (the fused CQT, B1) at the `default` tier and csrc/cqt_frame_gemm.cu (the
 // raw frame GEMM, B9) at every tier (there on bf16 pieces of the operands);
-// csrc/conv3x3.cu (B10) uses its ldmatrix, mma and cp.async helpers.  At
-// the `default` tier:
+// csrc/conv3x3.cu (B10) uses its ldmatrix, mma and cp.async helpers.  Both
+// CQT kernels run the `highest` and `bf16x3` tiers on bf16 pieces of both
+// operands (prod_a, prod_b below).  At the `default` tier:
 //   out[(b, t), n] = sum_k bf16(padded[b, t*hop + k]) * bf16(K[k, n])
 // with the products on the tensor cores (mma.sync m16n8k16, bf16 operands,
 // fp32 accumulators): the products of bf16 operands are exact and the sums
@@ -84,6 +85,26 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The split tiers' products of bf16 pieces (hi = piece 0, then 1, 2; the
+// value is the pieces' exact sum): parts = 3 (highest) takes the six whose
+// weight is at least 2^-16 of hi*hi, parts = 2 (bf16x3) hi*hi + hi*lo +
+// lo*hi, parts = 1 (default) hi*hi.  The q-th product (A piece, B piece),
+// smallest weight first (ops/cqt_cuda.FRAME_GEMM_PRODUCTS).
+__host__ __device__ constexpr int prod_a(int parts, int q) {
+  return parts == 3 ? (q == 0 ? 1 : q == 1 ? 2 : q == 3 ? 1 : 0) : (parts == 2 && q == 0 ? 1 : 0);
+}
+__host__ __device__ constexpr int prod_b(int parts, int q) {
+  return parts == 3 ? (q == 0 ? 1 : q == 2 ? 2 : q == 4 ? 1 : 0) : (parts == 2 && q == 1 ? 1 : 0);
+}
+__host__ __device__ constexpr int n_products(int parts) { return parts == 3 ? 6 : parts == 2 ? 3 : 1; }
+
+// The next bf16 piece of v (nearest even), as bits; v keeps the rest, exactly.
+__device__ __forceinline__ unsigned short take_piece(float& v) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(v);
+  v -= __bfloat162float(h);
+  return __bfloat16_as_ushort(h);
 }
 
 // Row and k offset of the address lane l gives ldmatrix_x4 for one A

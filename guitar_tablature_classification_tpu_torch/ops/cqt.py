@@ -205,7 +205,8 @@ class CQTFrontend:
     The output lies on the input's device: a CUDA input runs the kernel of
     :mod:`.cqt_cuda`, a CPU input the plain version.  ``gemm_split`` and
     ``batch_block`` choose among the JAX package's TPU kernels; the port's
-    kernels (SIMT, and the tensor cores at ``default``) always skip
+    kernels (the tensor cores, and SIMT where :func:`.cqt_cuda.cqt_route`
+    sends highest and bf16x3) always skip
     exactly-zero terms, so they do not change what is computed
     (``gemm_split`` is still validated).
     """
@@ -249,17 +250,31 @@ class CQTFrontend:
             )
         return self._pad_index[key]
 
-    def kernel_plan(self, num_samples: int, device: torch.device):
-        """The CUDA kernel's launch plan for this window length (cached):
-        the tensor-core kernel's at the ``default`` tier, else the SIMT
-        kernel's."""
-        from .cqt_cuda import make_mma_plan, make_plan
+    def kernel_plan(self, num_samples: int, device: torch.device, route: str | None = None):
+        """The launch plan of the CUDA kernel ``route`` names (``mma``, the
+        tensor cores, or ``simt``; by default the tensor cores where
+        :func:`.cqt_cuda.mma_takes` says they run the tier and hop) for this
+        window length (cached)."""
+        from .cqt_cuda import make_mma_plan, make_plan, mma_takes
 
-        key = (num_samples, device)
+        if route is None:
+            route = "mma" if mma_takes(self.cfg.precision, self.cfg.hop_length) else "simt"
+        key = (num_samples, device, route)
         if key not in self._plans:
-            make = make_mma_plan if self.cfg.precision == "default" else make_plan
+            make = make_mma_plan if route == "mma" else make_plan
             self._plans[key] = make(self.filterbank, self.cfg, num_samples, device)
         return self._plans[key]
+
+    def route(self, batch: int, num_samples: int, device: torch.device) -> str:
+        """The kernel :func:`.cqt_cuda.cqt_route` picks for ``batch``
+        windows of this length: ``mma`` or ``simt``."""
+        from .cqt_cuda import cqt_route, mma_takes
+
+        cfg = self.cfg
+        plan = None
+        if cfg.precision == "highest" and mma_takes(cfg.precision, cfg.hop_length):
+            plan = self.kernel_plan(num_samples, device, "mma")
+        return cqt_route(cfg.precision, cfg.hop_length, batch, plan)
 
     @staticmethod
     def _as_batch(x: torch.Tensor) -> tuple[torch.Tensor, bool]:

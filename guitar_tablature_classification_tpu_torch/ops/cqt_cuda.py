@@ -14,12 +14,17 @@ module is imported.
 
 :func:`cqt_fused` is the wrapper: a CPU tensor goes to the plain version
 (:func:`.cqt.cqt_plain`), a CUDA tensor to the kernel, which raises if it
-cannot launch.  The ``highest`` and ``bf16x3`` tiers run the SIMT kernel
-(``cqt_fused_launch``, plan :func:`make_plan`); the ``default`` tier runs
-the tensor-core kernel (``cqt_fused_mma_launch``, plan
-:func:`make_mma_plan`).  ``launches`` counts the wrapper's launches of the
-fused transform, ``mma_launches`` those on the tensor cores; each launch
-enqueues two kernels (the coefficients, then the per-window dB epilogue).
+cannot launch.  :func:`cqt_route` picks the kernel by tier, hop and
+batch: the tensor-core kernel (``cqt_fused_mma_launch``, plan
+:func:`make_mma_plan`; ``highest`` and ``bf16x3`` on three and two bf16
+pieces of each operand) runs ``default`` at any hop, ``bf16x3`` at a hop
+that is a multiple of 8, and ``highest`` there where its grid fills the
+card's waves (``MMA_MIN_FILL``); the rest runs the SIMT kernel
+(``cqt_fused_launch``, plan :func:`make_plan`).  ``launches``
+counts the wrapper's launches of the fused transform, ``mma_launches``
+those on the tensor cores and ``mma_launches_by_tier`` the same by tier;
+each launch enqueues two kernels (the coefficients, then the per-window dB
+epilogue).
 
 :func:`cqt_frame_gemm` is the port of the TPU kernel
 ``ops/cqt_pallas.py::cqt_frame_gemm`` and, as there, its own entry point:
@@ -59,10 +64,12 @@ FRAME_GEMM_TILE = 64  # output rows and columns per CTA; csrc/cqt_frame_gemm.cu 
 FRAME_GEMM_STEP = 16  # filter rows per step; kBK
 # the tensor-core kernels: rows, columns and filter rows a step
 FRAME_GEMM_MMA_TILE = (128, 96, 32)  # csrc/cqt_frame_gemm.cu kMM, kMN, kMK
-# bf16 pieces of each operand the ring kernel takes at a tier (frame_gemm_ring_kernel<parts>)
+# bf16 pieces of each operand the tensor-core kernels take at a tier (the
+# fused CQT's cqt_mma_kernel<ldm, parts>, the frame GEMM's
+# frame_gemm_ring_kernel<parts>)
 FRAME_GEMM_PARTS = {"highest": 3, "bf16x3": 2, "default": 1}
-# the products of pieces (A piece, B piece) each tier issues, in the ring
-# kernel's order (csrc/cqt_frame_gemm.cu prod_a, prod_b)
+# the products of pieces (A piece, B piece) each tier issues, in both
+# kernels' order (csrc/frame_mma.cuh prod_a, prod_b)
 FRAME_GEMM_PRODUCTS = {
     "highest": ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0)),
     "bf16x3": ((1, 0), (0, 1), (0, 0)),
@@ -72,7 +79,8 @@ SMS = 132  # the H100's SMs
 TARGET_CTAS = 2 * SMS  # two CTAs on each SM
 
 launches = 0  # fused launches since import (or since a caller reset it)
-mma_launches = 0  # those of them on the default tier's tensor-core kernel
+mma_launches = 0  # those of them on the tensor-core kernel
+mma_launches_by_tier = {p: 0 for p in PRECISION_CODES}  # the same, by tier
 frame_gemm_launches = 0  # cqt_frame_gemm launches, counted the same way
 frame_gemm_mma_launches = {p: 0 for p in PRECISION_CODES}  # those on the tensor cores, by tier
 _lib = None
@@ -287,29 +295,82 @@ def make_plan(
     )
 
 
-# ------------------------------------------- default tier: tensor-core plan
+# ------------------------------------------------- tensor-core plan
 
 MMA_BAND_GROUPS = 4  # bin groups a band (a unit's columns); csrc/cqt.cu kBandGroups
-MMA_UNIT_ROWS = 64  # rows a unit (four m16 tiles); csrc/cqt.cu kUnitRows
-MMA_WARPS = 16  # warps per CTA; csrc/cqt.cu kMmaWarps
+MMA_UNIT_ROWS = 64  # rows a unit at one piece (four m16 tiles); csrc/cqt.cu unit_tiles
 MMA_MAX_GROUPS = 64  # csrc/cqt.cu kMaxGroups (its static shared table)
 MMA_MAX_ROWS = 128  # (window, frame) rows per CTA at most
-MMA_PART_BYTES = MMA_UNIT_ROWS * 8 * MMA_BAND_GROUPS * 4  # one unit's partial sums
+MMA_PART_BYTES = MMA_UNIT_ROWS * 8 * MMA_BAND_GROUPS * 4  # one unit's partial sums at one piece
 MMA_SMEM_BUDGET = MAX_SMEM_BYTES - 1024  # the rest: the kernel's static table
+# the least share of its waves' SM slots a highest grid must fill to take
+# the tensor cores (cqt_route): on the card it won at fills 0.73-0.97 and
+# lost at 0.55-0.65 (chip_smoke.py's CQT route sweep)
+MMA_MIN_FILL = 0.7
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _row_units(rows: int) -> int:
-    """Units of ``MMA_UNIT_ROWS`` rows that cover ``rows`` rows."""
-    return _cdiv(rows, MMA_UNIT_ROWS)
+def mma_takes(precision: str, hop: int) -> bool:
+    """Whether ``cqt_mma_kernel`` runs the tier at this hop: ``default`` at
+    any hop, ``highest`` and ``bf16x3`` at a hop that is a multiple of 8
+    (elsewhere their staged bf16 pieces would lose ldmatrix's 16-byte
+    rows)."""
+    return precision == "default" or hop % 8 == 0
+
+
+def cqt_route(precision: str, hop: int, batch: int, plan: MmaPlan | None = None) -> str:
+    """The kernel a :func:`cqt_fused` call on ``batch`` windows runs: ``mma``
+    (``cqt_mma_kernel`` on the tensor cores) or ``simt``
+    (``cqt_coeff_kernel``).  ``default`` and ``bf16x3`` take the tensor
+    cores wherever :func:`mma_takes` says so (they win at every measured
+    shape).  ``highest`` takes them only where ``plan`` (the tensor-core
+    plan of the window length) puts at least 2 windows in a CTA and fills
+    its waves of ``SMS`` CTAs to ``MMA_MIN_FILL`` or more: its CTAs
+    out-run the SIMT kernel's per SM, by about 1.3x at the training
+    recipe, but one CTA holds an SM for the whole of a wave, so a grid
+    that leaves many SMs idle in its last wave (the flagship's 86 CTAs at
+    B=256), or a plan that reads the whole filter for each window
+    (reflect padding), runs slower than the SIMT kernel."""
+    if not mma_takes(precision, hop):
+        return "simt"
+    if precision != "highest":
+        return "mma"
+    if plan is None:
+        raise ValueError("cqt_route: highest needs the tensor-core plan")
+    ctas = plan.n_ctas(batch)
+    fill = ctas / (SMS * _cdiv(ctas, SMS)) if ctas else 1.0
+    return "mma" if plan.shape.windows >= 2 and fill >= MMA_MIN_FILL else "simt"
+
+
+def mma_warps(parts: int) -> int:
+    """Warps a CTA of the tensor-core kernel with ``parts`` bf16 pieces
+    (csrc/cqt.cu mma_threads), one CTA an SM: 16 at one piece, 12 at two
+    (bf16x3, up to 168 registers a thread) and 8 at three (highest, up to
+    255), whose round-to-nearest totals and fragments of every piece take
+    the registers."""
+    return {1: 16, 2: 12, 3: 8}[parts]
+
+
+def mma_unit_rows(parts: int) -> int:
+    """Rows a unit of the tensor-core kernel with ``parts`` bf16 pieces
+    (csrc/cqt.cu unit_tiles): 64 (four m16 tiles) at one piece, 32 at two or
+    three, whose fragments of every piece take the registers and whose CTAs
+    hold few rows."""
+    return MMA_UNIT_ROWS if parts == 1 else MMA_UNIT_ROWS // 2
+
+
+def mma_part_bytes(parts: int) -> int:
+    """Shared bytes of one unit's partial sums: its rows x (re, im) x 4
+    bins x the band's groups, fp32."""
+    return mma_unit_rows(parts) * 8 * MMA_BAND_GROUPS * 4
 
 
 @dataclass(frozen=True)
 class MmaGeometry:
-    """The default tier's packed filterbank: group g (``GROUP`` bins)
+    """The tensor-core kernel's packed filterbank: group g (``GROUP`` bins)
     covers the 16-row chunks ``[c_lo[g], c_hi[g])`` of the filter rows,
     the union of its bins' nonzero rows rounded out to the 16-row grid,
     stored as blocks ``blk_off[g] ..`` of the fragment-order filter.  A band
@@ -362,12 +423,15 @@ _LANE_K = 2 * (np.arange(32) % 4)[:, None] + np.array([0, 1, 8, 9])[None, :]  # 
 _LANE_N = np.broadcast_to((np.arange(32) // 4)[:, None], (32, 4))
 
 
-def pack_filter_mma(fb: CQTFilterbank, geom: MmaGeometry) -> np.ndarray:
-    """The filterbank rounded to bf16 (nearest even), as uint16 bits
-    ``[blocks, 32 lanes, 4]`` in the mma B-fragment order: block (g, c),
-    lane l holds rows ``16c + 2(l%4) + (0, 1, 8, 9)`` of column ``l // 4``,
-    where column ``2j`` is the real and ``2j + 1`` the imaginary part of bin
-    ``4g + j``.  Rows past the filter and bins past ``n_bins`` are zero."""
+def pack_filter_mma(fb: CQTFilterbank, geom: MmaGeometry, parts: int = 1) -> np.ndarray:
+    """The filterbank's ``parts`` bf16 pieces (nearest even: piece 0 is the
+    value rounded, each next one what the pieces before it leave, rounded;
+    ``parts`` = 2 gives :func:`.cqt.split_bf16`'s hi and lo), as uint16
+    bits ``[parts * blocks, 32 lanes, 4]``, piece after piece, each in the
+    mma B-fragment order: block (g, c), lane l holds rows ``16c + 2(l%4) +
+    (0, 1, 8, 9)`` of column ``l // 4``, where column ``2j`` is the real and
+    ``2j + 1`` the imaginary part of bin ``4g + j``.  Rows past the filter
+    and bins past ``n_bins`` are zero."""
     from .cqt import round_bf16
 
     n_pad = geom.n_groups * GROUP - fb.n_bins
@@ -376,12 +440,15 @@ def pack_filter_mma(fb: CQTFilterbank, geom: MmaGeometry) -> np.ndarray:
     cols = np.zeros((rows, 2 * geom.n_groups * GROUP), np.float32)
     cols[:kw, 0::2] = np.pad(fb.kernels_real, ((0, 0), (0, n_pad)))
     cols[:kw, 1::2] = np.pad(fb.kernels_imag, ((0, 0), (0, n_pad)))
-    bits = round_bf16(torch.from_numpy(cols)).to(torch.bfloat16).view(torch.int16)
-    bits = bits.numpy().view(np.uint16)  # [rows, (re, im) x bins]
+    rest = torch.from_numpy(cols)
     blocks = []
-    for g in range(geom.n_groups):
-        c = np.arange(geom.c_lo[g], geom.c_hi[g])
-        blocks.append(bits[16 * c[:, None, None] + _LANE_K[None], 8 * g + _LANE_N[None]])
+    for _ in range(parts):
+        piece = round_bf16(rest)
+        rest = rest - piece  # exact: the piece is the rest rounded
+        bits = piece.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+        for g in range(geom.n_groups):  # bits: [rows, (re, im) x bins]
+            c = np.arange(geom.c_lo[g], geom.c_hi[g])
+            blocks.append(bits[16 * c[:, None, None] + _LANE_K[None], 8 * g + _LANE_N[None]])
     return np.ascontiguousarray(np.concatenate(blocks))
 
 
@@ -437,8 +504,10 @@ def mma_stage_span(geom: MmaGeometry, *, reflect: bool, pad: int, hop: int,
 @dataclass(frozen=True)
 class MmaShape:
     """The CTA: ``windows`` x ``frames`` rows (m16 tiles, four to a unit),
-    band b's chunks cut into ``pieces[b]``; ``wstride`` bf16 values per
-    staged window, then 8 zeros, the partial sums from byte ``part_off``."""
+    band b's chunks cut into ``pieces[b]``; for each of the tier's
+    ``parts`` bf16 pieces of the audio ``wstride`` values per staged window,
+    then 8 zeros (``piece_stride`` values a piece); the partial sums from
+    byte ``part_off``; ``warps`` warps."""
 
     windows: int
     frames: int
@@ -446,10 +515,27 @@ class MmaShape:
     wstride: int
     part_off: int
     smem_bytes: int
+    parts: int = 1
+
+    @property
+    def warps(self) -> int:
+        return mma_warps(self.parts)
+
+    @property
+    def piece_stride(self) -> int:
+        return self.windows * self.wstride + 8
+
+    @property
+    def unit_rows(self) -> int:
+        return mma_unit_rows(self.parts)
+
+    @property
+    def part_bytes(self) -> int:
+        return mma_part_bytes(self.parts)
 
     @property
     def row_units(self) -> int:
-        return _row_units(self.windows * self.frames)
+        return _cdiv(self.windows * self.frames, self.unit_rows)
 
     @property
     def units(self) -> int:
@@ -467,18 +553,22 @@ def _split_pieces(work: list[float], units_m: int, n_units: int) -> tuple[int, .
 
 
 def mma_shape(geom: MmaGeometry, *, reflect: bool, pad: int, hop: int, num_samples: int,
-              n_frames: int, budget: int = MMA_SMEM_BUDGET) -> MmaShape:
+              n_frames: int, parts: int = 1, budget: int = MMA_SMEM_BUDGET) -> MmaShape:
     """The CTA shape from the shared-memory budget: of the (frames,
-    windows, units) that fit ``budget`` bytes, with at most
-    ``MMA_MAX_ROWS`` rows, the one with the least modelled SM time a
-    window (more windows, then fewer units, on a tie).  The units are cut
-    from the bands by :func:`_split_pieces` on each band's chunks x the
-    groups a chunk feeds.  The model, in SM clocks of one CTA: staging, W x
-    (staged samples) / 64; products, the larger of the biggest unit and the
-    units' sum over ``MMA_WARPS`` warps, a chunk costing (the m16 tiles a
-    unit holds x the groups it feeds x 8 clocks an mma.sync + 40 clocks of
-    its other instructions) x 4 warps a sub-partition."""
+    windows, units) that fit ``budget`` bytes with the tier's ``parts``
+    staged copies of the audio, with at most ``MMA_MAX_ROWS`` rows, the one
+    with the least modelled SM time a window (more windows, then fewer
+    units, on a tie).  The units are cut from the bands by
+    :func:`_split_pieces` on each band's chunks x the groups a chunk feeds.
+    The model, in SM clocks of one CTA of ``w`` = :func:`mma_warps` warps:
+    staging, W x (staged samples) / (4 w); products, the larger of the
+    biggest unit and the units' sum over the w warps, a chunk costing (the
+    m16 tiles a unit holds x the groups it feeds x the tier's products x 8
+    clocks an mma.sync + 40 clocks a piece of its other instructions) x
+    w / 4 warps a sub-partition."""
     skew = mma_skew(hop)
+    warps, unit_rows, part_bytes = mma_warps(parts), mma_unit_rows(parts), mma_part_bytes(parts)
+    products_n = {1: 1, 2: 3, 3: 6}[parts]  # len(FRAME_GEMM_PRODUCTS[tier])
     kw = dict(reflect=reflect, pad=pad, hop=hop, num_samples=num_samples)
     best, best_key = None, None
     for frames in range(n_frames, 0, -1):
@@ -498,25 +588,25 @@ def mma_shape(geom: MmaGeometry, *, reflect: bool, pad: int, hop: int, num_sampl
             band_work.append((nc, feeds))
         wstride = _cdiv(_skewed_len(need, hop, skew), 64) * 64 + 8
         for windows in range(1, max(1, MMA_MAX_ROWS // frames) + 1):
-            units_m = _row_units(windows * frames)
-            tiles_u = min(4, _cdiv(windows * frames, 16))
-            part_off = _cdiv(2 * (windows * wstride + 8), 16) * 16  # + the zero block
-            chunk = [tiles_u * f * 8 + 40 for _, f in band_work]
+            units_m = _cdiv(windows * frames, unit_rows)
+            tiles_u = min(unit_rows // 16, _cdiv(windows * frames, 16))
+            part_off = _cdiv(2 * parts * (windows * wstride + 8), 16) * 16  # + the zero blocks
+            chunk = [tiles_u * f * 8 * products_n + 40 * parts for _, f in band_work]
             work = [nc * c for (nc, _), c in zip(band_work, chunk)]
-            for n_units in range(units_m * geom.n_bands, 2 * MMA_WARPS + 1):
+            for n_units in range(units_m * geom.n_bands, 2 * warps + 1):
                 pieces = _split_pieces(work, units_m, n_units)
                 units = units_m * sum(pieces)
-                smem = part_off + units * MMA_PART_BYTES
+                smem = part_off + units * part_bytes
                 if smem > budget:
                     break
                 biggest = max(_cdiv(nc, p) * c for (nc, _), p, c in
                               zip(band_work, pieces, chunk))
-                products = max(biggest, units_m * sum(work) / MMA_WARPS) * 4
-                clocks = windows * need / 64 + products
+                products = max(biggest, units_m * sum(work) / warps) * (warps / 4)
+                clocks = windows * need / (4 * warps) + products
                 key = (_cdiv(n_frames, frames) * clocks / windows, -windows, units)
                 if best_key is None or key < best_key:
                     best_key = key
-                    best = MmaShape(windows, frames, pieces, wstride, part_off, smem)
+                    best = MmaShape(windows, frames, pieces, wstride, part_off, smem, parts)
     if best is None:
         raise ValueError(f"no CQT tensor-core tile fits {budget} B of shared memory "
                          f"(hop {hop}, kernel width {16 * geom.chunks()[1]})")
@@ -525,8 +615,9 @@ def mma_shape(geom: MmaGeometry, *, reflect: bool, pad: int, hop: int, num_sampl
 
 @dataclass
 class MmaPlan:
-    """Device tensors and launch parameters of the default tier for one
-    window length."""
+    """Device tensors and launch parameters of the tensor-core kernel at a
+    tier for one window length (``filt``: the shape's ``parts`` pieces of
+    ``piece_blocks`` blocks each)."""
 
     filt: torch.Tensor
     gmeta: torch.Tensor
@@ -539,6 +630,7 @@ class MmaPlan:
     pad: int
     reflect: bool
     skew: int
+    piece_blocks: int
 
     def n_ctas(self, batch: int) -> int:
         return _cdiv(self.n_frames, self.shape.frames) * _cdiv(batch, self.shape.windows)
@@ -550,6 +642,10 @@ def make_mma_plan(
     reflect = cfg.pad_mode == "reflect"
     if reflect and num_samples < 2:
         raise ValueError("reflect padding needs at least 2 samples")
+    if not mma_takes(cfg.precision, cfg.hop_length):
+        raise ValueError(f"the CQT tensor-core kernel takes {cfg.precision} only at a hop "
+                         f"that is a multiple of 8, got {cfg.hop_length}")
+    parts = FRAME_GEMM_PARTS[cfg.precision]
     geom = mma_geometry(fb)
     if geom.n_groups > MMA_MAX_GROUPS:
         raise ValueError(f"the CQT tensor-core kernel takes at most "
@@ -560,14 +656,15 @@ def make_mma_plan(
     hop, pad = cfg.hop_length, fb.kernel_width // 2
     t = n_frames_for(num_samples, hop)
     shape = mma_shape(geom, reflect=reflect, pad=pad, hop=hop, num_samples=num_samples,
-                      n_frames=t)
-    filt = pack_filter_mma(fb, geom).view(np.int16)
+                      n_frames=t, parts=parts)
+    filt = pack_filter_mma(fb, geom, parts).view(np.int16)
     meta = np.concatenate([geom.meta(), np.asarray(shape.pieces, np.int32)])
     return MmaPlan(
         filt=torch.from_numpy(filt).to(device),
         gmeta=torch.from_numpy(meta).to(device),
         geom=geom, shape=shape, num_samples=num_samples, n_frames=t, n_bins=fb.n_bins,
         hop=hop, pad=pad, reflect=reflect, skew=mma_skew(hop),
+        piece_blocks=int((geom.c_hi - geom.c_lo).sum()),
     )
 
 
@@ -595,11 +692,12 @@ def _library():
         fn = lib.cqt_fused_mma_launch
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16
             + [ctypes.c_float] * 5 + [ctypes.c_void_p]
         )
         lib.cqt_mma_kernel_info.restype = ctypes.c_int
-        lib.cqt_mma_kernel_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.cqt_mma_kernel_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
         _lib = lib
     return _lib
 
@@ -608,11 +706,12 @@ _INFO_KEYS = ("registers", "local_bytes", "shared_bytes", "threads", "ctas_per_s
 
 
 def mma_kernel_info(plan: MmaPlan) -> dict[str, int]:
-    """The default tier's kernel as the card runs it at ``plan``'s shared
-    bytes: registers a thread, local (spill) bytes a thread, shared bytes a
-    CTA, threads a CTA, resident CTAs per SM."""
+    """The tensor-core kernel of ``plan``'s tier (its count of pieces) as
+    the card runs it at the plan's shared bytes: registers a thread, local
+    (spill) bytes a thread, shared bytes a CTA, threads a CTA, resident
+    CTAs per SM."""
     info = (ctypes.c_int * 5)()
-    rc = _library().cqt_mma_kernel_info(plan.shape.smem_bytes, info)
+    rc = _library().cqt_mma_kernel_info(plan.shape.parts, plan.shape.smem_bytes, info)
     if rc != 0:
         raise RuntimeError(f"cqt_mma_kernel_info failed: CUDA error {rc}")
     return dict(zip(_INFO_KEYS, info))
@@ -621,12 +720,16 @@ def mma_kernel_info(plan: MmaPlan) -> dict[str, int]:
 # ------------------------------------------------------------------ wrapper
 
 
-def cqt_fused(x: torch.Tensor, frontend) -> torch.Tensor:
+def cqt_fused(x: torch.Tensor, frontend, route: str | None = None) -> torch.Tensor:
     """[B, N] fp32 audio windows -> [B, n_bins, T] gated dB, computed as
     ``frontend`` (a :class:`.cqt.CQTFrontend`) specifies.
 
-    A CPU tensor goes to the plain version; a CUDA tensor to the kernel.
-    Each call on a CUDA tensor adds one to ``launches`` for its two kernels."""
+    A CPU tensor goes to the plain version; a CUDA tensor to the kernel of
+    :func:`cqt_route`, or of ``route`` where the caller names one (to time
+    one kernel against the other; ``mma`` raises where :func:`mma_takes`
+    says no).  Each call on a CUDA tensor adds one to ``launches`` for its
+    two kernels, and on the tensor cores one to ``mma_launches`` and to
+    ``mma_launches_by_tier`` at its tier."""
     global launches, mma_launches
     if x.device.type == "cpu":
         return frontend.plain(x)
@@ -638,7 +741,8 @@ def cqt_fused(x: torch.Tensor, frontend) -> torch.Tensor:
             f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
         )
     batch, num_samples = x.shape
-    plan = frontend.kernel_plan(num_samples, x.device)
+    plan = frontend.kernel_plan(num_samples, x.device,
+                                route or frontend.route(batch, num_samples, x.device))
     cfg = frontend.cfg
     out = torch.empty(
         (batch, plan.n_bins, plan.n_frames), device=x.device,
@@ -649,6 +753,7 @@ def cqt_fused(x: torch.Tensor, frontend) -> torch.Tensor:
     if isinstance(plan, MmaPlan):
         _launch_mma(x, plan, cfg, out)
         mma_launches += 1
+        mma_launches_by_tier[cfg.precision] += 1
         launches += 1
         return out
     fn = _library().cqt_fused_launch
@@ -675,7 +780,8 @@ def _launch_mma(x: torch.Tensor, plan: MmaPlan, cfg: CQTConfig, out: torch.Tenso
             x.data_ptr(), plan.filt.data_ptr(), plan.gmeta.data_ptr(), out.data_ptr(),
             x.shape[0], plan.num_samples, plan.n_frames, plan.n_bins, plan.hop, plan.pad,
             int(plan.reflect), plan.geom.n_groups, plan.skew, sh.windows, sh.frames,
-            sh.wstride, sh.part_off, sh.smem_bytes, cfg.magnitude_power,
+            sh.wstride, sh.part_off, sh.smem_bytes, sh.parts, plan.piece_blocks,
+            cfg.magnitude_power,
             cfg.amin, cfg.top_db, cfg.gate_threshold_db, cfg.gate_floor_db,
             torch.cuda.current_stream(x.device).cuda_stream,
         )

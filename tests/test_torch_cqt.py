@@ -27,6 +27,7 @@ from guitar_tablature_classification_tpu_torch.ops import cqt_cuda
 from guitar_tablature_classification_tpu_torch.ops.cqt import (
     CQTFrontend,
     reflect_index,
+    split_bf16,
     split_geometry,
 )
 from guitar_tablature_classification_tpu_torch.ops.cqt_kernels import (
@@ -245,32 +246,56 @@ def test_wrapper_sends_cpu_tensors_to_plain_version():
     assert fe(x[0]).shape == (96, 9)  # 1-D input squeezes back
 
 
-# ------------------------------------------ default tier: tensor-core plan
+# ------------------------------------------------- tensor-core plan
 
-def _emulate_mma_kernel(cfg, x):
-    """float64 NumPy walk of csrc/cqt.cu's cqt_mma_kernel at the default
-    tier: one CTA per (window block, frame tile), its windows' bf16 audio
-    staged at the skewed positions, the A fragments read back at the
-    ldmatrix (or 16-bit) addresses, then band by band: each unit's pieces
-    of the band's chunks over the fragment-order filter blocks of each
-    group whose span holds the chunk, the pieces' sums added in order ->
-    s = |CQT|^p, [B, F, T]."""
+def _pieces(arr, parts):
+    """The kernel's bf16 pieces of fp32 values (csrc/frame_mma.cuh
+    take_piece): piece p = bf16(v), then v -= piece in fp32 (exact), as
+    float64 arrays."""
+    v = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    out = []
+    for _ in range(parts):
+        piece = v.to(torch.bfloat16).float()
+        out.append(piece.double().numpy())
+        v = v - piece
+    return out
+
+
+def _emulate_mma_kernel(cfg, x, products=None):
+    """float64 NumPy walk of csrc/cqt.cu's cqt_mma_kernel at the tier of
+    ``cfg``: one CTA per (window block, frame tile), its windows' audio
+    staged as the tier's bf16 pieces (one copy a piece, each with its zero
+    block) at the skewed positions, the A fragments of each piece read back
+    at the ldmatrix (or 16-bit) addresses, then band by band: each unit's
+    pieces of the band's chunks over the fragment-order filter blocks of
+    each piece and each group whose span holds the chunk, each chunk's
+    products of pieces (``products``, else the tier's
+    cqt_cuda.FRAME_GEMM_PRODUCTS) summed and added into the unit's total in
+    chunk order, the units' sums added in order -> s = |CQT|^p, [B, F, T]."""
     fb = make_filterbank(cfg)
     batch, n = x.shape
     plan = cqt_cuda.make_mma_plan(fb, cfg, n, torch.device("cpu"))
     geom, sh, hop, skew, t_all = plan.geom, plan.shape, plan.hop, plan.skew, plan.n_frames
+    parts = sh.parts
+    assert parts == cqt_cuda.FRAME_GEMM_PARTS[cfg.precision]
+    products = cqt_cuda.FRAME_GEMM_PRODUCTS[cfg.precision] if products is None else products
     ldm = hop % 8 == 0
+    assert ldm or parts == 1
     blocks = ((plan.filt.numpy().view(np.uint16).astype(np.uint32) << 16)
-              .view(np.float32).astype(np.float64))  # [blocks, 32, 4]
+              .view(np.float32).astype(np.float64))  # [parts * blocks, 32, 4]
+    assert len(blocks) == parts * plan.piece_blocks
     lane = np.arange(32)
     k_of = 2 * (lane % 4)[:, None] + np.array([0, 1, 8, 9])[None, :]
     dense_blk = np.zeros((len(blocks), 16, 8))
     dense_blk[:, k_of, np.broadcast_to((lane // 4)[:, None], (32, 4))] = blocks
-    xr = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16).double().numpy()
+    dense_blk = dense_blk.reshape(parts, plan.piece_blocks, 16, 8)
+    xr = _pieces(x, parts)
     out = np.full((batch, cfg.n_bins, t_all), np.nan)
     w_n, tf, gsz = sh.windows, sh.frames, cqt_cuda.MMA_BAND_GROUPS
+    pst = sh.piece_stride
+    assert pst == w_n * sh.wstride + 8 and sh.warps == cqt_cuda.mma_warps(parts)
     assert len(sh.pieces) == geom.n_bands and min(sh.pieces) >= 1
-    assert sh.part_off + sh.units * cqt_cuda.MMA_PART_BYTES == sh.smem_bytes
+    assert sh.part_off + sh.units * sh.part_bytes == sh.smem_bytes
     assert sh.smem_bytes <= cqt_cuda.MMA_SMEM_BUDGET
     assert np.array_equal(plan.gmeta.numpy(), np.concatenate([geom.meta(), sh.pieces]))
     n_ft = -(-t_all // tf)
@@ -282,11 +307,11 @@ def _emulate_mma_kernel(cfg, x):
         c_s, c_e = cqt_cuda.mma_tile_chunks(geom, **clip)
         i0, i1, i_lo, i_hi = cqt_cuda.mma_stage_span(geom, **clip)
         assert i0 % 8 == 0 and i1 % 8 == 0 and i0 <= i_lo <= i_hi <= i1
-        big = 2 * (sh.windows * sh.wstride + 8)
-        assert sh.part_off >= big
-        sbuf = np.full(w_n * sh.wstride + 8, np.nan)
+        assert sh.part_off >= 2 * parts * pst
+        sbuf = np.full(parts * pst, np.nan)
         zero = w_n * sh.wstride
-        sbuf[zero : zero + 8] = 0.0
+        for p in range(parts):
+            sbuf[p * pst + zero : p * pst + zero + 8] = 0.0
         d = np.arange(i1 - i0)
         i = i0 + d
         a_idx = t0 * hop + 16 * c_s - plan.pad + i
@@ -298,14 +323,16 @@ def _emulate_mma_kernel(cfg, x):
             if plan.reflect:
                 period = 2 * (n - 1)
                 m = np.mod(a_idx, period)
-                v = xr[min(b, batch - 1), np.where(m >= n, period - m, m)]
+                src = np.where(m >= n, period - m, m)
             else:
                 # outside [i_lo, i_hi) the staged value is 0: the padding
                 assert np.all((a_idx >= 0) & (a_idx < n) | ~audio)
-                v = xr[min(b, batch - 1), np.clip(a_idx, 0, n - 1)]
-            sbuf[w * sh.wstride + pos] = np.where(audio & (b < batch), v, 0.0)
+                src = np.clip(a_idx, 0, n - 1)
+            for p in range(parts):
+                v = xr[p][min(b, batch - 1), src]
+                sbuf[p * pst + w * sh.wstride + pos] = np.where(audio & (b < batch), v, 0.0)
         rows = w_n * tf
-        r = np.arange(sh.row_units * cqt_cuda.MMA_UNIT_ROWS)
+        r = np.arange(sh.row_units * sh.unit_rows)
         roff = np.where(r < rows, (r % tf) * hop - i0, -(1 << 29))
         wbase = np.where(r < rows, (r // tf) * sh.wstride, 0)
         for band in range(geom.n_bands):
@@ -313,7 +340,7 @@ def _emulate_mma_kernel(cfg, x):
             c_a, c_b = cqt_cuda.mma_tile_chunks(geom, band=band, **clip)
             assert c_s <= c_a <= c_b <= c_e
             nc = c_b - c_a
-            part = np.zeros((kp, sh.row_units * cqt_cuda.MMA_UNIT_ROWS, gsz, 4, 2))
+            part = np.zeros((kp, sh.row_units * sh.unit_rows, gsz, 4, 2))
             for q in range(kp):
                 ca, cb = c_a + (q * nc) // kp, c_a + ((q + 1) * nc) // kp
                 if cb <= ca:
@@ -331,15 +358,20 @@ def _emulate_mma_kernel(cfg, x):
                     dd = roff[None, :, None] + 16 * (c - c_s)[:, None, None] + kk[None, None, :]
                     inside = (dd >= 0) & (dd < i1 - i0)
                     at = np.where(inside, wbase[None, :, None] + dd, zero)
-                a = sbuf[at]  # [chunks, rows, 16]
+                a = [sbuf[at + p * pst] for p in range(parts)]  # [chunks, rows, 16] a piece
                 for gi in range(gsz):
                     g = band * gsz + gi
                     if g >= geom.n_groups:
                         continue
                     live = (c >= geom.c_lo[g]) & (c < geom.c_hi[g])
                     if live.any():
-                        blk = dense_blk[geom.blk_off[g] + c[live] - geom.c_lo[g]]
-                        part[q, :, gi] = np.einsum("crk,ckn->rn", a[live], blk).reshape(-1, 4, 2)
+                        blk = dense_blk[:, geom.blk_off[g] + c[live] - geom.c_lo[g]]
+                        sums = sum(np.einsum("crk,ckn->crn", a[pa][live], blk[pb])
+                                   for pa, pb in products)  # each chunk's products
+                        unit_total = np.zeros(sums.shape[1:])
+                        for chunk_sum in sums:  # into the unit's total, chunk by chunk
+                            unit_total = unit_total + chunk_sum
+                        part[q, :, gi] = unit_total.reshape(-1, 4, 2)
             total = part[0]
             for q in range(1, kp):
                 total = total + part[q]
@@ -443,13 +475,212 @@ def test_mma_plan_fits_shared_memory(name):
 
 
 def test_frontend_plans_by_tier():
+    """The plan of the kernel the route picks (cqt_cuda.cqt_route): at the
+    training recipe's hop 1024, default and bf16x3 take the tensor-core
+    plan with the tier's pieces at any batch, highest the SIMT plan at the
+    flagship's B=256 and the tensor-core plan at B=4096; at hop 333
+    highest and bf16x3 take the SIMT plan, default the tensor-core one."""
     fb_default = CQTFrontend(CQTConfig(precision="default"))
-    fb_highest = CQTFrontend(CQTConfig())
     cpu = torch.device("cpu")
-    assert isinstance(fb_default.kernel_plan(8820, cpu), cqt_cuda.MmaPlan)
-    assert isinstance(fb_highest.kernel_plan(8820, cpu), cqt_cuda.KernelPlan)
+
+    def plan(fe, batch):
+        return fe.kernel_plan(8820, cpu, fe.route(batch, 8820, cpu))
+
+    for precision, parts in cqt_cuda.FRAME_GEMM_PARTS.items():
+        fe = CQTFrontend(CQTConfig(precision=precision))
+        assert isinstance(plan(fe, 4096), cqt_cuda.MmaPlan)
+        assert plan(fe, 4096).shape.parts == parts
+        want = cqt_cuda.KernelPlan if precision == "highest" else cqt_cuda.MmaPlan
+        assert isinstance(plan(fe, 256), want)
+        off_grid = CQTFrontend(dataclasses.replace(CQTConfig(), hop_length=333,
+                                                   precision=precision))
+        want = cqt_cuda.MmaPlan if precision == "default" else cqt_cuda.KernelPlan
+        for batch in (1, 4096):
+            assert isinstance(plan(off_grid, batch), want)
     # a CPU tensor takes the plain version: no launch is counted
     x = torch.from_numpy(_windows(fb_default.cfg, 2, seed=6))
     before = (cqt_cuda.launches, cqt_cuda.mma_launches)
     assert torch.equal(fb_default(x), fb_default.plain(x))
     assert (cqt_cuda.launches, cqt_cuda.mma_launches) == before
+
+
+# ------------------------------ highest and bf16x3 on the tensor cores
+
+SPLIT_TIERS = ("highest", "bf16x3")
+SPLIT_RECIPES = ("train", "serving_cnn_0.5s", "reflect", "hop1000", "serving_cnn_3s")
+
+
+def _tier_cfg(name, precision):
+    return dataclasses.replace(_mma_cfg(name), precision=precision)
+
+
+def _dense_products(cfg, x, exact=False):
+    """s = |CQT|^p, [B, F, T], of the dense float64 contraction of the
+    tier's products of bf16 pieces of the audio and of the filterbank (with
+    ``exact``, of the fp32 operands themselves)."""
+    fb = make_filterbank(cfg)
+    if exact:
+        a, k, products = [x.astype(np.float64)], [fb.stacked().astype(np.float64)], ((0, 0),)
+    else:
+        parts = cqt_cuda.FRAME_GEMM_PARTS[cfg.precision]
+        a, k = _pieces(x, parts), _pieces(fb.stacked(), parts)
+        products = cqt_cuda.FRAME_GEMM_PRODUCTS[cfg.precision]
+    kw, hop = fb.kernel_width, cfg.hop_length
+    padded = [pad_np(p, kw // 2, cfg.pad_mode) for p in a]
+    t = n_frames_for(x.shape[1], hop)
+    coeff = sum(np.stack([padded[pa][:, i * hop : i * hop + kw] @ k[pb] for i in range(t)],
+                         axis=1) for pa, pb in products)
+    mag2 = coeff[..., : cfg.n_bins] ** 2 + coeff[..., cfg.n_bins :] ** 2
+    return (mag2 ** (cfg.magnitude_power / 2)).transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("precision", SPLIT_TIERS)
+@pytest.mark.parametrize("name", SPLIT_RECIPES)
+def test_mma_split_tier_plan_matches_dense_contraction(name, precision):
+    """highest and bf16x3 on the tensor cores: the tier's plan (8 or 12
+    warps, 32-row units, a staged copy and zero block for each bf16 piece of the audio,
+    each piece's fragment-order filter, the tier's products of pieces, each
+    chunk's products added into the unit's total) sums exactly the dense
+    float64 contraction of the same products of the same pieces (rtol
+    1e-9).  Three windows: a multiple of no plan's windows per CTA."""
+    cfg = _tier_cfg(name, precision)
+    x = _windows(cfg, 3, seed=5)
+    got = _emulate_mma_kernel(cfg, x)
+    want = _dense_products(cfg, x)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12 * want.max())
+
+
+@pytest.mark.parametrize("fault", ["dropped_product", "bf16x3_products_at_highest"])
+def test_mma_split_tier_walk_catches_planted_faults(fault):
+    """The walk above fails a plan that drops highest's smallest product
+    (lo*lo, 2^-16 of hi*hi), or that runs bf16x3's three products on
+    highest's three pieces."""
+    cfg = _tier_cfg("train", "highest")
+    x = _windows(cfg, 3, seed=5)
+    want = _dense_products(cfg, x)
+    six = cqt_cuda.FRAME_GEMM_PRODUCTS["highest"]
+    products = six[1:] if fault == "dropped_product" else cqt_cuda.FRAME_GEMM_PRODUCTS["bf16x3"]
+    assert len(products) < len(six)
+    got = _emulate_mma_kernel(cfg, x, products=products)
+    assert not np.allclose(got, want, rtol=1e-9, atol=1e-12 * want.max())
+
+
+@pytest.mark.parametrize("name", ["train", "reflect", "serving_cnn_3s"])
+def test_mma_highest_holds_fp32_accuracy(name):
+    """At highest the six products of the pieces differ from the float64
+    contraction of the fp32 operands by the three dropped products only
+    (each under 2^-24 of hi*hi a term): per window, max|s - s64| under
+    1e-6 of max s64, where s = |CQT|^4 moves by four times the
+    coefficients' relative error (fp32's unit roundoff is 6e-8; the
+    kernel's fp32 sums are its only other error, held on the card)."""
+    cfg = _tier_cfg(name, "highest")
+    x = _windows(cfg, 3, seed=7)
+    six = _dense_products(cfg, x)
+    exact = _dense_products(cfg, x, exact=True)
+    rel = np.abs(six - exact).max(axis=(1, 2)) / exact.max(axis=(1, 2))
+    assert rel.max() < 1e-6, rel.max()
+
+
+@pytest.mark.parametrize("precision", SPLIT_TIERS)
+def test_mma_packed_pieces_are_the_split_filterbank_once(precision):
+    """The packed filter holds the tier's pieces one after another, each in
+    the fragment order with every value once: piece 0 is the default
+    tier's filter bit for bit, pieces 0 and 1 are split_bf16's hi and lo,
+    and highest's three pieces add up to the fp32 filterbank exactly."""
+    cfg = _tier_cfg("train", precision)
+    fb = make_filterbank(cfg)
+    geom = cqt_cuda.mma_geometry(fb)
+    parts = cqt_cuda.FRAME_GEMM_PARTS[precision]
+    packed = cqt_cuda.pack_filter_mma(fb, geom, parts)
+    n_blk = int((geom.c_hi - geom.c_lo).sum())
+    assert packed.dtype == np.uint16 and packed.shape == (parts * n_blk, 32, 4)
+    assert packed.nbytes < parts * 2 * 1024 * 1024
+    assert np.array_equal(packed[:n_blk], cqt_cuda.pack_filter_mma(fb, geom))
+    pieces = [_unpack_filter_mma(packed[p * n_blk : (p + 1) * n_blk], geom, fb.kernel_width,
+                                 fb.n_bins) for p in range(parts)]
+    assert all(seen.max() == 1 for *_, seen in pieces)
+    for j, kern in enumerate((fb.kernels_real, fb.kernels_imag)):
+        hi, lo = split_bf16(torch.from_numpy(kern))
+        assert np.array_equal(pieces[0][j], hi.numpy())
+        assert np.array_equal(pieces[1][j], lo.numpy())
+        if parts == 3:
+            total = sum(p[j].astype(np.float64) for p in pieces)
+            assert np.array_equal(total, kern.astype(np.float64))
+
+
+@pytest.mark.parametrize("precision", SPLIT_TIERS)
+@pytest.mark.parametrize("name", SPLIT_RECIPES)
+def test_mma_split_tier_plan_fits_shared_memory(name, precision):
+    """Each split tier's CTA: 8 warps at highest, 12 at bf16x3, units of
+    32 rows (two m16 tiles);
+    its pieces' staged copies (each with its zero block), then the units'
+    partial sums, inside the budget; at most two units a warp."""
+    cfg = _tier_cfg(name, precision)
+    fb = make_filterbank(cfg)
+    plan = cqt_cuda.make_mma_plan(fb, cfg, cfg.window_samples, torch.device("cpu"))
+    sh = plan.shape
+    assert sh.parts == cqt_cuda.FRAME_GEMM_PARTS[precision]
+    assert sh.warps == {"highest": 8, "bf16x3": 12}[precision]
+    assert sh.smem_bytes <= cqt_cuda.MMA_SMEM_BUDGET
+    assert sh.unit_rows == 32 and sh.part_bytes == 32 * 8 * cqt_cuda.MMA_BAND_GROUPS * 4
+    assert sh.smem_bytes == sh.part_off + sh.units * sh.part_bytes
+    assert sh.part_off >= 2 * sh.parts * sh.piece_stride and sh.part_off % 16 == 0
+    assert sh.windows * sh.frames <= cqt_cuda.MMA_MAX_ROWS and sh.units <= 2 * sh.warps
+    assert plan.filt.shape[0] == sh.parts * plan.piece_blocks
+
+
+# highest's route at shapes timed on the card with both kernels
+# (chip_smoke.py's CQT route sweep, H100): (recipe, batch, route, the
+# faster kernel there).  hop 1000 at B=64 and 128 is a win the route gives
+# up: its grid fills half a wave, where the training recipe's loses.
+HIGHEST_ROUTES = [
+    ("train", 64, "simt", "simt"), ("train", 256, "simt", "simt"),
+    ("train", 384, "mma", "mma"), ("train", 512, "simt", "simt"),
+    ("train", 768, "mma", "mma"), ("train", 1024, "mma", "mma"),
+    ("train", 4096, "mma", "mma"),
+    ("serving_cnn_3s", 16, "simt", "simt"), ("serving_cnn_3s", 32, "simt", "simt"),
+    ("serving_cnn_3s", 64, "mma", "mma"), ("serving_cnn_3s", 256, "mma", "mma"),
+    ("reflect", 64, "simt", "simt"), ("reflect", 512, "simt", "simt"),
+    ("reflect", 4096, "simt", "simt"),
+    ("hop1000", 64, "simt", "mma"), ("hop1000", 128, "simt", "mma"),
+    ("hop1000", 256, "mma", "mma"), ("hop1000", 512, "mma", "mma"),
+]
+
+
+@pytest.mark.parametrize("name,batch,route,faster", HIGHEST_ROUTES)
+def test_highest_route_at_measured_shapes(name, batch, route, faster):
+    """highest takes the tensor cores where their grid fills its waves
+    (cqt_cuda.MMA_MIN_FILL) with at least 2 windows a CTA: at every shape
+    timed on the card the route picks the faster kernel, but for the two
+    hop-1000 shapes it gives up."""
+    cfg = _tier_cfg(name, "highest")
+    plan = cqt_cuda.make_mma_plan(make_filterbank(cfg), cfg, cfg.window_samples,
+                                  torch.device("cpu"))
+    assert cqt_cuda.cqt_route("highest", cfg.hop_length, batch, plan) == route
+    assert CQTFrontend(cfg).route(batch, cfg.window_samples, torch.device("cpu")) == route
+    assert route == faster or (name, batch) in {("hop1000", 64), ("hop1000", 128)}
+
+
+def test_cqt_route_by_tier_and_hop():
+    """default and bf16x3 on the tensor cores at hops 1024 (training), 512
+    (serving_cnn) and 1000 at any batch; highest and bf16x3 on the SIMT
+    kernel at hop 333, default on the tensor cores there too; highest
+    needs the tensor-core plan to be routed; the default tier's plan is
+    the one it had before the split tiers came (its bits follow it)."""
+    for hop in (1024, 512, 1000):
+        for batch in (1, 256, 4096):
+            assert {cqt_cuda.cqt_route(p, hop, batch) for p in ("bf16x3", "default")} == {
+                "mma"}
+        assert cqt_cuda.mma_takes("highest", hop)
+    assert [cqt_cuda.cqt_route(p, 333, 4096) for p in ("highest", "bf16x3", "default")] == [
+        "simt", "simt", "mma"]
+    with pytest.raises(ValueError, match="tensor-core plan"):
+        cqt_cuda.cqt_route("highest", 1024, 256)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cfg = dataclasses.replace(CQTConfig(), hop_length=333)
+        cqt_cuda.make_mma_plan(make_filterbank(cfg), cfg, cfg.window_samples,
+                               torch.device("cpu"))
+    cfg = _mma_cfg("train")
+    sh = cqt_cuda.make_mma_plan(make_filterbank(cfg), cfg, cfg.window_samples,
+                                torch.device("cpu")).shape
+    assert sh == cqt_cuda.MmaShape(5, 9, (8, 4, 2, 1, 1, 1), 8904, 89056, 228320)

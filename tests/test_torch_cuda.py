@@ -9,6 +9,7 @@ without them; there ``tests/conftest.py`` (which sets JAX up) is left out:
 
 import ctypes
 import dataclasses
+import hashlib
 
 import numpy as np
 import pytest
@@ -113,6 +114,149 @@ def test_default_tier_kernel_occupancy(card):
     assert info["shared_bytes"] >= plan.shape.smem_bytes
     for info in cqt_cuda.frame_gemm_mma_kernel_info().values():
         assert info["ctas_per_sm"] >= 1
+
+
+SPLIT_CQT_CFGS = {
+    "train": CQTConfig(),  # hop 1024
+    "serving_cnn_0.5s": dataclasses.replace(
+        CQTConfig(), sample_rate=22050, hop_length=512, n_bins=84,
+        fmin=65.40639132514966, window_seconds=0.5, hop_seconds=0.25),
+    "reflect": RECIPE_CFGS["reflect"],
+    "hop1000": RECIPE_CFGS["hop1000"],
+    "serving_cnn": CQTConfig.serving_cnn(),  # hop 512, T = 130 frames a window
+}
+
+
+def _launch_counts():
+    return cqt_cuda.launches, cqt_cuda.mma_launches, dict(cqt_cuda.mma_launches_by_tier)
+
+
+def _launches_since(before):
+    now = _launch_counts()
+    return now[0] - before[0], now[1] - before[1], {
+        k: v - before[2][k] for k, v in now[2].items() if v != before[2][k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 37])
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+@pytest.mark.parametrize("name", list(SPLIT_CQT_CFGS))
+def test_split_tiers_run_on_tensor_cores(card, name, precision, batch):
+    """highest and bf16x3 at a hop that is a multiple of 8 on the
+    tensor-core kernel (three and two bf16 pieces; named to the wrapper,
+    since at these batches the route sends highest to the SIMT kernel)
+    against the plain version: no gate flip, 2e-3 dB where neither side is
+    gated, two runs identical, one tensor-core launch of the tier a call;
+    a call left to the route launches the kernel the route names; B=0
+    launches nothing."""
+    cfg = dataclasses.replace(SPLIT_CQT_CFGS[name], precision=precision)
+    fe = CQTFrontend(cfg)
+    x = _windows(cfg, batch, seed=12, device=card)
+    before = _launch_counts()
+    got = cqt_cuda.cqt_fused(x, fe, route="mma")
+    assert _launches_since(before) == (1, 1, {precision: 1})
+    assert torch.equal(cqt_cuda.cqt_fused(x, fe, route="mma"), got)
+    before = _launch_counts()
+    routed = fe(x)
+    if fe.route(batch, cfg.window_samples, card) == "mma":
+        assert _launches_since(before) == (1, 1, {precision: 1})
+        assert torch.equal(routed, got)
+    else:
+        assert _launches_since(before) == (1, 0, {})
+    want = fe.plain(x)
+    gate = cfg.gate_floor_db
+    assert got.shape == (batch, cfg.n_bins, cfg.n_frames)
+    assert int(((got == gate) != (want == gate)).sum()) == 0
+    both = (got != gate) & (want != gate)
+    assert float((got - want).abs()[both].max()) <= 2e-3
+    before = _launch_counts()
+    assert fe(x[:0]).shape == (0, cfg.n_bins, cfg.n_frames)
+    assert _launches_since(before) == (0, 0, {})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+def test_split_tiers_off_the_hop_grid_run_simt(card, precision):
+    """At hop 333 highest and bf16x3 run the SIMT kernel (cqt_route): one
+    launch, none on the tensor cores, within the CQT limits."""
+    cfg = dataclasses.replace(CQTConfig(), hop_length=333, precision=precision)
+    assert cqt_cuda.cqt_route(precision, 333, 5) == "simt"
+    fe = CQTFrontend(cfg)
+    x = _windows(cfg, 5, seed=13, device=card)
+    before = _launch_counts()
+    got = fe(x)
+    assert _launches_since(before) == (1, 0, {})
+    want = fe.plain(x)
+    gate = cfg.gate_floor_db
+    assert int(((got == gate) != (want == gate)).sum()) == 0
+    both = (got != gate) & (want != gate)
+    assert float((got - want).abs()[both].max()) <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+def test_split_tier_kernels_hold_without_spills(card, precision):
+    """The split tiers' kernels (highest: 8 warps at up to 255 registers;
+    bf16x3: 12 at up to 168) at the training recipe's plan: no local
+    memory, one CTA an SM."""
+    plan = CQTFrontend(CQTConfig(precision=precision)).kernel_plan(8820, card)
+    info = cqt_cuda.mma_kernel_info(plan)
+    assert info["threads"] == 32 * plan.shape.warps and info["ctas_per_sm"] == 1, info
+    assert info["local_bytes"] == 0 and info["registers"] <= 255, info
+    assert info["shared_bytes"] >= plan.shape.smem_bytes
+
+
+def _tone_windows(batch, cfg, seed):
+    """Three tones a window plus noise, made with NumPy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(cfg.window_samples) / cfg.sample_rate
+    f = 60.0 * (2000.0 / 60.0) ** rng.random((batch, 3, 1))
+    amp = rng.random((batch, 3, 1))
+    x = (amp * np.sin(2 * np.pi * f * t)).sum(axis=1)
+    return (x + 0.01 * rng.standard_normal((batch, cfg.window_samples))).astype(np.float32)
+
+
+DIGEST_CFGS = {  # recipe: (configuration, batch)
+    "train": (CQTConfig(), 256),
+    "serving_cnn": (CQTConfig.serving_cnn(), 64),
+    "reflect": (RECIPE_CFGS["reflect"], 64),
+    "hop1000": (RECIPE_CFGS["hop1000"], 64),
+    "hop333": (dataclasses.replace(CQTConfig(), hop_length=333), 64),
+}
+# sha256 of the output bytes of the kernels as they stood before highest
+# and bf16x3 came to the tensor cores, on an H100 (sm_90a build): the
+# default tier's tensor-core kernel, and the SIMT kernel where the route
+# keeps highest (and bf16x3 off the hop grid) on it
+CQT_DIGESTS = {
+    "train/default": "723ba26ff3fcc06ca60a1df25dc0205f6d0708e900c9c4e19b5a26597adfce4f",
+    "serving_cnn/default": "ac5ed2e558fcbc3cbd93f3fea8e97619e06fab2941dd1ab3b38024d6a07c7a42",
+    "reflect/default": "2dba5d36b65206d49e0fbd607456079a031de6a3b5de342bdfe62216451bc4e4",
+    "hop1000/default": "fbbcbfb21d480eee9aec7f8c45fb700f85d2a469fd0dfb9b0ab23c24a9700ff7",
+    "hop333/default": "ba30963f36227f6f87e71356d7d6f7eca2cbe3c5b2ee5b66f432af3ed080e3c2",
+    "train/highest": "35f8341c3bae8b729000845f9d666dd179bfc3d3f29adfe027889148e627fe7c",
+    "reflect/highest": "7e6ad8d55fbd90d9cb7ff88b9eb706326bb088b4506cf83e49c15d26eff0248d",
+    "hop1000/highest": "b368cbbe3067598ee3f804739525f8f06ad8d4436101be37d2c6d2dba4be6f19",
+    "hop333/highest": "d23cbe442afef68ab5750c59e6d62b2d3d8122fd5df6eea73334e350d297028e",
+    "hop333/bf16x3": "7b5e6d504dd4d0c37bbe1ff96b3952d9a9849d6bc810efb18b013ae319ad3d81",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CQT_DIGESTS))
+def test_cqt_bits_unchanged(card, case):
+    """The default tier's bits, and the SIMT kernel's at the shapes the
+    route keeps it, are those recorded before the split tiers' tensor-core
+    kernels came: seeded tones (NumPy), the output's sha256."""
+    if "H100" not in torch.cuda.get_device_name(card):
+        pytest.skip("the digests were recorded on an H100")
+    name, precision = case.split("/")
+    base, batch = DIGEST_CFGS[name]
+    fe = CQTFrontend(dataclasses.replace(base, precision=precision))
+    want_route = "mma" if precision == "default" else "simt"
+    assert fe.route(batch, base.window_samples, card) == want_route
+    x = torch.from_numpy(_tone_windows(batch, base, seed=3)).to(card)
+    digest = hashlib.sha256(fe(x).cpu().numpy().tobytes()).hexdigest()
+    assert digest == CQT_DIGESTS[case]
 
 
 @pytest.mark.cuda
