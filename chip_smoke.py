@@ -10,8 +10,9 @@
    ``csrc/stem_gemm.cu``, ``csrc/conv3x3.cu``: one ``nvcc`` each, started
    together); the attention kernels' ``-Xptxas -v`` lines (registers,
    spills) and their occupancy on the card (shared bytes, CTAs per SM);
-   the same -Xptxas -v lines of the CQT and conv3x3 tensor-core kernels
-   and of the stem tails' kernels (csrc/stem.cu, csrc/stem_native.cu).
+   the same -Xptxas -v lines of the CQT and conv3x3 tensor-core kernels,
+   of the stem tails' kernels (csrc/stem.cu, csrc/stem_native.cu) and of
+   the stem front's GEMM (csrc/stem_gemm.cu).
 2. Kernel against plain version (TF32 off): the fused CQT kernel at every
    precision tier on the training recipe (B=4096), the 3 s serving recipe,
    a reflect-padded recipe, a hop-1000 recipe and a hop-333 one, each
@@ -70,11 +71,11 @@
 11. (a) The native stem kernels (``native_stats``, ``native_fwd``,
    ``native_bwd``) against their plain versions on ``native-best``'s conv1
    planes (ye, yo [4096, 24, 384]) at bf16 and fp32 and on a tie-rich
-   input; times (:func:`_kernel_ms`; ``native_bwd`` also by ``_sync_ms``)
-   beside the plain versions, the bounds and ``torch.var_mean``;
-   ``native_bwd``'s plan and occupancy on the card, and
-   ``native_bwd`` on the planes without a pad column (w_pad=0, [4096, 24,
-   320]): checked and timed.
+   input; times (:func:`_kernel_ms`; ``native_fwd`` and ``native_bwd``
+   also by ``_sync_ms``) beside the plain versions, the bounds and
+   ``torch.var_mean``; ``native_fwd``'s and ``native_bwd``'s plans and
+   occupancy on the card, and both on the planes without a pad column
+   (w_pad=0, [4096, 24, 320]): checked and timed.
 12. (b) Path A: the flagship with ``bn_fusion="on"`` (B=256, 20 steps:
    ``bn_sums`` and ``bn_grad_sums`` +19 a step beside the stem and CQT
    kernels), the kernels-vs-plain step, a profile, the memory format each
@@ -96,7 +97,8 @@
    random operands and on the real 224^2 front at B=256 (y against
    ``precomposed_conv1_quadrant``, channel sums against B2's
    ``stem_stats``); then its entry point, the ported
-   ``tools/profile_stem_pieces``, with its launches counted.
+   ``tools/profile_stem_pieces``, with its launches counted; the kernel's
+   plan and occupancy on the card.
 15. The 3x3 conv with a fused ReLU-affine (B10) against its plain version at
    the probe's three shapes and four odd ones; then its entry point, the
    ported ``tools/probe_conv``, with cuDNN's times, the parity figures and
@@ -210,7 +212,8 @@ def _kernel_ms(fn, iters: int) -> float:
     """``_sync_ms``, or where that reads under 0.1 ms (back-to-back calls,
     where a slow host inflates a small kernel), the profiler's device time
     of every kernel ``fn`` launches, per call.  A trace with no device time
-    is taken again, three times at most; one whose count of device ops is
+    is taken again, three times at most, and after three the ``_sync_ms``
+    reading stands, printed as such; a trace whose count of device ops is
     not a multiple of ``iters`` lost records, and is printed as such (its
     time then reads low)."""
     ms = _sync_ms(fn, iters)
@@ -235,7 +238,9 @@ def _kernel_ms(fn, iters: int) -> float:
                 print(f"_kernel_ms: the profiler lost records ({ops} device ops for {iters} "
                       f"calls, {device_ms / iters:.6f} ms a call; _sync_ms {ms:.6f})", flush=True)
             return device_ms / iters
-    raise AssertionError("the profiler saw no device time, three times")
+    print(f"_kernel_ms: the profiler saw no device time, three times; _sync_ms {ms:.6f} "
+          f"stands", flush=True)
+    return ms
 
 
 def tone_windows(batch: int, num_samples: int, sample_rate: int, seed: int):
@@ -1564,12 +1569,18 @@ def native_stem_kernel_phase(torch, mods, batch: int = 4096) -> dict:
             "library_ms": library[name], "bytes": bytes_[name],
         }
     # the parent commit's yardstick for native_bwd (its ms above is the same
-    # timer wherever it reads 0.1 ms or more)
+    # timer wherever it reads 0.1 ms or more); native_fwd's ms reads under
+    # 0.1 ms, where the profiler's traces lose records: _sync_ms beside it
     rows["native_bwd"]["sync_ms"] = _sync_ms(lambda: snc.bwd(ye, yo, gout, se, oe, wreal), 20)
+    rows["native_fwd"]["sync_ms"] = _sync_ms(lambda: snc.fwd(ye, yo, se, oe, wreal), 20)
+    rows["native_fwd"]["occupancy"] = snc.fwd_kernel_info(ye)
+    print("native_fwd_kernel_info, bf16 [4096, 24, 384]: "
+          + json.dumps(rows["native_fwd"]["occupancy"]), flush=True)
     rows["native_bwd"]["occupancy"] = snc.bwd_kernel_info(ye)
     print("native_bwd_kernel_info, bf16 [4096, 24, 384]: "
           + json.dumps(rows["native_bwd"]["occupancy"]), flush=True)
     rows["native_bwd"]["w_pad0"] = native_bwd_without_pad(torch, mods, feats, model, se, oe, gout)
+    rows["native_fwd"]["w_pad0"] = native_fwd_without_pad(torch, mods, feats, model, se, oe)
     context = {"batch_norm_relu_maxpool_fwd_ms": comp_fwd,
                "batch_norm_relu_maxpool_fwd_bwd_ms": comp_fwd_bwd,
                "var_mean_ms": library["native_stats"]}
@@ -1612,6 +1623,34 @@ def native_bwd_without_pad(torch, mods, feats, model, se, oe, gout) -> dict:
     r["bound_ms"] = 1e3 * nbytes / PEAK_BYTES_PER_S
     r["plan"] = snc.bwd_kernel_info(ye)
     print("native_bwd without a pad column: " + json.dumps(r), flush=True)
+    return r
+
+
+def native_fwd_without_pad(torch, mods, feats, model, se, oe) -> dict:
+    """native_fwd on conv1's planes with no pad column (w_pad=0: ye, yo
+    [4096, 24, 320] bf16, Wp = Wreal = 5) against its plain version (pooled
+    output equal), timed (the profiler's time and _sync_ms) beside the same
+    bound as the padded row's counting: the real columns read, the pool
+    written."""
+    sn, snc = mods["stem_native"], mods["stem_native_cuda"]
+    wreal = 5
+    with torch.no_grad():
+        ye, yo = sn.conv1_parity_native(feats, model.resnet.conv1.weight, w_pad=0,
+                                        dtype=torch.bfloat16)
+    pooled = snc.fwd(ye, yo, se, oe, wreal)
+    want = sn.fwd_plain(ye, yo, se, oe, wreal)
+    torch.cuda.synchronize()
+    r = {"planes": list(ye.shape), "fwd_equal": bool(torch.equal(pooled, want))}
+    if not r["fwd_equal"]:
+        raise AssertionError(f"native_fwd disagrees without a pad column: {r}")
+    del want
+    r["ms"] = _kernel_ms(lambda: snc.fwd(ye, yo, se, oe, wreal), 20)
+    r["sync_ms"] = _sync_ms(lambda: snc.fwd(ye, yo, se, oe, wreal), 20)
+    c = se.shape[0]
+    nbytes = ye.element_size() * (2 * ye.numel() + pooled.numel()) + 8 * c
+    r["bound_ms"] = 1e3 * nbytes / PEAK_BYTES_PER_S
+    r["plan"] = snc.fwd_kernel_info(ye)
+    print("native_fwd without a pad column: " + json.dumps(r), flush=True)
     return r
 
 
@@ -1895,6 +1934,7 @@ def gemm_stats_phase(torch, mods, batch: int = 256) -> dict:
     tool_ms = {r["piece"].split(" (")[0].split(" [")[0]: r["ms"] for r in tool_rows}
     row = _row(tool_ms["GEMM+stats kernel"], plain_ms, tool_ms["bare GEMM"],
                2 * (m * k + k * n + m * n) + 8 * n, 2 * m * n * k, "bf16", err)
+    row["occupancy"] = stem_cuda.gemm_stats_kernel_info(k, m, n)
     print("gemm_stats row: " + json.dumps(row), flush=True)
     torch.cuda.empty_cache()
     return {"rows": {"gemm_stats": row}, "launches": counts, "checks": checks}
@@ -2062,9 +2102,10 @@ def cqt_mma_build_report(builds: dict) -> None:
 
 def stem_build_report(source: str, log: str) -> None:
     """The -Xptxas -v lines (stack, spills, registers) of the stem tails'
-    kernels (csrc/stem.cu, csrc/stem_native.cu) from this run's build
-    (stem_bwd's and native_bwd's occupancy on the card are printed with
-    their phases)."""
+    kernels (csrc/stem.cu, csrc/stem_native.cu) and of the stem front's
+    GEMM (csrc/stem_gemm.cu) from this run's build (stem_bwd's,
+    native_fwd's, native_bwd's and gemm_stats' occupancy on the card are
+    printed with their phases)."""
     from guitar_tablature_classification_tpu_torch.ops.nvcc import ptxas_report
 
     print(f"{source} build, -Xptxas -v:" + ("" if log else " (already built: no log)"))
@@ -2076,6 +2117,11 @@ def stem_build_report(source: str, log: str) -> None:
             label = name + (f"<{'bf16' if dtype.startswith('13') else 'fp32'}, {n}>"
                             if dtype else "")
             print(f"  {label}: {lines}")
+        found = re.search(r"(gemm_stats_kernel|fold_rows_kernel)(?:ILi(\d+)ELb([01])E)?", entry)
+        if found:  # csrc/stem_gemm.cu: <k-steps, odd K>
+            name, ks, odd = found.groups()
+            label = f"<{ks}, {'odd' if odd == '1' else 'even'} K>" if ks else ""
+            print(f"  {name}{label}: {lines}")
     sys.stdout.flush()
 
 
@@ -2114,7 +2160,7 @@ def main() -> int:
         print(f"  {name}: {os.path.relpath(path)} " + " | ".join(regs))
     attention_build_report(mods, builds["attention"][1])
     cqt_mma_build_report(builds)
-    for source in ("stem", "stem_native"):
+    for source in ("stem", "stem_native", "stem_gemm"):
         stem_build_report(source, builds[source][1])
 
     phase_s = {}

@@ -75,7 +75,7 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gsrc) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem_dst)),
                "l"(gsrc));
 }
-// The same copy reading `bytes` (0 or 16) from gsrc and zero-filling the
+// The same copy reading `bytes` (0 to 16) from gsrc and zero-filling the
 // rest: bytes = 0 writes 16 zero bytes and reads nothing.
 __device__ __forceinline__ void cp_async16_zfill(void* smem_dst, const void* gsrc, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem_dst)),

@@ -33,19 +33,35 @@
 // it per run): bytes at 3.35 TB/s, the real columns of y read.
 //   fwd reads ye, yo (126 MB), writes the pool (37.7 MB)        -> 0.049 ms
 //   bwd reads ye, yo, g (164 MB), writes dye, dyo (151 MB)      -> 0.094 ms
-// Design:
-// * fwd: one thread per (pooled output, 8 channels): 9 16-byte loads (bf16),
-//   served mostly by L1/L2 (a row feeds two windows).
-// * bwd: a pooling window never crosses images, so a CTA owns whole images
-//   and needs no halo.  A fixed grid of persistent CTAs (ops/
-//   stem_native_cuda.bwd_plan: about 264, two an SM; fixed by the plan, not
-//   by the card, so the sums' order is the same on every card) each walks a
-//   run of consecutive images at one slice of channels (64 bf16 or 32 fp32
-//   at C = 64: 128 bytes a pixel), through a two-stage ring: image n+1 is
-//   copied while image n computes.  For each image:
-//   1. Staging.  The real columns of the image's ye and yo rows and its
-//      pooled gradient g cross memory once, as 16-byte cp.async copies (at
-//      the model shape 30,720 + 9,216 bytes).  The pad column is never read.
+// Both kernels are persistent: a pooling window never crosses images, so a
+// CTA owns whole images and needs no halo.  A fixed grid (ops/
+// stem_native_cuda.fwd_plan, bwd_plan; fixed by the plan, not by the card)
+// walks runs of consecutive images at one slice of channels (64 bf16 or 32
+// fp32 at C = 64: 128 bytes a pixel), staging an image's real columns of ye
+// and yo once, as 16-byte cp.async copies (30,720 bytes at the model shape;
+// the pad column is never read), into a two-stage ring: image n+1 is copied
+// while image n computes.  The loops step their indices by a fixed stride:
+// no division in them.
+// * fwd (replacing one thread per pooled output and 8 channels that made
+//   nine 16-byte loads through L1/L2, about 83 KB loaded for an image's
+//   30.7 KB, and recomputed the affine at each of nine taps): about 396
+//   CTAs, three an SM (__launch_bounds__(256, 3): <= 85 registers; 73,728
+//   shared bytes a CTA).  For each image:
+//   1. Each thread turns the vectors it copied into r = max(y*se + oe, 0)
+//      in place, once a source, rounded to T (its se and oe in registers:
+//      a thread keeps one vector of the slice).  Rounding is monotone, so
+//      the max of rounded r is the rounded max, bit for bit; NaN stays NaN.
+//   2. One thread per (pooled row i, vector) takes each real column's max
+//      over rows O[i-1], E[i], O[i], then each window's over columns 2j-1,
+//      2j, 2j+1 (max.NaN on bf16x2 pairs or fp32), and writes the row's
+//      Wout outputs as 16-byte stores: an image's output [H2, Wout, C] is
+//      one contiguous block.  Taps outside the map and the pad column are
+//      left out, which is what their -1 did: every window holds its real
+//      centre column, and r >= 0 or NaN.
+// * bwd: about 264 CTAs, two an SM (a constant, so the sums' order is the
+//   same on every card).  For each image:
+//   1. Staging: the image's pooled gradient g (9,216 bytes at the model
+//      shape) is staged with its rows.
 //   2. One thread per (window, 16-byte vector of channels) finds the
 //      window's first-max tap once: z recomputed from y in shared memory,
 //      a row-major scan that takes a tap only where z exceeds every tap
@@ -69,8 +85,7 @@
 //   256 threads: __launch_bounds__(256, 2) holds a thread to 128 registers
 //   (at 288 threads, two CTAs an SM hold a thread to 96 registers, and the
 //   kernel spilled and ran slower); se and oe are read from shared
-//   memory (held in registers, they spilled).  The loops step their indices
-//   by a fixed stride: no division in them.  With its global loads removed
+//   memory (held in registers, they spilled).  With its global loads removed
 //   the kernel keeps most of its time: it is bound by its instructions
 //   (the recomputed affine and the gather's compare-and-adds) more than by
 //   memory.
@@ -85,68 +100,13 @@
 namespace {
 
 using vec_io::bn_relu;
-using vec_io::Io;
 using vec_io::kBfloat16;
 using vec_io::kFloat32;
-using vec_io::max_nan;
 
-constexpr int kThreads = 256;  // ops/stem_native_cuda.THREADS
-constexpr int kVecFwd = 8;     // ops/stem_native_cuda.VEC_FWD
+constexpr int kThreads = 256;  // reduce_parts_kernel
 constexpr int kMaxWp = 6;      // widest plane (ops/stem_native_cuda.MAX_WP)
 
-__device__ __forceinline__ long long plane_offset(int b, int h, int w, int c,
-                                                  int H2, int Wp, int C) {
-  return (((long long)b * H2 + h) * Wp + w) * C + c;
-}
-
-// ------------------------------------------------------------------ forward
-
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-    native_fwd_kernel(const T* __restrict__ ye, const T* __restrict__ yo,
-                      const float* __restrict__ se,
-                      const float* __restrict__ oe, T* __restrict__ out, int B,
-                      int H2, int Wp, int Wreal, int Wout, int C) {
-  const int G = C / V;
-  const long long total = (long long)B * H2 * Wout * G;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += (long long)gridDim.x * blockDim.x) {
-    const int c0 = (int)(t % G) * V;
-    long long rest = t / G;
-    const int j = (int)(rest % Wout);
-    rest /= Wout;
-    const int i = (int)(rest % H2);
-    const int b = (int)(rest / H2);
-    float s[V], o[V], m[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      s[k] = se[c0 + k];
-      o[k] = oe[c0 + k];
-      m[k] = -1.0f;  // taps outside the map and pad columns
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {  // rows O[i-1], E[i], O[i]
-      const T* __restrict__ plane = a == 1 ? ye : yo;
-      const int h = a == 0 ? i - 1 : i;
-      if (h < 0) continue;
-#pragma unroll
-      for (int bb = 0; bb < 3; ++bb) {  // columns 2j-1, 2j, 2j+1
-        const int w = 2 * j - 1 + bb;
-        if (w < 0 || w >= Wreal) continue;
-        float v[V];
-        Io<T>::template load<V>(plane + plane_offset(b, h, w, c0, H2, Wp, C), v);
-#pragma unroll
-        for (int k = 0; k < V; ++k) m[k] = max_nan(m[k], bn_relu(v[k], s[k], o[k]));
-      }
-    }
-    Io<T>::template store<V>(out + (((long long)b * H2 + i) * Wout + j) * C + c0, m);
-  }
-}
-
-// ----------------------------------------------------------------- backward
-
-constexpr int kBwdThreads = 256;  // ops/stem_native_cuda.BWD_THREADS
-constexpr int kBwdMinCtas = 2;    // CTAs an SM must hold: <= 128 registers
+// ---------------------------------------------------- shared by both kernels
 
 // jnp.maximum's NaN-propagating maximum as one instruction.
 __device__ __forceinline__ float max_nan_1(float a, float b) {
@@ -191,6 +151,197 @@ __device__ __forceinline__ uint4 pack<float, 4>(const float (&v)[4]) {
                     __float_as_uint(v[3]));
 }
 
+// (row, col) of a row-major walk over rows of `cols`, advanced by a fixed
+// stride of dq rows and dr columns (stride = dq * cols + dr, dr < cols):
+// the loops' indices with no division.
+__device__ __forceinline__ void step(int& row, int& col, int dq, int dr, int cols) {
+  col += dr;
+  row += dq;
+  if (col >= cols) {
+    col -= cols;
+    ++row;
+  }
+}
+
+// ------------------------------------------------------------------ forward
+
+constexpr int kFwdThreads = 256;  // ops/stem_native_cuda.FWD_THREADS
+constexpr int kFwdMinCtas = 3;    // CTAs an SM must hold: <= 85 registers
+constexpr int kFwdStages = 2;     // images in the ring (ops/stem_native_cuda.FWD_STAGES)
+
+// max.NaN of two 16-byte vectors of T, lane by lane (exact).
+template <typename T>
+__device__ __forceinline__ uint4 vmax_nan(const uint4& a, const uint4& b);
+template <>
+__device__ __forceinline__ uint4 vmax_nan<__nv_bfloat16>(const uint4& a, const uint4& b) {
+  uint4 d;
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d.x) : "r"(a.x), "r"(b.x));
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d.y) : "r"(a.y), "r"(b.y));
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d.z) : "r"(a.z), "r"(b.z));
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d.w) : "r"(a.w), "r"(b.w));
+  return d;
+}
+template <>
+__device__ __forceinline__ uint4 vmax_nan<float>(const uint4& a, const uint4& b) {
+  const auto m = [](uint32_t x, uint32_t y) {
+    return __float_as_uint(max_nan_1(__uint_as_float(x), __uint_as_float(y)));
+  };
+  return make_uint4(m(a.x, b.x), m(a.y, b.y), m(a.z, b.z), m(a.w, b.w));
+}
+
+// r = max(y*se + oe, 0) of a 16-byte vector of T (NaN kept), rounded to T.
+template <typename T>
+__device__ __forceinline__ uint4 relu_vec(const uint4& q, const float (&s)[16 / sizeof(T)],
+                                          const float (&o)[16 / sizeof(T)]) {
+  constexpr int V = 16 / sizeof(T);
+  float r[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) r[k] = bn_relu(lane<T>(q, k), s[k], o[k]);
+  return pack<T, V>(r);
+}
+
+// A CTA (group, slice) -- block index group * (C / CS) + slice -- walks
+// images [group * ipc, min(B, (group + 1) * ipc)) at channels
+// [slice * CS, (slice + 1) * CS), CS = NV * V, through a ring of kFwdStages
+// images.  ipc and the dynamic shared bytes are the plan's
+// (ops/stem_native_cuda.fwd_plan; fwd_plan_ok checks the bytes).  A stage
+// is ys [2 planes][H2][Wp][NV] uint4, real columns filled.  Thread tid keeps
+// vector u = tid % NV of the slice in every phase, so its se and oe stay in
+// registers; it copies, and then turns into r, the (row, real column)
+// pairs tid / NV, + kFwdThreads / NV, ... of an image (its own copies need
+// no barrier once it has waited for them), and pools rows tid / NV,
+// + kFwdThreads / NV, ...
+template <typename T, int NV>
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinCtas)
+    native_fwd_kernel(const T* __restrict__ ye, const T* __restrict__ yo,
+                      const float* __restrict__ se, const float* __restrict__ oe,
+                      T* __restrict__ out, int B, int H2, int Wp, int Wreal, int Wout,
+                      int C, int ipc) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int CS = NV * V;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* ring = reinterpret_cast<uint4*>(smem);
+
+  const int n_slices = C / CS;
+  const int slice = blockIdx.x % n_slices;
+  const int group = blockIdx.x / n_slices;
+  const int b0 = group * ipc;
+  const int n_img = min(B, b0 + ipc) - b0;
+  const int stage_vecs = 2 * H2 * Wp * NV;
+  const int tid = threadIdx.x;
+  const int u = tid % NV;
+  const int c0 = slice * CS + u * V;
+  const long long row_len = (long long)Wp * C;
+  float s[V], o[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    s[k] = se[c0 + k];
+    o[k] = oe[c0 + k];
+  }
+
+  // the thread's first (row r = plane * H2 + h, real column w) pair and
+  // its stride, found once
+  const int p_step = kFwdThreads / NV;
+  const int r0 = tid / NV / Wreal, w0 = tid / NV % Wreal;
+  const int p_dq = p_step / Wreal, p_dr = p_step % Wreal;
+  auto stage = [&](int n, int buf) {
+    uint4* ys = ring + buf * stage_vecs;
+    const long long img = (long long)(b0 + n) * H2;
+    for (int r = r0, w = w0; r < 2 * H2; step(r, w, p_dq, p_dr, Wreal)) {
+      const bool odd = r >= H2;
+      const int h = odd ? r - H2 : r;
+      frame_mma::cp_async16(ys + (r * Wp + w) * NV + u,
+                            (odd ? yo : ye) + (img + h) * row_len + (long long)w * C + c0);
+    }
+    frame_mma::cp_async_commit();
+  };
+
+  if (n_img > 0) stage(0, 0);
+  for (int n = 0; n < n_img; ++n) {
+    frame_mma::cp_async_wait<0>();
+    __syncthreads();  // image n has landed; image n-1's pooling is done
+    if (n + 1 < n_img) stage(n + 1, (n + 1) % kFwdStages);
+    uint4* ys = ring + (n % kFwdStages) * stage_vecs;
+
+    // 1. r = max(y*se + oe, 0) once a source, in place, held in T: the
+    //    rounding to T is monotone, so the max of the rounded r is the
+    //    rounded max (NaN stays NaN)
+    for (int r = r0, w = w0; r < 2 * H2; step(r, w, p_dq, p_dr, Wreal)) {
+      uint4* q = ys + (r * Wp + w) * NV + u;
+      *q = relu_vec<T>(*q, s, o);
+    }
+    __syncthreads();
+
+    // 2. pooled row i: each real column's max over rows O[i-1], E[i], O[i],
+    //    then each window's over columns 2j-1, 2j, 2j+1; taps outside the
+    //    map and the pad column are left out (they hold -1, which no r
+    //    loses to, and every window holds its real centre column)
+    T* dst = out + (long long)(b0 + n) * H2 * Wout * C + c0;
+    for (int i = tid / NV; i < H2; i += p_step) {
+      const uint4* e_row = ys + i * Wp * NV + u;
+      const uint4* o_row = e_row + H2 * Wp * NV;
+      uint4 m[3];
+#pragma unroll
+      for (int w = 0; w < kMaxWp; ++w) {
+        if (w >= Wreal) continue;
+        uint4 cm = vmax_nan<T>(e_row[w * NV], o_row[w * NV]);
+        if (i > 0) cm = vmax_nan<T>(cm, o_row[(w - Wp) * NV]);
+        if (w == 0) {
+          m[0] = cm;
+        } else if (w % 2 == 0) {  // the centre of window w / 2
+          m[w / 2] = vmax_nan<T>(m[w / 2], cm);
+        } else {  // the right of window w / 2, the left of window w / 2 + 1
+          m[w / 2] = vmax_nan<T>(m[w / 2], cm);
+          if (w / 2 + 1 < 3) m[w / 2 + 1] = cm;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        if (j < Wout) *reinterpret_cast<uint4*>(dst + ((long long)i * Wout + j) * C) = m[j];
+    }
+  }
+}
+
+// The dynamic shared bytes the forward kernel addresses: kFwdStages images'
+// rows at Wp column slots.
+long long fwd_smem_need(int H2, int Wp, int cs, int elem) {
+  return (long long)kFwdStages * 2 * H2 * Wp * (cs * elem / 16) * 16;
+}
+
+// Whether the plan's (cs, smem) fit the forward kernel at (H2, Wp).
+bool fwd_plan_ok(int H2, int Wp, int cs, int elem, int smem) {
+  const int nv = cs * elem / 16;
+  return H2 > 0 && Wp >= 1 && Wp <= kMaxWp && cs * elem % 16 == 0 &&
+         (nv == 1 || nv == 2 || nv == 4 || nv == 8) && smem >= fwd_smem_need(H2, Wp, cs, elem);
+}
+
+// The forward kernel for this dtype and slice (cs channels), or nullptr.
+const void* fwd_kernel_for(int dtype, int cs) {
+  const int nv = cs * (dtype == kBfloat16 ? 2 : 4) / 16;
+  if (dtype == kBfloat16) {
+    using T = __nv_bfloat16;
+    switch (nv) {
+      case 1: return (const void*)native_fwd_kernel<T, 1>;
+      case 2: return (const void*)native_fwd_kernel<T, 2>;
+      case 4: return (const void*)native_fwd_kernel<T, 4>;
+      case 8: return (const void*)native_fwd_kernel<T, 8>;
+    }
+  } else if (dtype == kFloat32) {
+    switch (nv) {
+      case 1: return (const void*)native_fwd_kernel<float, 1>;
+      case 2: return (const void*)native_fwd_kernel<float, 2>;
+      case 4: return (const void*)native_fwd_kernel<float, 4>;
+      case 8: return (const void*)native_fwd_kernel<float, 8>;
+    }
+  }
+  return nullptr;
+}
+
+// ----------------------------------------------------------------- backward
+
+constexpr int kBwdThreads = 256;  // ops/stem_native_cuda.BWD_THREADS
+constexpr int kBwdMinCtas = 2;    // CTAs an SM must hold: <= 128 registers
+
 // The first-max taps of V channels, one byte each (9: no tap).
 template <int V>
 struct TapBytes;
@@ -220,18 +371,6 @@ struct TapBytes<4> {
 
 // Windows of a row for the widest Wreal <= Wp: shared memory is sized by it.
 __host__ __device__ __forceinline__ int window_slots(int Wp) { return (Wp - 1) / 2 + 1; }
-
-// (row, col) of a row-major walk over rows of `cols`, advanced by a fixed
-// stride of dq rows and dr columns (stride = dq * cols + dr, dr < cols):
-// the loops' indices with no division.
-__device__ __forceinline__ void step(int& row, int& col, int dq, int dr, int cols) {
-  col += dr;
-  row += dq;
-  if (col >= cols) {
-    col -= cols;
-    ++row;
-  }
-}
 
 // Step 2 for window (i, j): the first-max tap of each of the V channels of
 // vector u.  LEFT, RIGHT: whether columns 2j-1 and 2j+1 are real (uniform
@@ -568,34 +707,68 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 bool shape_ok(int Wp, int Wreal, int C) {
-  return Wp >= 1 && Wp <= kMaxWp && Wreal >= 1 && Wreal <= Wp && C > 0 && C % kVecFwd == 0;
+  return Wp >= 1 && Wp <= kMaxWp && Wreal >= 1 && Wreal <= Wp && C > 0 && C % 8 == 0;
+}
+
+// The kernel's registers, local (spill) bytes, shared bytes (static +
+// dynamic), threads and resident CTAs per SM at smem dynamic bytes, into
+// info[0..5).  Returns 0, or the cudaError_t of the failed query.
+int kernel_info(const void* kernel, int threads, int smem, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)attr.sharedSizeBytes + smem;
+  info[3] = threads;
+  info[4] = ctas;
+  return 0;
 }
 
 }  // namespace
 
-// ye, yo [B, H2, Wp*C], se/oe [C] fp32 -> out [B, H2, Wout, C].
+// ye, yo [B, H2, Wp*C], se/oe [C] fp32 -> out [B, H2, Wout, C].  cs
+// channels a CTA (one to eight 16-byte vectors a pixel), ipc images a CTA
+// and smem dynamic shared bytes: the plan's (ops/stem_native_cuda.fwd_plan),
+// checked here.  ye, yo and out are 16-byte aligned.
 extern "C" int native_fwd_launch(const void* ye, const void* yo, const void* se,
-                                 const void* oe, void* out, int B, int H2,
-                                 int Wp, int Wreal, int C, int n_ctas,
-                                 int dtype, void* stream_ptr) {
+                                 const void* oe, void* out, int B, int H2, int Wp,
+                                 int Wreal, int C, int cs, int ipc, int smem, int dtype,
+                                 void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (!shape_ok(Wp, Wreal, C) || n_ctas <= 0) return (int)cudaErrorInvalidValue;
-  const int Wout = (Wreal - 1) / 2 + 1;
-  const float* s = static_cast<const float*>(se);
-  const float* o = static_cast<const float*>(oe);
-  if (dtype == kBfloat16) {
-    using T = __nv_bfloat16;
-    native_fwd_kernel<T, kVecFwd><<<n_ctas, kThreads, 0, stream>>>(
-        static_cast<const T*>(ye), static_cast<const T*>(yo), s, o,
-        static_cast<T*>(out), B, H2, Wp, Wreal, Wout, C);
-  } else if (dtype == kFloat32) {
-    native_fwd_kernel<float, kVecFwd><<<n_ctas, kThreads, 0, stream>>>(
-        static_cast<const float*>(ye), static_cast<const float*>(yo), s, o,
-        static_cast<float*>(out), B, H2, Wp, Wreal, Wout, C);
-  } else {
+  const void* kernel = fwd_kernel_for(dtype, cs);
+  const int elem = dtype == kBfloat16 ? 2 : 4;
+  if (!shape_ok(Wp, Wreal, C) || kernel == nullptr || B <= 0 || ipc <= 0 || C % cs ||
+      !fwd_plan_ok(H2, Wp, cs, elem, smem))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  int Wout = (Wreal - 1) / 2 + 1;
+  const long long grid = (long long)((B + ipc - 1) / ipc) * (C / cs);
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {(void*)&ye, (void*)&yo, (void*)&se, (void*)&oe, (void*)&out,
+                  (void*)&B, (void*)&H2, (void*)&Wp, (void*)&Wreal, (void*)&Wout,
+                  (void*)&C, (void*)&ipc};
+  err = cudaLaunchKernel(kernel, dim3((unsigned)grid), dim3(kFwdThreads), args, smem, stream);
+  return (int)err;
+}
+
+// The forward kernel as the card runs it for this dtype and plan (cs, smem
+// as native_fwd_launch takes them): info = {registers a thread, local
+// (spill) bytes a thread, shared bytes a CTA (static + dynamic), threads a
+// CTA, resident CTAs per SM}.  Returns 0, or the cudaError_t of the failed
+// query.
+extern "C" int native_fwd_kernel_info(int H2, int Wp, int cs, int smem, int dtype, int* info) {
+  const void* kernel = fwd_kernel_for(dtype, cs);
+  if (kernel == nullptr || !fwd_plan_ok(H2, Wp, cs, dtype == kBfloat16 ? 2 : 4, smem))
+    return (int)cudaErrorInvalidValue;
+  return kernel_info(kernel, kFwdThreads, smem, info);
 }
 
 // ye, yo [B, H2, Wp*C], g [B, H2, Wout, C], se/oe [C] -> dye, dyo like ye
@@ -645,18 +818,5 @@ extern "C" int native_bwd_kernel_info(int H2, int Wp, int cs, int rg, int smem, 
   const void* kernel = bwd_kernel_for(dtype, cs);
   if (kernel == nullptr || !bwd_plan_ok(H2, Wp, cs, dtype == kBfloat16 ? 2 : 4, rg, smem))
     return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kBwdThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  info[0] = attr.numRegs;
-  info[1] = (int)attr.localSizeBytes;
-  info[2] = (int)attr.sharedSizeBytes + smem;
-  info[3] = kBwdThreads;
-  info[4] = ctas;
-  return 0;
+  return kernel_info(kernel, kBwdThreads, smem, info);
 }

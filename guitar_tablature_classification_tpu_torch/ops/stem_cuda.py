@@ -31,8 +31,14 @@ from . import nvcc
 SOURCE = os.path.join(nvcc.CSRC_DIR, "stem.cu")
 NVCC_FLAGS = nvcc.BASE_FLAGS + ("-fmad=false",)
 GEMM_SOURCE = os.path.join(nvcc.CSRC_DIR, "stem_gemm.cu")
-GEMM_TILE = 128  # rows and columns of y per CTA; csrc/stem_gemm.cu kTile
+GEMM_TILE = 128  # rows and columns of a y tile; csrc/stem_gemm.cu kTile
 GEMM_MAX_K = 128  # csrc/stem_gemm.cu kMaxK
+GEMM_THREADS = 256  # csrc/stem_gemm.cu kThreads
+GEMM_STAGES = 4  # hq tiles in the ring; csrc/stem_gemm.cu kStages
+# GEMM CTAs the plan aims at: two on each of an H100's 132 SMs.  A constant,
+# not read from the card, so that the sums' order (and so their bits) is the
+# same on every card
+GEMM_CTAS = 264
 THREADS = 256  # csrc/stem.cu kThreads
 VEC_STATS, VEC_FWD = 8, 8  # channels per thread of each kernel
 MAX_PARTS = 1024  # CTAs that write partial sums (fixed: deterministic sums)
@@ -275,10 +281,59 @@ def _gemm_library():
         path, _ = build_gemm_stats()
         lib = ctypes.CDLL(path)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gemm_stats_launch.argtypes = [p, p, p, p, p, i, i, i, p]
-        lib.gemm_stats_launch.restype = ctypes.c_int
+        lib.gemm_stats_launch.argtypes = [p, p, p, p, p] + [i] * 6 + [p]
+        lib.gemm_stats_kernel_info.argtypes = [i, i, ctypes.POINTER(i)]
+        for fn in (lib.gemm_stats_launch, lib.gemm_stats_kernel_info):
+            fn.restype = ctypes.c_int
         _gemm_lib = lib
     return _gemm_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """The GEMM kernel's tiling (``csrc/stem_gemm.cu`` gemm_stats_kernel).
+
+    CTA ``(ct, s)`` (block index ``ct * splits + s``) owns the columns
+    ``[ct * GEMM_TILE, (ct + 1) * GEMM_TILE)`` and the row tiles ``[s * run,
+    min(row_tiles, (s + 1) * run))``, walked in order; it writes row ``ct *
+    splits + s`` of the partial table [grid, 2, GEMM_TILE], and the fold
+    adds a column's ``splits`` rows in that order.  ``k_steps`` is K rounded
+    up to 16, in 16s; ``smem_bytes`` the dynamic shared memory.  The launch
+    takes ``splits``, ``run`` and ``smem_bytes`` from here; the source only
+    checks that they fit the kernel."""
+
+    col_tiles: int
+    row_tiles: int
+    splits: int
+    run: int
+    grid: int
+    k_steps: int
+    smem_bytes: int
+
+
+def gemm_smem_bytes(k: int) -> int:
+    """Dynamic shared bytes of the GEMM kernel at depth K: the ring of hq
+    tiles as they lie in memory (256*K bytes each), then, at a 1 KB
+    boundary, the eight warps' two 2 KB staging blocks of y
+    (``gemm_smem_need`` in the source)."""
+    ring = -(-GEMM_STAGES * 2 * GEMM_TILE * k // 1024) * 1024
+    return ring + 8 * 2 * 2048
+
+
+def gemm_plan(m: int, n: int, k: int) -> GemmPlan:
+    """The tiling of :func:`gemm_stats` at [M, K] x [K, N]: each column tile
+    gets ``GEMM_CTAS // col_tiles`` CTAs (at least one, at most one a row
+    tile), each a run of ``ceil(row_tiles / splits)`` row tiles; splits
+    that would get none are dropped."""
+    if m < 1 or n < 1 or not 1 <= k <= GEMM_MAX_K:
+        raise ValueError(f"the GEMM kernel needs M, N >= 1 and 1 <= K <= {GEMM_MAX_K}, "
+                         f"got M={m}, K={k}, N={n}")
+    col_tiles, row_tiles = -(-n // GEMM_TILE), -(-m // GEMM_TILE)
+    splits = max(1, min(row_tiles, GEMM_CTAS // col_tiles))
+    run = -(-row_tiles // splits)
+    splits = -(-row_tiles // run)
+    return GemmPlan(col_tiles=col_tiles, row_tiles=row_tiles, splits=splits, run=run,
+                    grid=col_tiles * splits, k_steps=-(-k // 16), smem_bytes=gemm_smem_bytes(k))
 
 
 def check_gemm_shapes(hq: torch.Tensor, sq: torch.Tensor) -> None:
@@ -292,10 +347,10 @@ def gemm_stats(hq: torch.Tensor, sq: torch.Tensor) -> tuple[torch.Tensor, torch.
     """hq [M, K] bf16, sq [K, N] bf16 -> (y = bf16(hq @ sq) [M, N], sums
     [2, N] fp32: per column, sum y and sum y*y of the rounded y).
 
-    The kernel takes any M and needs K <= GEMM_MAX_K, N % 8 == 0, sq
-    16-byte aligned and hq 4-byte aligned."""
+    The kernel takes any M and needs K <= GEMM_MAX_K, N % 8 == 0, and hq and
+    sq 16-byte aligned (it copies hq's row tiles as 16-byte vectors)."""
     check_gemm_shapes(hq, sq)
-    _check(hq, "hq", dtype=torch.bfloat16, vec=2)
+    _check(hq, "hq", dtype=torch.bfloat16, vec=8)
     _check(sq, "sq", dtype=torch.bfloat16, vec=8)
     if sq.device != hq.device:
         raise ValueError(f"sq must lie on {hq.device}, got {sq.device}")
@@ -304,15 +359,28 @@ def gemm_stats(hq: torch.Tensor, sq: torch.Tensor) -> tuple[torch.Tensor, torch.
     if k > GEMM_MAX_K or n % 8 or m < 1:
         raise ValueError(f"the GEMM kernel needs K <= {GEMM_MAX_K}, N % 8 == 0 and M >= 1, "
                          f"got M={m}, K={k}, N={n}")
-    parts = -(-m // GEMM_TILE)
+    plan = gemm_plan(m, n, k)
     y = torch.empty((m, n), device=hq.device, dtype=torch.bfloat16)
-    partial = torch.empty((parts, 2, n), device=hq.device, dtype=torch.float32)
+    partial = torch.empty((plan.grid, 2, GEMM_TILE), device=hq.device, dtype=torch.float32)
     sums = torch.empty((2, n), device=hq.device, dtype=torch.float32)
     with torch.cuda.device(hq.device):
         rc = _gemm_library().gemm_stats_launch(
             hq.data_ptr(), sq.data_ptr(), y.data_ptr(), partial.data_ptr(),
-            sums.data_ptr(), m, n, k, _stream(hq.device),
+            sums.data_ptr(), m, n, k, plan.splits, plan.run, plan.smem_bytes,
+            _stream(hq.device),
         )
     _raise_if(rc, "stem GEMM + stats")
     launches["gemm_stats"] += 1
     return y, sums
+
+
+def gemm_stats_kernel_info(k: int = 70, m: int = 28672, n: int = 7168) -> dict:
+    """The GEMM kernel as the card runs it at [M, K] x [K, N] (the source's
+    ``gemm_stats_kernel_info``): its plan, registers and local (spill) bytes
+    a thread, shared bytes (static + dynamic) and threads a CTA, resident
+    CTAs per SM."""
+    plan = gemm_plan(m, n, k)
+    info = (ctypes.c_int * 5)()
+    rc = _gemm_library().gemm_stats_kernel_info(k, plan.smem_bytes, info)
+    _raise_if(rc, "gemm_stats_kernel_info")
+    return {**dataclasses.asdict(plan), **dict(zip(_INFO_KEYS, info))}

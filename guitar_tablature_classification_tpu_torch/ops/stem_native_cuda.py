@@ -13,7 +13,8 @@ The source is built with ``nvcc`` on first use (:mod:`.nvcc`), with
 loaded when this module is imported.  ``launches`` counts each wrapper's
 launches.  :func:`stats` and :func:`bwd` enqueue two kernels per launch (the
 per-CTA partial sums, then their fixed-order reduction); each counts as one.
-:func:`bwd_plan` is the backward kernel's tiling, which the CPU tests walk.
+:func:`fwd_plan` and :func:`bwd_plan` are the two kernels' tilings, which
+the CPU tests walk.
 """
 
 from __future__ import annotations
@@ -28,10 +29,15 @@ from . import bn_cuda, nvcc
 
 SOURCE = os.path.join(nvcc.CSRC_DIR, "stem_native.cu")
 NVCC_FLAGS = nvcc.BASE_FLAGS + ("-fmad=false",)
-THREADS = 256  # csrc/stem_native.cu kThreads
-VEC_FWD = 8  # channels per thread of the forward kernel
 MAX_WP = 6  # widest plane in columns (csrc/stem_native.cu kMaxWp)
-MAX_FWD_CTAS = 132 * 16
+FWD_THREADS = 256  # csrc/stem_native.cu kFwdThreads
+FWD_STAGES = 2  # images in the forward kernel's ring (kFwdStages)
+# forward CTAs the plan aims at: three on each of an H100's 132 SMs (a
+# constant, not read from the card, as the backward's)
+FWD_CTAS = 396
+# dynamic shared bytes a forward CTA may take: three CTAs an SM (228 KB, 1
+# KB reserved a CTA)
+FWD_SMEM_BUDGET = 74 * 1024
 BWD_THREADS = 256  # csrc/stem_native.cu kBwdThreads
 # backward CTAs the plan aims at: two on each of an H100's 132 SMs.  A
 # constant, not read from the card, so that the sums' order (and so their
@@ -58,10 +64,12 @@ def _library():
         path, _ = build()
         lib = ctypes.CDLL(path)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.native_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.native_fwd_launch.argtypes = [p, p, p, p, p] + [i] * 9 + [p]
+        lib.native_fwd_kernel_info.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
         lib.native_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p] + [i] * 10 + [p]
         lib.native_bwd_kernel_info.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
-        for fn in (lib.native_fwd_launch, lib.native_bwd_launch, lib.native_bwd_kernel_info):
+        for fn in (lib.native_fwd_launch, lib.native_fwd_kernel_info, lib.native_bwd_launch,
+                   lib.native_bwd_kernel_info):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -131,20 +139,90 @@ def stats(ye: torch.Tensor, yo: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """The forward kernel's tiling (``csrc/stem_native.cu``
+    native_fwd_kernel).
+
+    CTA ``(group, slice)`` (block index ``group * n_slices + slice``) walks
+    images ``[group * images_per_cta, min(B, (group + 1) * images_per_cta))``
+    in order through a ring of ``FWD_STAGES`` images, at channels ``[slice *
+    cs, (slice + 1) * cs)``: one to eight 16-byte vectors a pixel, as wide
+    as C and ``FWD_SMEM_BUDGET`` allow.  ``smem_bytes`` is its dynamic shared
+    memory.  The launch takes ``cs``, ``images_per_cta`` and ``smem_bytes``
+    from here; the source only checks that they fit the kernel."""
+
+    cs: int
+    n_slices: int
+    images_per_cta: int
+    parts: int  # the groups of images
+    grid: int
+    smem_bytes: int
+
+
+def fwd_smem_bytes(h2: int, wp: int, cs: int, elem: int) -> int:
+    """Dynamic shared bytes of the forward kernel: ``FWD_STAGES`` images'
+    rows of both planes at Wp column slots (real ones filled)."""
+    return FWD_STAGES * 2 * h2 * wp * (cs * elem // 16) * 16
+
+
+def _slice_width(h2, wp, c, dtype, smem_bytes, budget, kernel) -> int:
+    """The widest channel slice (at most 128 bytes a pixel) that divides C
+    and whose CTA's ``smem_bytes(h2, wp, cs, elem)`` fits ``budget``.
+    Raises a ValueError that names the limit where even a 16-byte slice does
+    not fit (H2 too tall)."""
+    elem = torch.finfo(dtype).bits // 8
+    vec = 16 // elem
+    nv = 8
+    while (c // vec) % nv:
+        nv //= 2
+    while nv > 1 and smem_bytes(h2, wp, nv * vec, elem) > budget:
+        nv //= 2
+    if smem_bytes(h2, wp, nv * vec, elem) > budget:
+        tallest = max(x for x in range(1, h2) if smem_bytes(x, wp, vec, elem) <= budget)
+        raise ValueError(f"the native stem {kernel} kernel needs H2 <= {tallest} at {dtype}, "
+                         f"Wp={wp} (two images' rows in {budget} shared bytes), got H2={h2}")
+    return nv * vec
+
+
+def _check_plan_shape(b, h2, wp, c, kernel) -> None:
+    if b < 1 or h2 < 1 or not 1 <= wp <= MAX_WP or c < 8 or c % 8:
+        raise ValueError(f"the native stem {kernel} kernel needs B, H2 >= 1, 1 <= Wp <= "
+                         f"{MAX_WP} and C % 8 == 0, got B={b}, H2={h2}, Wp={wp}, C={c}")
+
+
+def fwd_plan(b: int, h2: int, wp: int, c: int, dtype: torch.dtype) -> FwdPlan:
+    """The tiling of :func:`fwd` at this shape: the widest channel slice
+    that fits ``FWD_SMEM_BUDGET`` (:func:`_slice_width`), and runs of
+    consecutive images spread over at most ``FWD_CTAS`` CTAs."""
+    _check_plan_shape(b, h2, wp, c, "forward")
+    cs = _slice_width(h2, wp, c, dtype, fwd_smem_bytes, FWD_SMEM_BUDGET, "forward")
+    n_slices = c // cs
+    ipc = max(1, -(-b * n_slices // FWD_CTAS))
+    parts = -(-b // ipc)
+    elem = torch.finfo(dtype).bits // 8
+    return FwdPlan(cs=cs, n_slices=n_slices, images_per_cta=ipc, parts=parts,
+                   grid=parts * n_slices, smem_bytes=fwd_smem_bytes(h2, wp, cs, elem))
+
+
 def fwd(ye: torch.Tensor, yo: torch.Tensor, se: torch.Tensor, oe: torch.Tensor,
         wreal: int) -> torch.Tensor:
     """max_pool3x3s2(relu(y*se + oe)) over the real columns -> pooled
-    [B, H2, Wout, C] in y's dtype; se/oe [C] fp32."""
+    [B, H2, Wout, C] in y's dtype; se/oe [C] fp32.  ye and yo are 16-byte
+    aligned (the kernel copies 16-byte vectors)."""
     c = se.shape[0]
-    b, h2, wp = _check_planes(ye, yo, c, VEC_FWD)
+    b, h2, wp = _check_planes(ye, yo, c, 16 // ye.element_size())
     _check_affine(se, oe, c, ye.device)
     wout = _check_wreal(wreal, wp)
     out = torch.empty((b, h2, wout, c), device=ye.device, dtype=ye.dtype)
-    ctas = max(1, min(MAX_FWD_CTAS, -(-b * h2 * wout * (c // VEC_FWD) // THREADS)))
+    if b == 0:
+        return out
+    plan = fwd_plan(b, h2, wp, c, ye.dtype)
     with torch.cuda.device(ye.device):
         rc = _library().native_fwd_launch(
             ye.data_ptr(), yo.data_ptr(), se.data_ptr(), oe.data_ptr(), out.data_ptr(),
-            b, h2, wp, wreal, c, ctas, _DTYPES[ye.dtype], _stream(ye.device),
+            b, h2, wp, wreal, c, plan.cs, plan.images_per_cta, plan.smem_bytes,
+            _DTYPES[ye.dtype], _stream(ye.device),
         )
     _raise_if(rc, "native stem forward")
     launches["native_fwd"] += 1
@@ -203,24 +281,11 @@ def bwd_plan(b: int, h2: int, wp: int, c: int, dtype: torch.dtype) -> BwdPlan:
     ``BWD_SMEM_BUDGET``, and runs of consecutive images spread over at most
     ``BWD_CTAS`` CTAs.  Raises a ValueError that names the limit where even a
     16-byte slice does not fit (H2 too tall)."""
+    _check_plan_shape(b, h2, wp, c, "backward")
+    cs = _slice_width(h2, wp, c, dtype, bwd_smem_bytes, BWD_SMEM_BUDGET, "backward")
     elem = torch.finfo(dtype).bits // 8
-    vec = 16 // elem
-    if b < 1 or h2 < 1 or not 1 <= wp <= MAX_WP or c < 8 or c % 8:
-        raise ValueError(f"the native stem backward kernel needs B, H2 >= 1, 1 <= Wp <= "
-                         f"{MAX_WP} and C % 8 == 0, got B={b}, H2={h2}, Wp={wp}, C={c}")
-    nv = 8
-    while (c // vec) % nv:
-        nv //= 2
-    while nv > 1 and bwd_smem_bytes(h2, wp, nv * vec, elem) > BWD_SMEM_BUDGET:
-        nv //= 2
-    smem = bwd_smem_bytes(h2, wp, nv * vec, elem)
-    if smem > BWD_SMEM_BUDGET:
-        tallest = max(x for x in range(1, h2)
-                      if bwd_smem_bytes(x, wp, vec, elem) <= BWD_SMEM_BUDGET)
-        raise ValueError(f"the native stem backward kernel needs H2 <= {tallest} at {dtype}, "
-                         f"Wp={wp} (two images' rows in {BWD_SMEM_BUDGET} shared bytes), "
-                         f"got H2={h2}")
-    cs = nv * vec
+    nv = cs * elem // 16
+    smem = bwd_smem_bytes(h2, wp, cs, elem)
     n_slices = c // cs
     ipc = max(1, -(-b * n_slices // BWD_CTAS))
     parts = -(-b // ipc)
@@ -264,6 +329,21 @@ def bwd(ye: torch.Tensor, yo: torch.Tensor, g: torch.Tensor, se: torch.Tensor,
 
 
 _INFO_KEYS = ("registers", "local_bytes", "shared_bytes", "threads", "ctas_per_sm")
+
+
+def fwd_kernel_info(ye: torch.Tensor, c: int = 64) -> dict:
+    """The forward kernel as the card runs it for parity planes of
+    ``ye``'s shape and dtype with C channels (the source's
+    ``native_fwd_kernel_info``): its plan, registers and local (spill) bytes
+    a thread, shared bytes (static + dynamic) and threads a CTA, resident
+    CTAs per SM."""
+    b, h2, lanes = ye.shape
+    plan = fwd_plan(b, h2, lanes // c, c, ye.dtype)
+    info = (ctypes.c_int * 5)()
+    rc = _library().native_fwd_kernel_info(h2, lanes // c, plan.cs, plan.smem_bytes,
+                                           _DTYPES[ye.dtype], info)
+    _raise_if(rc, "native_fwd_kernel_info")
+    return {**dataclasses.asdict(plan), **dict(zip(_INFO_KEYS, info))}
 
 
 def bwd_kernel_info(ye: torch.Tensor, c: int = 64) -> dict:

@@ -712,6 +712,54 @@ def test_native_bwd_plan_is_what_the_kernel_addresses(card, dtype):
 
 
 @pytest.mark.cuda
+def test_native_fwd_holds_three_ctas_an_sm_without_spills(card):
+    """The forward kernel at the model shape (bf16 [4096, 24, 384]) and at
+    fp32: no local memory, the planned three CTAs an SM (at most 85
+    registers), 11 images a CTA at bf16."""
+    for dtype in (torch.bfloat16, torch.float32):
+        ye = torch.empty((4096, 24, 384), device=card, dtype=dtype)
+        info = stem_native_cuda.fwd_kernel_info(ye)
+        assert info["local_bytes"] == 0 and info["registers"] <= 85
+        assert info["ctas_per_sm"] >= 3 and info["threads"] == stem_native_cuda.FWD_THREADS
+    bf16 = stem_native_cuda.fwd_kernel_info(torch.empty((4096, 24, 384), device=card,
+                                                        dtype=torch.bfloat16))
+    assert bf16["images_per_cta"] == 11 and bf16["cs"] == 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_native_fwd_plan_is_what_the_kernel_addresses(card, dtype):
+    """The plan owns the forward kernel's slice and shared bytes; the source
+    checks them against the layout the kernel addresses: at every edge shape
+    it takes the plan's bytes and refuses 16 fewer, and refuses a slice
+    wider than 128 bytes a pixel."""
+    lib, info = stem_native_cuda._library(), (ctypes.c_int * 5)()
+    code = 1 if dtype == torch.bfloat16 else 0
+    for b, h2, wp, _, c, _ in NATIVE_EDGES.values():
+        plan = stem_native_cuda.fwd_plan(b, h2, wp, c, dtype)
+        assert lib.native_fwd_kernel_info(h2, wp, plan.cs, plan.smem_bytes, code, info) == 0
+        assert info[2] >= plan.smem_bytes
+        assert lib.native_fwd_kernel_info(h2, wp, plan.cs, plan.smem_bytes - 16, code, info) != 0
+        assert lib.native_fwd_kernel_info(h2, wp, 2 * 128 // (2 if code else 4), 1 << 20,
+                                          code, info) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("wp", [6, 5])
+def test_native_fwd_matches_plain_at_serving_batch(card, dtype, wp):
+    """native_fwd at serving's batch (2048: runs of 6 images), with and
+    without the pad column, tie-rich: bit for bit with fwd_plain, one
+    launch."""
+    ye, yo, se, oe, _ = _native_case(dtype, card, 2048, seed=7, wp=wp)
+    before = stem_native_cuda.launches["native_fwd"]
+    pooled = stem_native.fwd(ye, yo, se, oe, 5)
+    torch.cuda.synchronize()
+    assert stem_native_cuda.launches["native_fwd"] == before + 1
+    assert torch.equal(pooled, stem_native.fwd_plain(ye, yo, se, oe, 5))
+
+
+@pytest.mark.cuda
 def test_native_stem_wrappers_reject_what_the_kernels_do_not_take(card):
     ye, yo, se, oe, g = _native_case(torch.bfloat16, card, batch=2)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -912,12 +960,15 @@ def _gemm_operands(card, m, k, n, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m, k, n", [(600, 70, 200), (256, 33, 7168), (1, 128, 8)])
+@pytest.mark.parametrize("m, k, n", [(600, 70, 200), (256, 33, 7168), (1, 128, 8),
+                                     (28600, 70, 7168)])
 def test_gemm_stats_kernel_matches_plain(card, m, k, n):
     """y within one bf16 ulp of the plain version; sums within 1e-5 of
     max|sum| of the float64 column sums of the kernel's own y; two runs
     identical; one launch a call.  The shapes take ragged row and column
-    tiles, an odd K (the 2-byte staging path) and the largest K."""
+    tiles, an odd K (the 2-byte staging path), the largest K, and an M that
+    is not a multiple of the CTAs' rows (runs of 56 row tiles, the last
+    tile 56 rows)."""
     hq, sq = _gemm_operands(card, m, k, n)
     before = dict(stem_cuda.launches)
     y, sums = stem_tail.gemm_stats(hq, sq, m_tile=m)
@@ -931,6 +982,16 @@ def test_gemm_stats_kernel_matches_plain(card, m, k, n):
     assert bool(((sums.double() - ref).abs().amax(1) <= 1e-5 * ref.abs().amax(1)).all())
     y2, sums2 = stem_cuda.gemm_stats(hq, sq)
     assert torch.equal(y2, y) and torch.equal(sums2, sums)
+
+
+@pytest.mark.cuda
+def test_gemm_stats_holds_two_ctas_an_sm_without_spills(card):
+    """The GEMM kernel at the tool's shape ([28672, 70] x [70, 7168]): no
+    local memory, the planned two CTAs an SM, 224 CTAs."""
+    info = stem_cuda.gemm_stats_kernel_info()
+    assert info["local_bytes"] == 0 and info["registers"] <= 128
+    assert info["ctas_per_sm"] >= 2 and info["threads"] == stem_cuda.GEMM_THREADS
+    assert info["grid"] == 224 and info["shared_bytes"] >= info["smem_bytes"]
 
 
 @pytest.mark.cuda

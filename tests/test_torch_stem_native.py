@@ -426,6 +426,142 @@ def test_native_bwd_plan_fits_two_ctas_an_sm_and_names_its_limit():
         stem_native_cuda.bwd_plan(1, 24, 6, 12, torch.bfloat16)
 
 
+# -------------------------------------------- the forward kernel's tiling walk
+
+
+def _fwd_thread_cover(h2, wreal, nv):
+    """The forward kernel's per-thread walkers (``csrc/stem_native.cu``
+    native_fwd_kernel): thread tid keeps vector u = tid % NV; it copies, and
+    turns into r, the (row, real column) pairs tid / NV, + FWD_THREADS / NV,
+    ... stepped without division (``step``), and pools rows tid / NV, +
+    FWD_THREADS / NV, ...  Returns how often each (row, column, vector) is
+    copied and each (pooled row, vector) is pooled."""
+    threads = stem_native_cuda.FWD_THREADS
+    copied = torch.zeros((2 * h2, wreal, nv), dtype=torch.int64)
+    pooled = torch.zeros((h2, nv), dtype=torch.int64)
+    p_step = threads // nv
+    dq, dr = divmod(p_step, wreal)
+    for tid in range(threads):
+        u = tid % nv
+        r, w = divmod(tid // nv, wreal)
+        while r < 2 * h2:
+            copied[r, w, u] += 1
+            w, r = w + dr, r + dq
+            if w >= wreal:
+                w, r = w - wreal, r + 1
+        for i in range(tid // nv, h2, p_step):
+            pooled[i, u] += 1
+    return copied, pooled
+
+
+def _walk_native_fwd(ye, yo, se, oe, wreal, fault=None):
+    """``csrc/stem_native.cu`` native_fwd_kernel walked CTA by CTA over its
+    plan (``stem_native_cuda.fwd_plan``) on the CPU, vectorised over a CTA's
+    channel slice: each CTA walks its run of images in order; an image's
+    real columns are staged (the other slots stay NaN, so a read of one
+    shows), turned into r = max(y*se + oe, 0) in place and held in y's dtype
+    (step 1), and each pooled row takes each real column's max over rows
+    O[i-1], E[i], O[i], then each window's over columns 2j-1, 2j, 2j+1
+    (step 2).  ``fault`` plants a bug the walk must not hide: "image" and
+    "slice" stage y from the next image or channel slice, "pad" reads the
+    pad column as a real one.  Returns the pooled output [B, H2, Wout, C]."""
+    b, h2, lanes = ye.shape
+    c = se.shape[0]
+    wp, wout = lanes // c, stem_native.pool_out_width(wreal)
+    plan = stem_native_cuda.fwd_plan(b, h2, wp, c, ye.dtype)
+    assert plan.smem_bytes <= stem_native_cuda.FWD_SMEM_BUDGET
+    assert plan.parts <= stem_native_cuda.FWD_CTAS
+    cs, ipc = plan.cs, plan.images_per_cta
+    nv = cs * ye.element_size() // 16
+    assert nv in (1, 2, 4, 8) and c % cs == 0 and stem_native_cuda.FWD_THREADS % nv == 0
+    copied, pooled = _fwd_thread_cover(h2, wreal, nv)
+    assert torch.all(copied == 1) and torch.all(pooled == 1)
+    real = wp if fault == "pad" else wreal
+    planes = [p.reshape(b, h2, wp, c) for p in (ye, yo)]
+    out = torch.zeros((b, h2, wout, c), dtype=ye.dtype)
+    written = torch.zeros((b, h2, wout, c), dtype=torch.int64)
+    walked = torch.zeros((b, plan.n_slices), dtype=torch.int64)
+    for cta in range(plan.grid):
+        sl, grp = cta % plan.n_slices, cta // plan.n_slices
+        ch = slice(sl * cs, (sl + 1) * cs)
+        ych = ch
+        if fault == "slice":
+            nxt = (sl + 1) % plan.n_slices
+            ych = slice(nxt * cs, (nxt + 1) * cs)
+        s, o = se[ch], oe[ch]
+        for bi in range(grp * ipc, min(b, (grp + 1) * ipc)):  # the ring, in order
+            walked[bi, sl] += 1
+            src = (bi + 1) % b if fault == "image" else bi
+            ys = torch.full((2, h2, wp, cs), float("nan"))
+            for p in range(2):
+                ys[p, :, :real] = planes[p][src, :, :real, ych].float()
+            # 1. r in place, a product then a sum, NaN kept, held in T
+            r = torch.maximum(ys * s + o, torch.zeros(()))
+            r = r.to(ye.dtype).float()
+            # 2. columns over rows O[i-1], E[i], O[i]; windows over columns
+            cm = torch.maximum(r[0], r[1])
+            cm[1:] = torch.maximum(cm[1:], r[1, :-1])
+            for j in range(wout):
+                cols = [w for w in (2 * j - 1, 2 * j, 2 * j + 1) if 0 <= w < real]
+                m = cm[:, cols[0]]
+                for w in cols[1:]:
+                    m = torch.maximum(m, cm[:, w])
+                out[bi, :, j, ch] = m.to(ye.dtype)
+                written[bi, :, j, ch] += 1
+    assert torch.all(walked == 1), "every image is walked once at every slice"
+    assert torch.all(written == 1), "every pooled output is written once"
+    return out
+
+
+@pytest.mark.parametrize("name", list(NATIVE_BWD_WALKS))
+def test_native_fwd_walk_matches_plain(name, monkeypatch):
+    """The forward kernel's tiling, walked on the CPU, against fwd_plain at
+    the backward walk's shapes: equal bit for bit (the same fp32 ops, a
+    rounding to y's dtype that is monotone, so it commutes with the max; a
+    NaN where the plain version has one)."""
+    b, h2, wp, wreal, c, dtype, ctas, mixed, nan = NATIVE_BWD_WALKS[name]
+    monkeypatch.setattr(stem_native_cuda, "FWD_CTAS", ctas)  # runs of images at B <= 8
+    ye, yo, _, se, oe = _bwd_walk_case(b, h2, wp, wreal, c, dtype, seed=h2 + c + b,
+                                       mixed_sign=mixed, nan=nan)
+    got = _walk_native_fwd(ye, yo, se, oe, wreal)
+    want = stem_native.fwd_plain(ye, yo, se, oe, wreal)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isnan(got).any()) == nan
+
+
+@pytest.mark.parametrize("fault", ["image", "slice", "pad"])
+def test_native_fwd_walk_catches_planted_faults(fault, monkeypatch):
+    """The walk's comparison sees y staged from the wrong image or channel
+    slice, and the pad column (7.7) read as a real one."""
+    ye, yo, _, se, oe = _bwd_walk_case(4, 24, 6, 5, 64, torch.float32, seed=3)
+    want = stem_native.fwd_plain(ye, yo, se, oe, 5)
+    monkeypatch.setattr(stem_native_cuda, "FWD_CTAS", 3)
+    assert stem_native_cuda.fwd_plan(4, 24, 6, 64, torch.float32).n_slices == 2
+    got = _walk_native_fwd(ye, yo, se, oe, 5, fault=fault)
+    assert not torch.equal(got, want)
+
+
+def test_native_fwd_plan_fits_three_ctas_an_sm_and_names_its_limit():
+    """The model shape's plan (all 64 bf16 channels a CTA, 11 images a CTA
+    on 373 CTAs, 73,728 shared bytes: three CTAs an SM), fp32's two slices,
+    serving's batch, the narrower slices of tall maps and the named limit."""
+    plan = stem_native_cuda.fwd_plan(4096, 24, 6, 64, torch.bfloat16)
+    assert (plan.cs, plan.n_slices, plan.images_per_cta, plan.parts, plan.grid) == (
+        64, 1, 11, 373, 373)
+    assert plan.smem_bytes == 73728 and plan.smem_bytes <= stem_native_cuda.FWD_SMEM_BUDGET
+    assert 3 * (stem_native_cuda.FWD_SMEM_BUDGET + 1024) <= 228 * 1024
+    assert stem_native_cuda.fwd_plan(4096, 24, 5, 64, torch.bfloat16).smem_bytes == 61440
+    fp32 = stem_native_cuda.fwd_plan(4096, 24, 6, 64, torch.float32)
+    assert (fp32.cs, fp32.n_slices, fp32.grid) == (32, 2, 392)
+    assert stem_native_cuda.fwd_plan(2048, 24, 6, 64, torch.bfloat16).images_per_cta == 6
+    tall = stem_native_cuda.fwd_plan(2, 100, 6, 64, torch.bfloat16)
+    assert tall.cs < 64 and tall.smem_bytes <= stem_native_cuda.FWD_SMEM_BUDGET
+    with pytest.raises(ValueError, match=r"forward kernel needs H2 <= \d+"):
+        stem_native_cuda.fwd_plan(1, 400, 6, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 8"):
+        stem_native_cuda.fwd_plan(1, 24, 6, 12, torch.bfloat16)
+
+
 # ------------------------------------------------- model: native-best fused
 
 
