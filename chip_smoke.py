@@ -103,6 +103,20 @@
    the probe's three shapes and four odd ones; then its entry point, the
    ported ``tools/probe_conv``, with cuDNN's times, the parity figures and
    its launches counted.
+16. The train entry point: ``train.run.main`` with ``--synthetic
+   --synthetic-tracks 32 --batch-size 32 --recipe native-best --stem-fusion
+   fused --bn-fusion on --epochs 3`` into a temporary directory (B1's, B6's three
+   and B7's two counters must rise), then ``--resume --epochs 4`` (it must
+   start at the epoch after the checkpoint's), ``--eval-only`` (its JSON
+   with ``checkpoint_step``; its val loss must agree with the same
+   evaluation through the stem's and BatchNorms' plain versions), and the
+   serving CLI transcribing a synthetic track from the checkpoint; each
+   run's lines printed.
+17. The port's bench (``bench.main``) in-process: its JSON line (the
+   flagship train step at B=256, ``resnet18_native`` train at B=4096 at
+   ``highest`` and ``default``, at B=8192 at ``default``, serving at
+   B=4096), each row's step ms beside its host enqueue ms; every row must
+   have launched B1 once a step, the flagship row B2's three kernels too.
 
 Then one JSON line of the fourteen kernels' measurements (``cqt_fused`` and
 ``cqt_frame_gemm`` with their other tiers' beside: B1's ``bf16x3`` at the
@@ -2005,6 +2019,180 @@ def conv3x3_phase(torch, mods, batch: int = 256) -> dict:
     return {"rows": {"conv3x3": row}, "launches": counts, "checks": checks}
 
 
+# the kernels the train_cli phase's run must launch: B1 (the CQT of the
+# synthetic loaders and, on the card, nowhere else), B6's three (the
+# native fused stem) and B7's two (the trunk BatchNorms)
+TRAIN_CLI_KERNELS = ("cqt_fused", "native_stats", "native_fwd", "native_bwd", "bn_sums",
+                     "bn_grad_sums")
+
+
+def _run_captured(torch, mods, main, argv: list, label: str,
+                  show=lambda line: True) -> tuple[list, dict, float]:
+    """``main(argv)`` in-process with its standard output captured, each
+    line that ``show`` keeps printed again on a line of its own; the
+    counters set to 0 just before and read just after.  Returns (lines,
+    launches, seconds)."""
+    import io
+
+    _reset_counts(mods)
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = {k: v for k, v in _counts(mods).items() if v}
+    lines = buf.getvalue().strip().splitlines()
+    print(f"{label}: rc={rc} {seconds:.1f} s, launches {json.dumps(counts)}", flush=True)
+    for line in filter(show, lines):
+        print(line, flush=True)
+    if rc != 0:
+        raise AssertionError(f"{label}: exit code {rc}")
+    return lines, counts, seconds
+
+
+def _epoch_lines(lines: list) -> list:
+    """The epoch messages of train.run's log lines: (epoch, epochs, train
+    and val loss, seconds, segments/s)."""
+    out = []
+    for line in lines:
+        found = re.search(r"msg=epoch (\d+)/(\d+): train ([\d.]+) val ([\d.]+) "
+                          r".*\(([\d.]+)s, ([\d,]+) segments/s\)", line)
+        if found:
+            out.append({"epoch": int(found.group(1)), "epochs": int(found.group(2)),
+                        "train_loss": float(found.group(3)), "val_loss": float(found.group(4)),
+                        "seconds": float(found.group(5)),
+                        "segments_per_s": float(found.group(6).replace(",", ""))})
+    return out
+
+
+# ``--eval-only`` of the train_cli checkpoint with the native stem's and the
+# trunk BatchNorms' kernels against the same with their plain versions:
+# the relative gap of the val loss.  The same weights and running averages
+# go through both, eval mode runs no BatchNorm kernel, and the native stem
+# forward is bit for bit its plain version, so the two agree exactly (run
+# DH: 0.0); the limit leaves room for float64 rounding only.
+TRAIN_CLI_EVAL_TOL = 1e-6
+
+
+def train_cli_phase(torch, mods) -> dict:
+    """16. The train entry point on the card: ``train.run.main`` trains
+    ``native-best`` with the native fused stem and the fused trunk
+    BatchNorm on 32 synthetic tracks at batch 32 for 3 epochs, resumes to
+    4, evaluates with ``--eval-only`` (held to the same evaluation through
+    the kernels' plain versions), and the serving CLI transcribes a
+    synthetic track from the checkpoint.  (At 8 tracks, 16 validation
+    windows and 4 steps an epoch, the val loss rises or falls after epoch
+    1 with the seed and the rounding, on the CPU as on the card, and the
+    resume starts after the best epoch; at 32 tracks, 16 steps an epoch
+    and 64 validation windows, it falls every epoch.)"""
+    from scipy.io import wavfile
+
+    from guitar_tablature_classification_tpu_torch.data.synthetic import make_synthetic_dataset
+    from guitar_tablature_classification_tpu_torch.train import run as train_run
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        base = ["--synthetic", "--synthetic-tracks", "32", "--batch-size", "32",
+                "--recipe", "native-best",
+                "--stem-fusion", "fused", "--bn-fusion", "on", "--checkpoint-dir", ck,
+                "--device", "cuda"]
+        lines, counts, seconds = _run_captured(torch, mods, train_run.main,
+                                               [*base, "--epochs", "3"], "train_cli train")
+        missing = [k for k in TRAIN_CLI_KERNELS if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"train_cli: kernels {missing} not launched: {counts}")
+        epochs = _epoch_lines(lines)
+        final = json.loads(lines[-1])
+        if [e["epoch"] for e in epochs] != [1, 2, 3] or not np.isfinite(final["best_val_loss"]):
+            raise AssertionError(f"train_cli: epochs {epochs}, final {final}")
+        with open(os.path.join(ck, "best_guitar_tab_model.meta.json")) as f:
+            saved = json.load(f)
+        out["train"] = {"seconds": seconds, "launches": counts, "epochs": epochs,
+                        "final": final, "checkpoint_epoch": saved["epoch"] + 1,
+                        "checkpoint_step": saved["step"]}
+
+        lines, counts, seconds = _run_captured(
+            torch, mods, train_run.main, [*base, "--epochs", "4", "--resume"], "train_cli resume")
+        epochs = _epoch_lines(lines)
+        start = saved["epoch"] + 2  # the epoch after the checkpoint's, 1-based
+        resumed = f"resumed from epoch {saved['epoch'] + 1} (step {saved['step']})"
+        if not any(resumed in ln for ln in lines) or not epochs or epochs[0]["epoch"] != start:
+            raise AssertionError(f"train_cli: the resume did not start at epoch {start}: {epochs}")
+        out["resume"] = {"seconds": seconds, "first_epoch": epochs[0]["epoch"], "epochs": epochs,
+                         "final": json.loads(lines[-1])}
+        with open(os.path.join(ck, "best_guitar_tab_model.meta.json")) as f:
+            saved = json.load(f)
+
+        lines, counts, seconds = _run_captured(
+            torch, mods, train_run.main, [*base, "--eval-only"], "train_cli eval-only")
+        evaluated = json.loads(lines[-1])
+        if evaluated.get("checkpoint_step") != saved["step"] or \
+                not np.isfinite(evaluated["val_loss"]):
+            raise AssertionError(f"train_cli: --eval-only printed {evaluated}, "
+                                 f"checkpoint step {saved['step']}")
+        with plain_bn(mods["bn_fused"]), plain_native_stem(mods["stem_native"]):
+            lines, counts_plain, _ = _run_captured(
+                torch, mods, train_run.main, [*base, "--eval-only"],
+                "train_cli eval-only, plain versions")
+        plain = json.loads(lines[-1])
+        gap = abs(evaluated["val_loss"] - plain["val_loss"]) / plain["val_loss"]
+        if counts_plain.get("native_fwd") or gap > TRAIN_CLI_EVAL_TOL:
+            raise AssertionError(f"train_cli: --eval-only with the kernels {evaluated}, with "
+                                 f"their plain versions {plain} (launches {counts_plain})")
+        out["eval_only"] = {"seconds": seconds, **evaluated, "launches": counts,
+                            "plain": plain, "val_loss_gap": gap, "tol": TRAIN_CLI_EVAL_TOL}
+
+        track = make_synthetic_dataset(np.random.default_rng(1234), 1)[0]
+        wav, tab = os.path.join(tmp, "synth.wav"), os.path.join(tmp, "synth_tab.txt")
+        wavfile.write(wav, 44100, (np.clip(track["audio"], -1, 1) * 32767).astype(np.int16))
+        lines, counts, seconds = _run_captured(
+            torch, mods, mods["cli"].main,
+            [wav, "--recipe", "native-best", "--model", os.path.join(ck, "best_guitar_tab_model"),
+             "--output", tab, "--device", "cuda"],
+            "train_cli transcribe", show=lambda ln: ln[:2] in ("e|", "E|") or "written" in ln)
+        with open(tab) as f:
+            strings = [ln for ln in f if ln[:2] in ("e|", "B|", "G|", "D|", "A|", "E|")]
+        if len(strings) != 6 or not counts.get("cqt_fused"):
+            raise AssertionError(f"train_cli: transcription from the checkpoint failed "
+                                 f"({len(strings)} tab lines, launches {counts})")
+        out["transcribe"] = {"seconds": seconds, "launches": counts}
+    print("train_cli: " + json.dumps(out), flush=True)
+    return out
+
+
+def bench_phase(torch, mods) -> dict:
+    """17. The port's bench (``python -m ...bench``'s ``main``) in-process:
+    its JSON line printed; each row must have launched B1 once a step, the
+    flagship row B2's three kernels once a step too."""
+    from guitar_tablature_classification_tpu_torch import bench
+
+    lines, counts, seconds = _run_captured(torch, mods, bench.main, [], "bench")
+    if len(lines) != 1:
+        raise AssertionError(f"bench: expected one JSON line, got {lines}")
+    result = json.loads(lines[0])
+    detail = result["detail"]
+    steps = detail["timed_steps"]
+    rows = {"flagship": {**detail, "value": result["value"]}}
+    rows.update({k: detail[k] for k in ("native_variant", "native_variant_default_tier",
+                                        "native_variant_default_tier_b8192",
+                                        "native_serving_default_tier")})
+    for name, row in rows.items():
+        want = {"cqt_fused": steps}
+        if name == "flagship":
+            want.update(stem_stats=steps, stem_fwd=steps, stem_bwd=steps)
+        got = {k: row["launches"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"bench {name}: launches {row['launches']}, expected {want}")
+        if not (row.get("step_ms") or row.get("batch_ms")) or not row["host_enqueue_ms"] > 0:
+            raise AssertionError(f"bench {name}: no step or enqueue time: {row}")
+    summary = {name: {"batch": row["batch"], "ms": row.get("step_ms", row.get("batch_ms")),
+                      "host_enqueue_ms": row["host_enqueue_ms"], "segments_per_s": row["value"],
+                      "launches": row["launches"]} for name, row in rows.items()}
+    print("bench rows: " + json.dumps(summary), flush=True)
+    return {"rows": summary, "seconds": seconds, "launches": counts}
+
 def port_modules() -> dict:
     """The port's modules and entry points this script drives."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2257,6 +2445,8 @@ def main() -> int:
         frame_gemm[tier]["launches"] = frame_gemm["launches"][f"cqt_frame_gemm_mma_{tier}"]
     gemm_stats = timed("gemm_stats", gemm_stats_phase, torch, mods)
     conv = timed("conv3x3", conv3x3_phase, torch, mods)
+    timed("train_cli", train_cli_phase, torch, mods)
+    timed("bench", bench_phase, torch, mods)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernel_sources = {  # name -> (source, TPU kernel, rows, the main path's run)

@@ -5,12 +5,18 @@ The JAX package stays the reference; this package never imports it (nor
 JAX).  Its modules mirror the JAX package's names so each counterpart is
 easy to find:
 
-  ops/     CQT frontend (plain version + hand-written Hopper kernel in
-           csrc/cqt.cu), framing, normalization, resize, smoothing
-  models/  ResNet18, string-branch heads, GuitarTabNet, weight conversion
-  train/   make_preprocess
-  data/    audio file loading
+  ops/     CQT frontend (plain version + hand-written Hopper kernels in
+           csrc/), attention, the stem tails, fused BatchNorm, framing,
+           normalization, resize, smoothing, augmentation
+  models/  ResNet18, ViT, string-branch heads, GuitarTabNet, ViTTab,
+           weight conversion
+  train/   preprocess, train and eval steps, the epoch loop, schedules,
+           checkpoints, metrics, the tab-train CLI (train/run.py)
+  data/    audio file loading, synthetic data, packing, loaders
+  labels/  JAMS reading and tablature labels
+  utils/   generators, metrics logging, profiling
   infer/   batched transcription, tab text, the tab-transcribe CLI
+  bench.py the root bench.py's rows on the card
 
 Entry points run on the card (``cuda``) unless the caller passes
 ``device="cpu"``.

@@ -2,9 +2,13 @@
 ``infer/cli.py``, ``tab-transcribe``).
 
 Same flags as the JAX CLI, plus ``--device`` (default ``cuda``).
-``--model`` takes a reference-layout ``.pt`` file; Orbax directories, tab
-images (``--image``) and activation plots (``--visualize``) are not ported
-yet and raise a clear error.
+``--model`` takes a reference-layout ``.pt`` file, or a checkpoint of the
+port's trainer (``train.run``): its directory, its name in that directory
+(``checkpoints/best_guitar_tab_model``, as the JAX CLI takes its Orbax
+one) or its ``.pt`` file, checked against the requested model
+configuration.  The JAX package's Orbax directories, tab images
+(``--image``) and activation plots (``--visualize``) are not ported and
+raise a clear error.
 
     python -m guitar_tablature_classification_tpu_torch.infer.cli track.wav \\
         --recipe native-best --model best_guitar_tab_model.pt
@@ -31,7 +35,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("audio", help="input audio file (WAV; MP3 with ffmpeg)")
     p.add_argument("--model", default=None,
-                   help="checkpoint: reference-layout .pt file")
+                   help="checkpoint: reference-layout .pt file, or a "
+                        "checkpoint directory (or name) of the port's "
+                        "trainer")
     p.add_argument("--arch", default=None,
                    choices=["resnet18", "resnet18_native", "vit_s8",
                             "vit_native", "small_cnn"],
@@ -82,15 +88,31 @@ def load_transcriber(args):
         model_cfg=model_cfg, cqt_cfg=cqt_cfg, batch_size=args.batch_size,
         device=args.device,
     )
-    if args.model and args.model.endswith(".pt"):
-        return transcriber_from_torch_checkpoint(
-            args.model, arch=model_cfg.arch, **common
-        )
     if args.model:
+        from ..train.checkpoint import (
+            CheckpointMismatchError,
+            OrbaxCheckpointError,
+            find_checkpoint,
+        )
+
+        try:
+            ckpt = find_checkpoint(args.model)
+            if ckpt is not None:  # the port's trainer's checkpoint
+                transcriber = Transcriber(None, **common)
+                ckpt.load_model(transcriber.model,
+                                expect_model=dataclasses.asdict(model_cfg))
+                return transcriber
+        except (CheckpointMismatchError, OrbaxCheckpointError) as e:
+            raise SystemExit(f"--model: {e}")
+        if args.model.endswith(".pt"):
+            return transcriber_from_torch_checkpoint(
+                args.model, arch=model_cfg.arch, **common
+            )
         raise SystemExit(
-            f"--model {args.model}: this port serves reference-layout .pt "
-            "checkpoints only. Convert an Orbax checkpoint with the JAX "
-            "package's models.torch_export.save_torch_checkpoint first."
+            f"--model {args.model}: neither a reference-layout .pt file nor "
+            "a checkpoint of the port's trainer. Convert an Orbax checkpoint "
+            "with the JAX package's models.torch_export.save_torch_checkpoint "
+            "first."
         )
     return Transcriber(None, **common)  # seeded random init (smoke/demo)
 

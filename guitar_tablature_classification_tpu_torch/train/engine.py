@@ -1,24 +1,29 @@
 """Training engine of the port: the JAX package's ``train/engine.py``
 (``make_optimizer``, ``make_preprocess``, ``TrainState``,
-``create_train_state``, ``make_train_step``, ``make_eval_step``).
+``create_train_state``, ``make_train_step``, ``make_eval_step``,
+``validate_model``, ``test_model``, ``train_model``).
 
 The JAX step is one jitted pure function; here the step runs eagerly and
 updates the state in place (the parameters, moments and running averages
 live in flat fp32 buffers, so each optimizer operation is one kernel over
 all of them).  Nothing in a step reads a device value on the host: the
 non-finite-loss skip is a device-side select, and the metrics come back as
-device tensors.
+device tensors.  The loops above the steps read the device once an epoch
+(the summed train loss) and once a validation pass.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Mapping, Sequence
+from typing import Any, Callable, Iterable, Mapping, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..config import ModelConfig, OptimConfig
+from ..config import ModelConfig, OptimConfig, TrainConfig
 from ..device import resolve_device
 from ..ops.loss import label_smoothing_loss, per_string_accuracy
 from ..ops.normalize import db_to_unit, imagenet_normalize, tile_channels
@@ -227,8 +232,10 @@ def create_train_state(
 # -------------------------------------------------------------------- steps
 
 
-def _features(batch, frontend, preprocess):
+def _features(batch, frontend, preprocess, augment=None, generator=None):
     feats = frontend(batch["audio"]) if "audio" in batch else batch["features"]
+    if augment is not None:
+        feats = augment(generator, feats)
     return preprocess(feats) if preprocess is not None else feats
 
 
@@ -239,24 +246,28 @@ def make_train_step(
     smoothing: float = 0.05,
     skip_nonfinite: bool = True,
     frontend: Callable | None = None,
+    augment: Callable | None = None,
 ):
     """The train step ``train_step(state, batch, generator, lr) -> metrics``.
 
     ``batch``: either ``audio`` [B, W] raw windows (through ``frontend``,
     the CQT) or ``features`` [B, F, T] dB, plus ``labels`` [B, 6] int frets
-    and optional ``weights`` [B, 6].  ``generator`` draws the dropout masks;
-    ``lr`` is this step's learning rate.  Forward and backward in train
-    mode, the label-smoothed loss, one optimizer update, in place.  With
-    ``skip_nonfinite``, a non-finite loss leaves the parameters, moments
-    and running averages as they were (``engine.py:208-215``); ``step``
-    advances either way.  Metrics (device tensors): ``loss``,
+    and optional ``weights`` [B, 6].  ``generator`` draws the dropout masks
+    and, with ``augment`` (``augment(generator, feats) -> feats``, for
+    example :func:`..ops.augment.augment_batch`), the augmentation of the
+    [B, F, T] features before ``preprocess`` (``engine.py:157,171-172`` of
+    the JAX package); ``lr`` is this step's learning rate.  Forward and
+    backward in train mode, the label-smoothed loss, one optimizer update,
+    in place.  With ``skip_nonfinite``, a non-finite loss leaves the
+    parameters, moments and running averages as they were
+    (``engine.py:208-215``); ``step`` advances either way.  Metrics (device tensors): ``loss``,
     ``accuracy``, ``per_string_accuracy`` and ``grad_norm`` (of the raw
     gradients)."""
 
     def train_step(state: TrainState, batch, generator: torch.Generator, lr: float):
         model.train()
         with torch.no_grad():
-            images = _features(batch, frontend, preprocess)
+            images = _features(batch, frontend, preprocess, augment, generator)
         labels = batch["labels"]
         saved = state.buffers.clone() if skip_nonfinite else None
         logits = model(images, generator)
@@ -323,3 +334,220 @@ def make_eval_step(
         }
 
     return eval_step
+
+
+# -------------------------------------------------------------------- loops
+
+
+def batch_to_device(batch: Mapping[str, Any], device: torch.device) -> dict[str, torch.Tensor]:
+    """A loader's batch of NumPy arrays on ``device``: to the card through
+    pinned memory with ``non_blocking`` copies, so the host goes on
+    enqueueing while the copy runs."""
+    out = {}
+    for key, value in batch.items():
+        t = torch.as_tensor(value)
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        out[key] = t
+    return out
+
+
+def validate_model(state: TrainState, eval_step, loader: Iterable) -> dict[str, Any]:
+    """Aggregate eval metrics over a loader (``engine.py:275-298`` of the
+    JAX package): per-string accuracy is the exact correct/total ratio,
+    and the loss the exact weighted mean over all (sample, string) cells
+    (each batch's weighted-mean loss re-scaled by its weight total, so a
+    padded or short last batch counts in proportion).  The sums stay on
+    the device in float64 and are read once."""
+    dev = state.params.device
+    loss_sum = torch.zeros((), dtype=torch.float64, device=dev)
+    correct = count = None
+    for batch in loader:
+        m = eval_step(state, batch_to_device(batch, dev))
+        c = m["count"].double()
+        # eval_step's loss = weighted_sum / weight_total and c.sum() =
+        # weight_total, so this recovers the weighted sum
+        loss_sum += m["loss"].double() * c.sum()
+        correct = m["correct"].double() if correct is None else correct + m["correct"]
+        count = c if count is None else count + c
+    if count is None:
+        raise ValueError("validate_model: the loader yielded no batch")
+    correct, count = correct.cpu().numpy(), count.cpu().numpy()
+    total = max(count.sum(), 1.0)
+    return {
+        "loss": float(loss_sum) / total,
+        "per_string_accuracy": correct / np.maximum(count, 1.0),
+        "accuracy": float(correct.sum() / total),
+    }
+
+
+def test_model(state: TrainState, eval_step, loader: Iterable) -> dict[str, Any]:
+    """Per-string + overall test accuracy (bestengine.py:331-380)."""
+    return validate_model(state, eval_step, loader)
+
+
+def _snapshot(state: TrainState, into: dict | None = None) -> dict:
+    """A copy of what the train step changes in place (parameters, running
+    averages, Adam moments) and ``step``; ``into`` is refilled, not
+    reallocated."""
+    live = {"params": state.params, "buffers": state.buffers,
+            "count": state.opt_state.count, "mu": state.opt_state.mu,
+            "nu": state.opt_state.nu}
+    if into is None:
+        into = {k: v.clone() for k, v in live.items()}
+    else:
+        for k, v in live.items():
+            into[k].copy_(v)
+    into["step"] = state.step
+    return into
+
+
+def _load_snapshot(state: TrainState, snap: dict) -> None:
+    with torch.no_grad():
+        state.params.copy_(snap["params"])
+        state.buffers.copy_(snap["buffers"])
+        state.opt_state.count.copy_(snap["count"])
+        state.opt_state.mu.copy_(snap["mu"])
+        state.opt_state.nu.copy_(snap["nu"])
+    state.step = snap["step"]
+
+
+def train_model(
+    train_loader: Iterable,
+    val_loader: Iterable,
+    config: TrainConfig | None = None,
+    *,
+    model: nn.Module | None = None,
+    state: TrainState | None = None,
+    frontend: Callable | None = None,
+    checkpointer=None,
+    resume: bool = False,
+    log: Callable[[str], None] = print,
+    on_epoch_end: Callable[[int, dict, TrainState], None] | None = None,
+    device: str | torch.device | None = None,
+) -> tuple[TrainState, dict]:
+    """Reference-compatible training loop (bestengine.py:870-1016; JAX
+    ``engine.py:305-444``): epoch loop, validation, LR schedule on the val
+    loss, best-val checkpoint, early stopping.  ``resume=True`` restarts
+    from the checkpointer's last saved state and epoch.  Returns
+    (best_state, history).
+
+    The model is ``state.model``, else ``model``, else built from
+    ``config.model`` with a generator seeded by ``config.optim.seed``; a
+    new state lives on ``device`` (the card unless the caller asks for
+    the CPU).  Each step's generator (dropout, augmentation) is seeded
+    from (seed, step) (:func:`..utils.prng.step_generator`), so a resumed
+    run draws what an uninterrupted one would have.  The train step
+    changes the state in place, so the best epoch's parameters, running
+    averages, moments and step are copied aside when the val loss
+    improves, and loaded back into the returned state at the end."""
+    from ..models.tabnet import build_model
+    from ..utils.prng import step_generator
+    from .schedules import make_scheduler
+
+    config = config or TrainConfig()
+    ocfg = config.optim
+    init_batch = next(iter(train_loader))  # as the JAX loop: a shuffled loader's epoch advances
+    if "features" in init_batch and np.ndim(init_batch["features"]) == 4:
+        raise NotImplementedError(
+            "the rgb_image input kind (PNG spectrogram renders) is not ported "
+            "yet (ROADMAP A3); train on [B, n_bins, n_frames] dB features"
+        )
+    if state is None:
+        if model is None:
+            model = build_model(
+                config.model, generator=torch.Generator().manual_seed(ocfg.seed)
+            )
+        state = create_train_state(model, ocfg, device)
+    model = state.model
+    dev = state.params.device
+    preprocess = make_preprocess(config.model, config.data.image_size)
+
+    start_epoch = 0
+    resumed_best = None
+    model_meta = dataclasses.asdict(config.model)
+    if resume and checkpointer is not None and checkpointer.exists():
+        state, meta = checkpointer.restore(state, expect_model=model_meta)
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        resumed_best = meta.get("metrics", {}).get("loss")
+        log(f"resumed from epoch {start_epoch} (step {int(state.step)})")
+
+    augment = None
+    if ocfg.augment:
+        from functools import partial
+
+        from ..ops.augment import augment_batch
+
+        augment = partial(augment_batch, augment_prob=ocfg.augment_prob)
+    train_step = make_train_step(
+        model, preprocess, smoothing=ocfg.label_smoothing, frontend=frontend,
+        augment=augment,
+    )
+    eval_step = make_eval_step(
+        model, preprocess, smoothing=ocfg.label_smoothing, frontend=frontend
+    )
+    scheduler = make_scheduler(ocfg)
+    generator = torch.Generator(device=dev)
+
+    lr = ocfg.learning_rate
+    best_val = float(resumed_best) if resumed_best is not None else float("inf")
+    best = _snapshot(state)
+    patience = 0
+    history: dict[str, list] = {
+        "train_loss": [], "val_loss": [], "val_accuracy": [], "lr": [],
+        "val_per_string": [], "epoch_time": [],
+    }
+
+    for epoch in range(start_epoch, ocfg.epochs):
+        t0 = time.perf_counter()
+        running = torch.zeros((), dtype=torch.float64, device=dev)
+        steps, seen = 0, 0
+        for batch in train_loader:
+            gen = step_generator(ocfg.seed, state.step, generator=generator)
+            metrics = train_step(state, batch_to_device(batch, dev), gen, lr)
+            running += metrics["loss"]
+            steps += 1
+            seen += int(batch["labels"].shape[0])
+        train_loss = float(running) / max(steps, 1)  # the epoch's one read
+        train_time = time.perf_counter() - t0
+
+        val = validate_model(state, eval_step, val_loader)
+        lr = scheduler(epoch, val["loss"], lr)
+        dt = time.perf_counter() - t0
+
+        history["train_loss"].append(train_loss)
+        history["val_loss"].append(val["loss"])
+        history["val_accuracy"].append(val["accuracy"])
+        history["val_per_string"].append(val["per_string_accuracy"].tolist())
+        history["lr"].append(lr)
+        history["epoch_time"].append(dt)
+        segments_per_sec = seen / max(train_time, 1e-9)
+        history.setdefault("segments_per_sec", []).append(segments_per_sec)
+        log(
+            f"epoch {epoch + 1}/{ocfg.epochs}: train {train_loss:.4f} "
+            f"val {val['loss']:.4f} acc {val['accuracy']:.4f} "
+            f"lr {lr:.2e} ({dt:.1f}s, {segments_per_sec:,.0f} segments/s)"
+        )
+
+        if on_epoch_end is not None:
+            on_epoch_end(epoch, history, state)
+
+        if val["loss"] < best_val:
+            best_val = val["loss"]
+            _snapshot(state, into=best)
+            patience = 0
+            if checkpointer is not None:
+                checkpointer.save(
+                    state, epoch=epoch, metrics=val, model_meta=model_meta,
+                )
+        else:
+            patience += 1
+            if patience >= ocfg.early_stop_patience:
+                log(f"early stopping at epoch {epoch + 1}")
+                break
+
+    _load_snapshot(state, best)
+    history["best_val_loss"] = best_val
+    return state, history

@@ -1055,3 +1055,74 @@ def test_conv3x3_wrapper_rejects_what_the_kernel_does_not_take(card):
         conv3x3_cuda.conv3x3(shifted, w9, s, o)
     with pytest.raises(ValueError, match="must lie on"):
         conv3x3_cuda.conv3x3(x, w9.cpu(), s, o)
+
+
+@pytest.mark.cuda
+def test_checkpoint_written_on_the_card_reloads_there(card, tmp_path, capsys):
+    """train.run on the card (native-best, the native fused stem and the
+    fused BatchNorm, one synthetic track, one epoch) writes a checkpoint
+    and, with --profile-dir, a trace that holds the native stem's kernels;
+    restored into a fresh state on the card the checkpoint holds the
+    file's weights, moments and step; --eval-only reports that step; a
+    Transcriber served from the file on the card gives the restored
+    model's logits."""
+    import json
+
+    from guitar_tablature_classification_tpu_torch.models import build_model
+    from guitar_tablature_classification_tpu_torch.train import Checkpointer, create_train_state
+    from guitar_tablature_classification_tpu_torch.train import run as train_run
+
+    ck = str(tmp_path / "ck")
+    base = ["--synthetic", "--synthetic-tracks", "1", "--recipe", "native-best",
+            "--stem-fusion", "fused", "--bn-fusion", "on", "--checkpoint-dir", ck,
+            "--device", "cuda"]
+    before = dict(stem_native_cuda.launches)
+    prof = tmp_path / "prof"
+    assert train_run.main([*base, "--epochs", "1", "--profile-dir", str(prof)]) == 0
+    assert stem_native_cuda.launches["native_bwd"] > before["native_bwd"]
+    assert "native_bwd" in (prof / "trace.json").read_text()
+    assert (prof / "ops.txt").stat().st_size > 0
+    cfg = train_run.make_config(train_run.build_parser().parse_args(base))
+    ckpt = Checkpointer(ck)
+    state = create_train_state(build_model(cfg.model), cfg.optim, device="cuda")
+    state, meta = ckpt.restore(state, expect_model=dataclasses.asdict(cfg.model))
+    tree = torch.load(ckpt.path, map_location="cpu", weights_only=True)
+    assert state.params.is_cuda and state.step == meta["step"] == tree["step"] > 0
+    sd = state.model.state_dict()
+    for key, value in tree["model_state_dict"].items():
+        assert torch.equal(sd[key].cpu(), value), key
+    adam = state.adam_state()
+    assert adam["count"] == tree["optimizer_state_dict"]["count"] == state.step
+    for name, value in tree["optimizer_state_dict"]["mu"].items():
+        assert torch.equal(adam["mu"][name].cpu(), value), name
+    capsys.readouterr()
+    assert train_run.main([*base, "--eval-only"]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["checkpoint_step"] == \
+        state.step
+    served = Transcriber(tree["model_state_dict"], model_cfg=cfg.model, cqt_cfg=cfg.cqt,
+                         device="cuda")
+    windows = _windows(cfg.cqt, 16, 3, card)
+    state.model.eval()
+    with torch.no_grad():
+        want = state.model(served.preprocess(served.frontend(windows)))
+    assert torch.equal(served.predict_logits(windows), want)
+
+
+@pytest.mark.cuda
+def test_loader_batches_reach_the_card_through_pinned_copies(card):
+    """batch_to_device: NumPy batches land on the card with their dtypes
+    and values; the augmentation draws the same on a CUDA generator for
+    the same seed."""
+    from guitar_tablature_classification_tpu_torch.ops.augment import augment_batch
+    from guitar_tablature_classification_tpu_torch.train import batch_to_device
+
+    rng = np.random.default_rng(0)
+    feats = rng.uniform(-120, 0, (8, 96, 9)).astype(np.float32)
+    labels = rng.integers(0, 19, (8, 6)).astype(np.int32)
+    out = batch_to_device({"features": feats, "labels": labels}, card)
+    torch.cuda.synchronize()
+    assert out["features"].is_cuda and out["labels"].dtype == torch.int32
+    assert np.array_equal(out["features"].cpu().numpy(), feats)
+    a = augment_batch(torch.Generator(device="cuda").manual_seed(3), out["features"], 0.5)
+    b = augment_batch(torch.Generator(device="cuda").manual_seed(3), out["features"], 0.5)
+    assert a.is_cuda and torch.equal(a, b)

@@ -49,8 +49,9 @@ def test_source_imports_no_jax(path):
 
 
 def test_port_runs_without_jax_in_sys_modules(tmp_path):
-    """Import the port and its tools, build a Transcriber and the CLI on the
-    CPU, run one short transcription, then check sys.modules."""
+    """Import the port, its tools, its train CLI and bench, build a
+    Transcriber and the CLI on the CPU, run one short transcription, then
+    check sys.modules."""
     script = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
@@ -61,6 +62,10 @@ from guitar_tablature_classification_tpu_torch.infer import Transcriber, cli
 from guitar_tablature_classification_tpu_torch.models import convert
 from guitar_tablature_classification_tpu_torch.ops import conv3x3, cqt_cuda, stem_tail
 from guitar_tablature_classification_tpu_torch.tools import probe_conv, profile_stem_pieces
+from guitar_tablature_classification_tpu_torch import bench, data, labels, utils
+from guitar_tablature_classification_tpu_torch.ops import augment
+from guitar_tablature_classification_tpu_torch.train import checkpoint, metrics, run
+run.make_config(run.build_parser().parse_args(["--synthetic", "--recipe", "native-best"]))
 cfg = RECIPES["native-best"]()
 t = Transcriber(None, model_cfg=cfg.model, cqt_cfg=cfg.cqt, batch_size=4,
                 device="cpu")
