@@ -117,18 +117,33 @@
    ``highest`` and ``default``, at B=8192 at ``default``, serving at
    B=4096), each row's step ms beside its host enqueue ms; every row must
    have launched B1 once a step, the flagship row B2's three kernels too.
+18. The GuitarSet runbook: the port's ``make_synthetic_guitarset`` renders
+   48 excerpts of 24 s (5,760 windows), ``run_guitarset.main`` extracts
+   their CQT on the card (B1 at ``highest``, one launch per track's chunk
+   of 512 windows), makes the labels, audits the pairing and trains
+   ``native-best`` for 2 epochs with ``--report-dir`` (the seven PNGs; on a
+   machine without matplotlib, the report's arrays from the checkpoint on
+   the card instead); one track's features against the plain CQT.
+19. Raw-audio training: ``AudioWindowLoader`` (the native C++ loader) at
+   B=2048 over the same tree, through ``as_device_batches(prefetch=2)``,
+   into path B's train step (the CQT kernel as the frontend): 10 steps,
+   path B's launches a step, the prefetched batches bit for bit the
+   loader's, the first three steps replayed through the plain versions,
+   then the same steps through ``batch_to_device``.
 
 Then one JSON line of the fourteen kernels' measurements (``cqt_fused`` and
 ``cqt_frame_gemm`` with their other tiers' beside: B1's ``bf16x3`` at the
 flagship shape, B=256, ``highest`` on the tensor cores at the kernel
-phase's B=4096, and ``default`` at the serving shape), and the status line
-last.  Any failed check raises, which exits non-zero.  Needs one CUDA card.
+phase's B=4096, and ``default`` at the serving shape; B1's, B6's and B7's
+with their launches in the runbook and in raw-audio training beside), and
+the status line last.  Any failed check raises, which exits non-zero.  Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import os
 import re
@@ -2193,6 +2208,294 @@ def bench_phase(torch, mods) -> dict:
     print("bench rows: " + json.dumps(summary), flush=True)
     return {"rows": summary, "seconds": seconds, "launches": counts}
 
+
+# The runbook's tree: 48 excerpts of 24 s (120 windows each, 5,760 in
+# all), so native-best's training split (80 %) holds two full batches of
+# 2048; the extraction's chunk (the runbook's --cqt-batch default).
+RUNBOOK_EXCERPTS = 48
+RUNBOOK_SECONDS = 24.0
+EXTRACT_BATCH = 512
+# one track's extracted features against the plain CQT on the same windows
+# (tests/test_cqt.py:214-224): off the gate's 0.5 dB boundary, within
+# 0.02 dB, the gated cells the same
+EXTRACT_TOL_DB, EXTRACT_BOUNDARY_DB = 0.02, 0.5
+REPORT_PNGS = ("training_metrics.png", "sample_inputs.png", "prediction_overlay.png",
+               "correct_incorrect.png", "confusion_matrices.png", "fret_accuracy.png",
+               "model_architecture.png")
+
+
+def runbook_phase(torch, mods, tree: str) -> dict:
+    """18. The GuitarSet runbook on the card: the port's
+    ``make_synthetic_guitarset`` renders RUNBOOK_EXCERPTS excerpts into
+    ``tree``, then ``run_guitarset.main`` extracts their CQT features on
+    the card (B1, one launch per chunk of EXTRACT_BATCH windows of a
+    track), regenerates the labels from the JAMS, audits the pairing and
+    trains ``native-best`` for 2 epochs with ``--report-dir``.  One
+    track's features are held to the plain CQT on the same windows."""
+    from guitar_tablature_classification_tpu_torch.data.audio import load_audio
+    from guitar_tablature_classification_tpu_torch.labels.extractor import find_audio_for_jams
+    from guitar_tablature_classification_tpu_torch.tools import (
+        make_synthetic_guitarset,
+        run_guitarset,
+    )
+
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        make_synthetic_guitarset.main(["--out", tree, "--excerpts", str(RUNBOOK_EXCERPTS),
+                                       "--duration", str(RUNBOOK_SECONDS), "--seed", "42"])
+    render_s = time.perf_counter() - t
+    audio_dir, jams_dir = os.path.join(tree, "audio"), os.path.join(tree, "annotation")
+    work, report = os.path.join(tree, "work"), os.path.join(tree, "report")
+    # the report's PNGs need matplotlib, which a machine may lack (--report-dir
+    # then exits before training); without it the report's arrays are
+    # computed on the card from the checkpoint instead
+    plots = importlib.util.find_spec("matplotlib") is not None
+    lines, counts, seconds = _run_captured(
+        torch, mods, run_guitarset.main,
+        ["--audio", audio_dir, "--annotation", jams_dir, "--workdir", work,
+         "--recipe", "native-best", "--epochs", "2", "--cqt-batch", str(EXTRACT_BATCH),
+         "--device", "cuda", *(["--report-dir", report] if plots else [])],
+        "runbook", show=lambda ln: ln.startswith(("[", "pairing", "  ", "best", "per-string")))
+
+    # B1's launches: each track's windows in chunks of EXTRACT_BATCH, each
+    # on the kernel cqt_route picks for the chunk (training reads features)
+    cfg = mods["CQTConfig"]()
+    cfg = dataclasses.replace(cfg, hop_seconds=cfg.window_seconds)
+    frontend = mods["CQTFrontend"](cfg)
+    features = os.path.join(work, "features")
+    names = sorted(os.listdir(features))
+    per_track = {}
+    for name in names:
+        base = name.rsplit("_segment_", 1)[0]
+        per_track[base] = per_track.get(base, 0) + 1
+    want = {}
+    for n in per_track.values():
+        for lo in range(0, n, EXTRACT_BATCH):
+            chunk = min(EXTRACT_BATCH, n - lo)
+            for k, v in _cqt_expect(_route(frontend, chunk), cfg.precision).items():
+                want[k] = want.get(k, 0) + v
+    got = {k: counts.get(k, 0) for k in _cqt_counts(mods["cqt_cuda"])}
+    if got != {k: want.get(k, 0) for k in got}:
+        raise AssertionError(f"runbook: CQT launches {got}, expected {want} "
+                             f"({len(per_track)} tracks, {len(names)} windows)")
+
+    # one track's features against the plain CQT on the same windows
+    base = sorted(per_track)[0]
+    audio, _ = load_audio(find_audio_for_jams(audio_dir, base), sample_rate=cfg.sample_rate)
+    windows = np.array(mods["frame_track"](audio, cfg, hop_samples=cfg.hop_samples))
+    with torch.no_grad():
+        plain = frontend.plain(torch.from_numpy(windows).cuda()).cpu().numpy()
+    rank = next(n for n in names if n.startswith(f"{base}_segment_")).split("_")[-2]
+    got_db = np.stack([np.load(os.path.join(features, f"{base}_segment_{rank}_{k * 0.2:.2f}.npy"))
+                       for k in range(len(windows))])
+    off_boundary = np.abs(plain - cfg.gate_threshold_db) >= EXTRACT_BOUNDARY_DB
+    err = float(np.abs(got_db - plain)[off_boundary].max())
+    gated = int(((got_db == cfg.gate_floor_db) != (plain == cfg.gate_floor_db))[off_boundary].sum())
+    if err > EXTRACT_TOL_DB or gated:
+        raise AssertionError(f"runbook: {base}'s features against the plain CQT: max err "
+                             f"{err} dB, {gated} gate flips off the boundary")
+
+    if not any("exact match" in ln for ln in lines):
+        raise AssertionError("runbook: the pairing audit did not print 'exact match'")
+    final = json.loads(next(ln for ln in reversed(lines) if ln.startswith('{"test_accuracy"')))
+    if len(final["per_string"]) != 6 or not np.isfinite(final["per_string"]).all():
+        raise AssertionError(f"runbook: final JSON {final}")
+    if plots:
+        sizes = {png: os.path.getsize(os.path.join(report, png))
+                 if os.path.exists(os.path.join(report, png)) else 0 for png in REPORT_PNGS}
+        if not all(sizes.values()):
+            raise AssertionError(f"runbook: report artifacts missing or empty: {sizes}")
+        report_check = {"png_bytes": sizes}
+    else:
+        report_check = report_on_card(torch, mods, work, final)
+    extract = next(re.search(r"wrote (\d+) CQT feature files in ([\d.]+) s", ln)
+                   for ln in lines if ln.startswith("[2/4] wrote"))
+    train_s = next(float(re.search(r"trained in ([\d.]+) s", ln).group(1))
+                   for ln in lines if ln.startswith("[4/4] trained"))
+    out = {"excerpts": RUNBOOK_EXCERPTS, "windows": len(names), "render_s": render_s,
+           "extract_s": float(extract.group(2)),
+           "extract_windows_per_s": int(extract.group(1)) / float(extract.group(2)),
+           "train_s": train_s, "runbook_s": seconds, "launches": counts,
+           "extract_vs_plain": {"track": base, "windows": len(windows), "max_err_db": err,
+                                "gate_flips": gated, "tol_db": EXTRACT_TOL_DB},
+           "report": report_check, "final": final}
+    print("runbook: " + json.dumps(out), flush=True)
+    return out
+
+
+def report_on_card(torch, mods, work: str, final: dict) -> dict:
+    """Without matplotlib: ``train.run.report_data`` (what the report
+    plots) for the runbook's best checkpoint on its test split, on the
+    card; its confusion matrices' diagonals must give the per-string test
+    accuracy the runbook printed (both evaluate that state on that split)."""
+    from guitar_tablature_classification_tpu_torch.data.guitarset import create_dataloaders
+    from guitar_tablature_classification_tpu_torch.train import Checkpointer
+    from guitar_tablature_classification_tpu_torch.train.run import report_data
+
+    print("runbook: matplotlib is not installed on this machine, so no report PNGs: the "
+          "report's arrays are computed on the card from the checkpoint (the PNGs are "
+          "checked on the CPU by tests/test_torch_report.py)", flush=True)
+    recipe = mods["RECIPES"]["native-best"]()
+    _, _, test = create_dataloaders(os.path.join(work, "features"), os.path.join(work, "labels"),
+                                    recipe.data.batch_size, config=recipe.data)
+    model = mods["build_model"](recipe.model, generator=torch.Generator().manual_seed(0))
+    state = mods["create_train_state"](model, recipe.optim, device="cuda")
+    state, _ = Checkpointer(os.path.join(work, "checkpoints"), recipe.checkpoint_name).restore(
+        state, expect_model=dataclasses.asdict(recipe.model))
+    data = report_data(state, recipe, test)
+    cm = data["confusion"]
+    per_string = np.trace(cm, axis1=1, axis2=2) / cm.sum(axis=(1, 2))
+    gap = float(np.abs(per_string - np.asarray(final["per_string"])).max())
+    # the same bf16 model on the same windows: cuDNN may take another
+    # algorithm for the fresh model, so a near tie may flip; two flips of
+    # the test windows are allowed
+    if cm.shape != (6, 19, 19) or data["preds"].shape != data["targets"].shape or \
+            gap > 2.0 / cm[0].sum():
+        raise AssertionError(f"runbook: report arrays {cm.shape}, per-string {per_string} "
+                             f"against the runbook's {final['per_string']}")
+    return {"png_bytes": None, "test_windows": int(cm[0].sum()),
+            "per_string_from_confusion": per_string.tolist(), "gap_to_runbook": gap}
+
+
+AUDIO_TRAIN_STEPS = 10
+AUDIO_TRAIN_COMPARED = 3  # steps replayed through the plain versions
+
+
+def audio_train_phase(torch, mods, tree: str) -> dict:
+    """19. Raw-audio training on the card: an ``AudioWindowLoader`` (the
+    native C++ loader) over the runbook's WAVs and labels at native-best's
+    batch 2048 feeds ``as_device_batches(prefetch=2)`` into
+    ``make_train_step`` (native-best with the native fused stem and the
+    fused BatchNorms, the CQT kernel as the frontend): AUDIO_TRAIN_STEPS
+    steps, path B's launches a step, every prefetched batch bit for bit the
+    loader's.  Each of the first AUDIO_TRAIN_COMPARED steps is replayed
+    from the state and generator the run had before it, through the plain
+    versions (CQT, native stem, BatchNorm), and held to STEP_TOL: one step
+    from one state, as compare_step holds path B (three steps of two bf16
+    trajectories drift apart by more than one step's limits).  Then, for
+    the host's wait beside the prefetch's, the same steps through
+    ``batch_to_device`` twice and the prefetch again (the first run of a
+    process pins host memory and takes device memory that later runs find
+    cached)."""
+    from guitar_tablature_classification_tpu_torch.data import (
+        AudioWindowLoader,
+        as_device_batches,
+    )
+    from guitar_tablature_classification_tpu_torch.labels.extractor import find_audio_for_jams
+    from guitar_tablature_classification_tpu_torch.train import batch_to_device
+    from guitar_tablature_classification_tpu_torch.train.engine import (
+        _load_snapshot,
+        _snapshot,
+    )
+
+    recipe = mods["RECIPES"]["native-best"]()
+    batch = recipe.data.batch_size
+    model_cfg = dataclasses.replace(recipe.model, stem_fusion="fused", bn_fusion="on")
+    audio_dir = os.path.join(tree, "audio")
+    bases = sorted(f[:-len(".jams")] for f in os.listdir(os.path.join(tree, "annotation")))
+    tracks = [(find_audio_for_jams(audio_dir, b), b) for b in bases]
+    loader = AudioWindowLoader(tracks, os.path.join(tree, "work", "labels"), batch, recipe.cqt,
+                               seed=0)
+    if not loader.native:
+        raise AssertionError("audio_train: the loader runs the NumPy framing, not the native one")
+    frontend = mods["CQTFrontend"](recipe.cqt)
+    torch.cuda.empty_cache()
+
+    def run(source, snaps: list | None = None):
+        """AUDIO_TRAIN_STEPS steps from a fresh seeded state on the batches
+        ``source`` yields: (state, generator, metrics, device batches, the
+        host's ms waiting for each batch, step ms from the second step on);
+        ``snaps`` collects (state, generator state) before the first
+        AUDIO_TRAIN_COMPARED steps."""
+        model = mods["build_model"](model_cfg, generator=torch.Generator().manual_seed(0))
+        state = mods["create_train_state"](model, recipe.optim, device="cuda")
+        step = mods["make_train_step"](model, mods["make_preprocess"](model_cfg),
+                                       smoothing=recipe.optim.label_smoothing, frontend=frontend)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        metrics, device_batches, events, wait = [], [], [], []
+        for i in range(AUDIO_TRAIN_STEPS):
+            t = time.perf_counter()
+            b = next(source)
+            wait.append(1e3 * (time.perf_counter() - t))
+            if snaps is not None and i < AUDIO_TRAIN_COMPARED:
+                snaps.append((_snapshot(state), gen.get_state()))
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            metrics.append(step(state, b, gen, LR))
+            device_batches.append(b)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        torch.cuda.synchronize()
+        step_ms = events[1].elapsed_time(events[-1]) / (AUDIO_TRAIN_STEPS - 1)
+        return state, gen, metrics, device_batches, wait, step_ms
+
+    host = [loader.next_batch() for _ in range(AUDIO_TRAIN_STEPS)]
+    snaps = []
+    _reset_counts(mods)
+    state, gen, metrics, device_batches, wait, step_ms = run(
+        as_device_batches(iter(host), prefetch=2), snaps)
+    counts = {k: v for k, v in _counts(mods).items() if v}
+    per_step = {**_cqt_expect(_route(frontend, batch), recipe.cqt.precision),
+                "native_stats": 1, "native_fwd": 1, "native_bwd": 1,
+                "bn_sums": 19, "bn_grad_sums": 19}
+    want = {k: AUDIO_TRAIN_STEPS * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"audio_train: launches {counts}, expected {want}")
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    same = all(torch.equal(d[k].cpu(), torch.from_numpy(h[k]))
+               for d, h in zip(device_batches, host) for k in h)
+    labelled = float(np.mean([h["weights"].mean() for h in host]))
+    if not same or not np.isfinite(losses).all() or labelled < 1.0:
+        raise AssertionError(f"audio_train: prefetched batches equal the loader's: {same}, "
+                             f"losses {losses}, labelled share {labelled}")
+
+    # each of the first steps again from its state, through the plain versions
+    plain_step = mods["make_train_step"](state.model, mods["make_preprocess"](model_cfg),
+                                         smoothing=recipe.optim.label_smoothing,
+                                         frontend=frontend.plain)
+    _reset_counts(mods)
+    p_losses, p_norms = [], []
+    with plain_bn(mods["bn_fused"]), plain_native_stem(mods["stem_native"]):
+        for (snap, gen_state), b in zip(snaps, device_batches):
+            _load_snapshot(state, snap)
+            gen.set_state(gen_state)
+            m = plain_step(state, b, gen, LR)
+            p_losses.append(float(m["loss"]))
+            p_norms.append(float(m["grad_norm"]))
+    plain_counts = {k: v for k, v in _counts(mods).items() if v}
+    n = AUDIO_TRAIN_COMPARED
+    tol = STEP_TOL[model_cfg.dtype]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses[:n], p_losses)]
+    norm_rel = [abs(a - b) / abs(b) for a, b in zip(norms[:n], p_norms)]
+    if plain_counts or max(loss_rel) > tol["loss"] or max(norm_rel) > tol["grad_norm"]:
+        raise AssertionError(f"audio_train: kernel steps {losses[:n]} / {norms[:n]}, plain "
+                             f"{p_losses} / {p_norms} (launches {plain_counts})")
+    del state, device_batches, snaps
+
+    def timing(wait, step_ms):
+        # the first batch's wait holds the prefetch's fill; the mean of the rest
+        return {"step_ms": step_ms, "host_wait_ms_first": wait[0],
+                "host_wait_ms_rest": float(np.mean(wait[1:]))}
+
+    runs = {"prefetch": [timing(wait, step_ms)], "batch_to_device": []}
+    for name in ("batch_to_device", "batch_to_device", "prefetch"):
+        source = as_device_batches(iter(host), prefetch=2) if name == "prefetch" else \
+            (batch_to_device(b, torch.device("cuda")) for b in host)
+        *_, run_wait, run_ms = run(source)
+        runs[name].append(timing(run_wait, run_ms))
+    out = {"batch": batch, "steps": AUDIO_TRAIN_STEPS, "tracks": len(tracks),
+           "windows": len(loader), "native_loader": loader.native, "launches": counts,
+           "launches_per_step": per_step, "losses": losses, "grad_norms": norms,
+           "prefetched_equal_host": same,
+           "plain_replay": {"steps": n, "losses": p_losses, "grad_norms": p_norms,
+                            "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+                            "tol": {"loss": tol["loss"], "grad_norm": tol["grad_norm"]}},
+           "step_ms": step_ms, "runs": runs}
+    print("audio_train: " + json.dumps(out), flush=True)
+    return out
+
+
 def port_modules() -> dict:
     """The port's modules and entry points this script drives."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2447,6 +2750,9 @@ def main() -> int:
     conv = timed("conv3x3", conv3x3_phase, torch, mods)
     timed("train_cli", train_cli_phase, torch, mods)
     timed("bench", bench_phase, torch, mods)
+    with tempfile.TemporaryDirectory() as tree:
+        runbook = timed("runbook", runbook_phase, torch, mods, tree)
+        audio_train = timed("audio_train", audio_train_phase, torch, mods, tree)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernel_sources = {  # name -> (source, TPU kernel, rows, the main path's run)
@@ -2488,6 +2794,11 @@ def main() -> int:
     for entry in kernels:
         for tier, row in tiers.get(entry["name"], {}).items():
             entry[tier] = {k: row[k] for k in ("launches", *fields)}
+        # the dataset path's launches beside the main path's: the runbook's
+        # extraction (B1) and the raw-audio train step (B1, B6, B7)
+        for path, run in (("runbook", runbook), ("audio_train", audio_train)):
+            if run["launches"].get(entry["name"]):
+                entry[f"{path}_launches"] = run["launches"][entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

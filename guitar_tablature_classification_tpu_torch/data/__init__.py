@@ -1,6 +1,9 @@
-"""Audio file loading, synthetic data, record packing and the loaders."""
+"""Audio file loading, synthetic data, record packing, the loaders (feature
+arrays, raw audio windows through the native C++ loader) and the
+host->device pipeline."""
 
 from .audio import load_audio, load_wav, resample
+from .audio_loader import AudioWindowLoader, discover_tracks, load_label_grid
 from .guitarset import (
     ArrayDataset,
     ArrayLoader,
@@ -9,6 +12,7 @@ from .guitarset import (
     torch_random_split_indices,
 )
 from .packing import load_packed, pack_image_dir, pack_npy_dir
+from .pipeline import as_device_batches, device_prefetch, host_shard
 from .synthetic import (
     RenderConfig,
     events_to_jams_dict,
@@ -20,8 +24,9 @@ from .synthetic import (
 )
 
 __all__ = [
-    "ArrayDataset", "ArrayLoader", "GuitarTabDataset", "RenderConfig",
-    "create_dataloaders", "events_to_jams_dict", "load_audio", "load_packed",
+    "ArrayDataset", "ArrayLoader", "AudioWindowLoader", "GuitarTabDataset", "RenderConfig",
+    "as_device_batches", "create_dataloaders", "device_prefetch", "discover_tracks",
+    "events_to_jams_dict", "host_shard", "load_audio", "load_label_grid", "load_packed",
     "load_wav", "make_synthetic_dataset", "midi_to_hz", "pack_image_dir",
     "pack_npy_dir", "random_performance", "render_note", "render_performance",
     "resample", "torch_random_split_indices",

@@ -15,9 +15,11 @@ raise a clear error.
     python -m guitar_tablature_classification_tpu_torch.infer.cli track.wav \\
         --arch vit_s8 --model best_vit_guitar_tab_model.pt
 
-Every arch but ``small_cnn`` serves: ``resnet18``, ``resnet18_native``,
+Every arch serves: ``resnet18``, ``resnet18_native``, ``small_cnn``,
 ``vit_s8`` and ``vit_native`` (the recipes ``cnn-reference``,
-``native-best``, ``vit-reference`` and ``vit-small-data``).
+``native-best``, ``vit-reference`` and ``vit-small-data``); ``small_cnn``
+has no reference ``.pt`` layout, so its ``--model`` is a checkpoint of the
+port's trainer.
 """
 
 from __future__ import annotations

@@ -157,7 +157,21 @@ def _vittab(params: Mapping, stats: Mapping | None) -> dict[str, torch.Tensor]:
     return out
 
 
+def _small_cnn(params: Mapping) -> dict[str, torch.Tensor]:
+    """SmallTabCNN: the Flax names, conv kernels HWIO -> OIHW, the stacked
+    dense kernels [6, in, out] as they are."""
+    out: dict[str, torch.Tensor] = {}
+    for i in (1, 2, 3):
+        _conv(out, f"conv{i}", params[f"conv{i}"])
+    for name in ("dense0", "dense1", "out"):
+        out[f"{name}.weight"] = _t(params[name]["kernel"])
+        out[f"{name}.bias"] = _t(params[name]["bias"])
+    return out
+
+
 def _model(params: Mapping, stats: Mapping | None) -> dict[str, torch.Tensor]:
+    if "conv1" in params:
+        return _small_cnn(params)
     return (_vittab if "vit" in params else _guitartabnet)(params, stats)
 
 
@@ -165,8 +179,10 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor
     """Flax GuitarTabNet or ViTTab variables (NumPy leaves) -> this
     package's state dict: ``resnet.*`` + ``branches.{i}.{0,2,4,6,8}.*``, or
     ``vit.*`` + ``fc1``/``bn_fc1``/``fc2``/``bn_fc2`` +
-    ``string_heads.{i}.1.*``."""
-    return _model(variables["params"], variables["batch_stats"])
+    ``string_heads.{i}.1.*``, or SmallTabCNN's (which has no BatchNorm:
+    ``batch_stats`` may be absent) ``conv{1,2,3}``, ``dense0``, ``dense1``,
+    ``out``."""
+    return _model(variables["params"], variables.get("batch_stats"))
 
 
 def _find_adam(state: Any) -> Any:

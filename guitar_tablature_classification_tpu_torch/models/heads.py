@@ -38,6 +38,25 @@ class Dropout(nn.Dropout):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+class StackedDense(nn.Module):
+    """Independent Dense per string with stacked weights (``StackedDense``,
+    ``heads.py:21-50`` of the JAX package): [B, F] (shared by the strings)
+    or [B, num_strings, F] -> [B, num_strings, features], fp32.  ``weight``
+    is [num_strings, F, features] and ``bias`` [num_strings, features], the
+    Flax ``kernel`` and ``bias`` as they are."""
+
+    def __init__(self, in_features: int, features: int, num_strings: int = 6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_strings, in_features, features))
+        self.bias = nn.Parameter(torch.zeros(num_strings, features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if x.ndim == 2:  # shared trunk features: broadcast over strings
+            return torch.einsum("bf,sfh->bsh", x, self.weight) + self.bias
+        return torch.einsum("bsf,sfh->bsh", x, self.weight) + self.bias
+
+
 class SimpleStringHeads(nn.ModuleList):
     """The ViT head stack (``SimpleStringHeads``, ``heads.py:92-113`` of the
     JAX package): per string Dropout then Linear in_features -> num_frets,

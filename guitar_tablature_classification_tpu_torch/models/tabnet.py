@@ -24,8 +24,9 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.attention import resolve_attention
-from .heads import Dropout, SimpleStringHeads, StringBranchHeads
+from .heads import Dropout, SimpleStringHeads, StackedDense, StringBranchHeads
 from .resnet import FlaxBatchNorm, ResNet18
+from .small_cnn import SmallTabCNN
 from .vit import ViTBackbone
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -118,11 +119,13 @@ def _trunc_normal(t: torch.Tensor, std: float, generator: torch.Generator) -> No
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialization: LeCun-normal (truncated at 2 sigma) conv and
-    linear weights as Flax's default, zero biases, identity BatchNorms."""
+    linear weights as Flax's default, zero biases, identity BatchNorms.  A
+    stacked [S, F, H] dense kernel has Flax's fan-in S * F."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
+            if isinstance(m, (nn.Conv2d, nn.Linear, StackedDense)):
+                stacked = isinstance(m, StackedDense)
+                fan_in = m.weight.shape[0] * m.weight.shape[1] if stacked else m.weight[0].numel()
                 _trunc_normal(m.weight, (1.0 / fan_in) ** 0.5 / 0.87962566103423978,
                               generator)
                 if m.bias is not None:
@@ -177,12 +180,12 @@ def _vittab(cfg: ModelConfig) -> ViTTab:
 
 def build_model(
     cfg: ModelConfig, *, generator: torch.Generator | None = None
-) -> GuitarTabNet | ViTTab:
+) -> GuitarTabNet | ViTTab | SmallTabCNN:
     """The model of ``cfg``, seeded from ``generator`` (seed 0 when None):
     GuitarTabNet for ``resnet18`` (224^2) and ``resnet18_native`` (the raw
     96x9 CQT), ViTTab for ``vit_s8`` (224^2, 785 tokens at patch 8) and
     ``vit_native`` (the raw CQT, with the conv stem under
-    ``vit_conv_stem``).
+    ``vit_conv_stem``), SmallTabCNN for ``small_cnn`` (the raw CQT).
 
     ``stem_fusion="fused"`` builds the fused stem of the arch, as the JAX
     ``build_model`` does (``models/tabnet.py:151-159,197-209`` there): on
@@ -200,8 +203,7 @@ def build_model(
     precomposed resize/conv1 GEMMs equal resize -> conv1) and ``remat``
     (rematerialization only matters for training memory).
     ``stem_fusion``, ``bn_fusion`` and ``w1_conv`` are validated and then
-    ignored for the ViT archs, as in the JAX package.  ``small_cnn`` is not
-    ported yet and raises ``NotImplementedError`` naming the ROADMAP item.
+    ignored for the ViT archs and ``small_cnn``, as in the JAX package.
     """
     if cfg.stem_fusion not in ("on", "off", "fused"):
         raise ValueError(
@@ -216,11 +218,8 @@ def build_model(
     vit = cfg.arch in ("vit_s8", "vit_native")
     if cfg.vit_conv_stem and not vit:
         raise ValueError(f"vit_conv_stem only applies to ViT archs, got {cfg.arch!r}")
-    if cfg.arch not in ("resnet18", "resnet18_native") and not vit:
-        raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (ROADMAP A11 small_cnn); the "
-            "port serves resnet18, resnet18_native, vit_s8 and vit_native"
-        )
+    if cfg.arch not in ("resnet18", "resnet18_native", "small_cnn") and not vit:
+        raise ValueError(f"unknown arch {cfg.arch!r}")
     if cfg.dtype not in _DTYPES or cfg.param_dtype != "float32":
         raise ValueError(
             f"dtype must be one of {tuple(_DTYPES)} with float32 params, "
@@ -230,6 +229,10 @@ def build_model(
         generator = torch.Generator().manual_seed(0)
     if vit:
         return init_vittab(_vittab(cfg), generator)
+    if cfg.arch == "small_cnn":
+        return init_weights(SmallTabCNN(
+            num_frets=cfg.num_frets, num_strings=cfg.num_strings, dtype=_DTYPES[cfg.dtype],
+        ), generator)
     model = GuitarTabNet(
         num_frets=cfg.num_frets,
         num_strings=cfg.num_strings,

@@ -146,10 +146,13 @@ def make_optimizer(
 # -------------------------------------------------------------------- state
 
 
-def _flatten(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """Move ``tensors`` into one flat fp32 buffer: each becomes a view of
-    its slice, so an in-place update of the buffer updates them all."""
-    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+def _flatten(tensors: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """Move ``tensors`` into one flat fp32 buffer on ``device``: each
+    becomes a view of its slice, so an in-place update of the buffer
+    updates them all.  No tensors (a model without BatchNorm) give an
+    empty buffer."""
+    flat = torch.cat([torch.zeros(0, device=device)]
+                     + [t.detach().reshape(-1).float() for t in tensors])
     offset = 0
     for t in tensors:
         n = t.numel()
@@ -214,14 +217,15 @@ def create_train_state(
     """Move ``model`` to ``device`` (the card unless the caller asks for
     the CPU), gather its parameters and running averages into flat
     buffers, and set up the optimizer with zero moments."""
-    model.to(resolve_device(device))
+    dev = resolve_device(device)
+    model.to(dev)
     named = list(model.named_parameters())
     names = [n for n, _ in named]
     param_list = [p for _, p in named]
     if any(p.dtype != torch.float32 for p in param_list):
         raise ValueError("the train state holds fp32 parameters only")
-    params = _flatten(param_list)
-    buffers = _flatten(_running_stats(model))
+    params = _flatten(param_list, dev)
+    buffers = _flatten(_running_stats(model), dev)
     tx = make_optimizer(optim_cfg, names, [p.numel() for p in param_list])
     return TrainState(
         model=model, tx=tx, names=names, params=params, buffers=buffers,

@@ -9,9 +9,11 @@ driven by the config system.
 The same flags as the JAX CLI, plus ``--device`` (default ``cuda``; the CPU
 only when asked for).  With ``--synthetic`` (no GuitarSet on disk) it
 renders a synthetic performance dataset (audio + JAMS -> CQT features +
-labels) from the seed and trains on that end to end.  ``--report-dir`` and
-``--report-every`` (the plots of ``report/plots.py``) are not ported yet
-and exit with an error naming them.
+labels) from the seed and trains on that end to end.  ``--report-dir``
+writes the visualization suite of :mod:`..report` after training (or after
+``--eval-only``), and ``--report-every N`` the metric curves and
+validation confusion matrices every N epochs during training, under the
+JAX CLI's file names.
 """
 
 from __future__ import annotations
@@ -48,12 +50,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--config", default=None, help="TrainConfig JSON file")
     p.add_argument("--report-dir", default=None,
-                   help="write the visualization artifact suite here (not "
-                        "ported yet: exits with an error)")
+                   help="write the visualization artifact suite here")
     p.add_argument("--report-every", type=int, default=0, metavar="N",
                    help="also emit metric curves + confusion matrices "
                         "into --report-dir every N epochs during training "
-                        "(not ported yet: exits with an error)")
+                        "(reference: metric plots every 5 epochs, "
+                        "bestengine.py:1006-1007; per-epoch confusion "
+                        "matrices, ViT_engine.py:473)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on synthesized audio/labels (no dataset needed)")
     p.add_argument("--synthetic-tracks", type=int, default=8)
@@ -101,7 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "--checkpoint-dir and run validation + test on "
                         "the standard split (reference equivalent: the "
                         "final test_model pass, bestengine.py:1090-1093, "
-                        "without retraining)")
+                        "without retraining); honors --report-dir")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
     return p
@@ -228,21 +231,14 @@ def synthetic_loaders(cfg, num_tracks: int, device=None):
     return make(tr, True), make(va, False), make(te, False)
 
 
-def _refuse_unported(args) -> None:
-    for flag, value in (("--report-dir", args.report_dir),
-                        ("--report-every", args.report_every)):
-        if value:
-            raise SystemExit(
-                f"{flag} is not ported yet (it needs report/plots.py, the "
-                "next item of ROADMAP.md's queue); the port writes the "
-                "JSONL log and the final JSON only"
-            )
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     cfg = make_config(args)
+    if args.report_dir:  # before training, not after it
+        import importlib.util
+
+        if importlib.util.find_spec("matplotlib") is None:
+            raise SystemExit("--report-dir needs matplotlib, which is not installed")
 
     import torch
 
@@ -316,14 +312,26 @@ def _run(args, cfg, device, logger) -> int:
             "val_accuracy": val["accuracy"],
             "checkpoint_step": int(state.step),
         }))
+        if args.report_dir:
+            history = {"epochs": [], "train_loss": [], "val_loss": [],
+                       "val_accuracy": [], "lr": [], "best_val_loss": val["loss"]}
+            write_report(args.report_dir, history, state, cfg, test_loader)
         return 0
+
+    on_epoch_end = None
+    if args.report_every:
+        if not args.report_dir:
+            raise SystemExit("--report-every requires --report-dir")
+        on_epoch_end = make_periodic_reporter(
+            args.report_dir, args.report_every, cfg, val_loader
+        )
 
     try:
         with trace(args.profile_dir):
             state, history = train_model(
                 train_loader, val_loader, cfg, checkpointer=ckpt,
                 resume=args.resume, log=lambda s: logger.log("epoch", msg=s),
-                device=device,
+                on_epoch_end=on_epoch_end, device=device,
             )
     except (CheckpointMismatchError, OrbaxCheckpointError) as e:
         raise SystemExit(f"--resume: {e}")
@@ -338,7 +346,114 @@ def _run(args, cfg, device, logger) -> int:
         "per_string": test["per_string_accuracy"].tolist(),
         "best_val_loss": history["best_val_loss"],
     }))
+    if args.report_dir:
+        write_report(args.report_dir, history, state, cfg, test_loader)
     return 0
+
+
+def predict(state, preprocess, loader) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Eval-mode argmax frets of ``state.model`` over ``loader`` on the
+    state's device: (preds [N, 6], targets [N, 6], the first batch's
+    features [<= 8, F, T]), padded rows (weight 0) left out.  The model's
+    mode is restored afterwards, so a reporter called between epochs leaves
+    BatchNorm and dropout in train mode."""
+    import torch
+
+    model = state.model
+    dev = state.params.device
+    was_training = model.training
+    model.eval()
+    preds, targets, feats0 = [], [], None
+    try:
+        with torch.no_grad():
+            for batch in loader:
+                feats = torch.as_tensor(batch["features"]).to(dev)
+                p = model(preprocess(feats)).argmax(-1).cpu().numpy()
+                weights = batch.get("weights")
+                mask = (np.ones(p.shape[0], bool) if weights is None
+                        else np.asarray(weights)[:, 0] > 0)
+                preds.append(p[mask])
+                targets.append(np.asarray(batch["labels"])[mask])
+                if feats0 is None:
+                    feats0 = np.asarray(batch["features"])[mask][:8]
+    finally:
+        model.train(was_training)
+    return np.concatenate(preds), np.concatenate(targets), feats0
+
+
+def make_periodic_reporter(report_dir, every: int, cfg, val_loader):
+    """Mid-training artifact emitter for ``--report-every N``: every N
+    epochs, write the metric curves so far plus validation confusion
+    matrices (epoch-stamped filenames).  Reference behavior: metric plots
+    every 5 epochs (bestengine.py:1006-1007) and confusion matrices during
+    every validation pass (ViT_engine.py:473)."""
+    from ..report import plot_confusion_matrices, plot_training_metrics
+    from .engine import make_preprocess
+    from .metrics import confusion_matrices
+
+    os.makedirs(report_dir, exist_ok=True)
+    preprocess = make_preprocess(cfg.model, cfg.data.image_size)
+
+    def on_epoch_end(epoch, history, state):
+        if (epoch + 1) % every:
+            return
+        preds, targets, _ = predict(state, preprocess, val_loader)
+        tag = f"epoch{epoch + 1:03d}"
+        plot_training_metrics(history, os.path.join(report_dir, f"training_metrics_{tag}.png"))
+        cm = confusion_matrices(preds, targets).numpy()
+        plot_confusion_matrices(cm, os.path.join(report_dir, f"confusion_matrices_{tag}.png"))
+
+    return on_epoch_end
+
+
+def report_data(state, cfg, loader) -> dict:
+    """What the report plots, computed with ``state.model`` in eval mode on
+    the state's device: ``preds`` and ``targets`` [N, 6] (padded rows left
+    out), ``features`` (the first batch's, at most 8), ``confusion``
+    [6, 19, 19], ``fret_accuracy`` and ``fret_support`` [6, 19]."""
+    from .engine import make_preprocess
+    from .metrics import confusion_matrices, per_fret_accuracy
+
+    preds, targets, feats0 = predict(state, make_preprocess(cfg.model, cfg.data.image_size),
+                                     loader)
+    cm = confusion_matrices(preds, targets).numpy()
+    acc, support = per_fret_accuracy(cm)
+    return {"preds": preds, "targets": targets, "features": feats0, "confusion": cm,
+            "fret_accuracy": acc, "fret_support": support}
+
+
+def write_report(report_dir, history, state, cfg, test_loader) -> dict:
+    """Emit the full visualization artifact suite (reference C13 set) for
+    ``state.model`` on the test loader.  Returns :func:`report_data`'s
+    arrays, which it plotted, and each artifact's ``paths``."""
+    from ..report import (
+        plot_confusion_matrices,
+        plot_correct_incorrect_distribution,
+        plot_model_architecture,
+        plot_per_fret_accuracy,
+        plot_prediction_overlay,
+        plot_sample_inputs,
+        plot_training_metrics,
+    )
+
+    os.makedirs(report_dir, exist_ok=True)
+    data = report_data(state, cfg, test_loader)
+    preds, targets, feats0 = data["preds"], data["targets"], data["features"]
+
+    def path(name):
+        return os.path.join(report_dir, name)
+
+    paths = [
+        plot_training_metrics(history, path("training_metrics.png")),
+        plot_sample_inputs(feats0, path("sample_inputs.png"), labels=targets[:8]),
+        plot_prediction_overlay(feats0, preds[:8], targets[:8], path("prediction_overlay.png")),
+        plot_correct_incorrect_distribution(preds, targets, path("correct_incorrect.png")),
+        plot_confusion_matrices(data["confusion"], path("confusion_matrices.png")),
+        plot_per_fret_accuracy(data["fret_accuracy"], data["fret_support"],
+                               path("fret_accuracy.png")),
+        plot_model_architecture(state.model, path("model_architecture.png")),
+    ]
+    return {**data, "paths": paths}
 
 
 if __name__ == "__main__":

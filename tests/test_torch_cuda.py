@@ -1126,3 +1126,42 @@ def test_loader_batches_reach_the_card_through_pinned_copies(card):
     a = augment_batch(torch.Generator(device="cuda").manual_seed(3), out["features"], 0.5)
     b = augment_batch(torch.Generator(device="cuda").manual_seed(3), out["features"], 0.5)
     assert a.is_cuda and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_device_prefetch_stages_batches_on_a_copy_stream(card):
+    """device_prefetch on the card: every batch arrives bit for bit, in
+    order, with its dtype, including a short last batch that reuses a larger
+    pinned buffer; the pinned buffers are reused (at most size + 1 sets);
+    the consumer's stream sees each copy complete even while it runs long
+    kernels of its own between batches."""
+    from guitar_tablature_classification_tpu_torch.data import pipeline
+
+    rng = np.random.default_rng(0)
+    host = [{"audio": rng.standard_normal((512, 8820)).astype(np.float32),
+             "labels": rng.integers(0, 19, (512, 6)).astype(np.int32)} for _ in range(6)]
+    host.append({k: v[:100] for k, v in host[0].items()})
+    pinned = []
+    real = pipeline._staged
+
+    def spy(buffers, key, src):
+        out = real(buffers, key, src)
+        pinned.append(buffers[key].data_ptr())
+        return out
+
+    pipeline._staged = spy
+    try:
+        busy = torch.randn(4096, 4096, device=card)
+        got = []
+        for batch in pipeline.as_device_batches(iter(host), prefetch=2, device=card):
+            busy = busy @ busy / 64.0  # the consumer's stream stays busy
+            got.append({k: v.clone() for k, v in batch.items()})
+    finally:
+        pipeline._staged = real
+    torch.cuda.synchronize()
+    assert len(got) == len(host)
+    for g, h in zip(got, host):
+        for key in h:
+            assert g[key].is_cuda and g[key].dtype == torch.from_numpy(h[key]).dtype
+            assert torch.equal(g[key].cpu(), torch.from_numpy(h[key])), key
+    assert len(set(pinned)) <= 2 * 3  # two keys, at most size + 1 sets

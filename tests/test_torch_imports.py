@@ -49,7 +49,9 @@ def test_source_imports_no_jax(path):
 
 
 def test_port_runs_without_jax_in_sys_modules(tmp_path):
-    """Import the port, its tools, its train CLI and bench, build a
+    """Import the port, its tools (the runbook's too), its train CLI and
+    bench, the dataset path's modules (loaders, pipeline, extractor,
+    extraction, report plots with Matplotlib), build a
     Transcriber and the CLI on the CPU, run one short transcription, then
     check sys.modules."""
     script = f"""
@@ -65,6 +67,13 @@ from guitar_tablature_classification_tpu_torch.tools import probe_conv, profile_
 from guitar_tablature_classification_tpu_torch import bench, data, labels, utils
 from guitar_tablature_classification_tpu_torch.ops import augment
 from guitar_tablature_classification_tpu_torch.train import checkpoint, metrics, run
+from guitar_tablature_classification_tpu_torch import report
+from guitar_tablature_classification_tpu_torch.data import audio_loader, native_loader, pipeline
+from guitar_tablature_classification_tpu_torch.labels import extractor
+from guitar_tablature_classification_tpu_torch.models import small_cnn
+from guitar_tablature_classification_tpu_torch.ops import extract
+from guitar_tablature_classification_tpu_torch.tools import make_synthetic_guitarset, run_guitarset
+report.plots._plt()
 run.make_config(run.build_parser().parse_args(["--synthetic", "--recipe", "native-best"]))
 cfg = RECIPES["native-best"]()
 t = Transcriber(None, model_cfg=cfg.model, cqt_cfg=cfg.cqt, batch_size=4,

@@ -109,8 +109,14 @@ def test_save_torch_checkpoint_loads_strict(tmp_path, arch):
     (dict(arch="small_cnn"), "A11"),
 ])
 def test_unported_knobs_raise(overrides, match):
-    with pytest.raises(NotImplementedError, match=match):
-        build_model(ModelConfig(**overrides))
+    """No knob of build_model is left unported: ``small_cnn`` (ROADMAP A11,
+    which raised NotImplementedError naming it until its port) builds its
+    SmallTabCNN, and an arch no package has raises ValueError."""
+    from guitar_tablature_classification_tpu_torch.models import SmallTabCNN
+
+    assert isinstance(build_model(ModelConfig(**overrides)), SmallTabCNN), match
+    with pytest.raises(ValueError, match="unknown arch"):
+        build_model(ModelConfig(arch="resnet50"))
 
 
 @pytest.mark.parametrize("arch, stem_fusion, bn_fusion", [
