@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only streaming,rgb_train,data_parallel  # build, then those
 
 1. Set-up: the card's name and power limit, torch and CUDA versions, and
    the build of the port's eight kernel sources (``csrc/cqt.cu``,
@@ -130,13 +131,25 @@
    path B's launches a step, the prefetched batches bit for bit the
    loader's, the first three steps replayed through the plain versions,
    then the same steps through ``batch_to_device``.
+20. Streaming: path B served at batch 2048 through ``StreamingTranscriber``
+   (a 60 s track in seeded chunks, then 2 s in single windows), exactly the
+   offline transcription, B1 and ``native_fwd`` once a bucket call, feed
+   times, a stretch of feeds traced (device and host time a feed); the
+   CLI with ``--image`` (a PNG where PIL exists, else a clean refusal).
+21. ``rgb_image`` training: the flagship on [256, 224, 224, 3] uint8
+   renders, 10 steps (B7 20 a step, B1 and B2 never), the kernels-vs-plain
+   first step.
+22. Data and string parallelism: two gloo processes on the card, path B's
+   step at global B=2048 under dp=2 and mp=2 against one process, and
+   ``Transcriber(mesh=...)`` at dp=2.
 
 Then one JSON line of the fourteen kernels' measurements (``cqt_fused`` and
 ``cqt_frame_gemm`` with their other tiers' beside: B1's ``bf16x3`` at the
 flagship shape, B=256, ``highest`` on the tensor cores at the kernel
 phase's B=4096, and ``default`` at the serving shape; B1's, B6's and B7's
-with their launches in the runbook and in raw-audio training beside), and
-the status line last.  Any failed check raises, which exits non-zero.  Needs one CUDA card.
+with their launches in the runbook, raw-audio training, streaming,
+``rgb_image`` training and rank 0's data-parallel step beside), and the
+status line last.  Any failed check raises, which exits non-zero.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -144,9 +157,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -822,7 +837,8 @@ def _device_ms(evt) -> float:
 
 
 def compare_step(torch, mods, model_cfg, frontend, batch, *, optim_cfg, smoothing,
-                 plain_ctx, expect, bn=None, trunk_bn=None, plain_cqt=True) -> dict:
+                 plain_ctx, expect, bn=None, trunk_bn=None, plain_cqt=True,
+                 preprocess=None) -> dict:
     """One train step with the kernels and one with the plain versions
     (``plain_ctx(model)`` for the model's kernels, and the plain CQT unless
     ``plain_cqt`` is False), each from the same freshly seeded state and
@@ -830,15 +846,16 @@ def compare_step(torch, mods, model_cfg, frontend, batch, *, optim_cfg, smoothin
     kernel's launches in the kernel step.  ``bn(model)``: a BatchNorm whose
     running statistics are held to STEP_TOL's "bn1" entry;
     ``trunk_bn(model)``: one held to TRUNK_BN_TOL (each skipped when
-    None)."""
-    preprocess = mods["make_preprocess"](model_cfg)
+    None).  ``preprocess``: the model input's (the dB features' when None);
+    a batch of features needs no ``frontend`` (None)."""
+    preprocess = preprocess or mods["make_preprocess"](model_cfg)
 
     def one_step(plain_kernels: bool, plain_cqt: bool):
         model = mods["build_model"](model_cfg, generator=torch.Generator().manual_seed(0))
         state = mods["create_train_state"](model, optim_cfg, device="cuda")
         step = mods["make_train_step"](
             model, preprocess, smoothing=smoothing,
-            frontend=frontend.plain if plain_cqt else frontend)
+            frontend=frontend.plain if plain_cqt and frontend is not None else frontend)
         ctx = plain_ctx(model) if plain_kernels else contextlib.nullcontext()
         with ctx:
             met = step(state, batch, torch.Generator(device="cuda").manual_seed(7), LR)
@@ -874,10 +891,11 @@ def compare_step(torch, mods, model_cfg, frontend, batch, *, optim_cfg, smoothin
         "loss": [kern[0], plain[0]], "grad_norm": [kern[1], plain[1]],
         **agreement(kern, plain),
         "kernel_step_launches": launches, "plain_step_launches": plain_launches,
+    }
+    if frontend is not None:
         # reference: the kernel step against itself with only the CQT plain,
         # i.e. under a perturbation of the features of <= 2e-3 dB
-        "kernel_vs_kernel_with_plain_cqt": agreement(kern, one_step(False, True)),
-    }
+        cmp["kernel_vs_kernel_with_plain_cqt"] = agreement(kern, one_step(False, True))
     tol = STEP_TOL[model_cfg.dtype]
     if (cmp["loss_rel"] > tol["loss"] or cmp["grad_norm_rel"] > tol["grad_norm"]
             or cmp["adam_mu_cosine"] < tol["cosine"]
@@ -1683,6 +1701,21 @@ def native_fwd_without_pad(torch, mods, feats, model, se, oe) -> dict:
     return r
 
 
+def off_identity(torch, model, seed: int) -> None:
+    """At init every BatchNorm is the identity in bf16 (rsqrt(1 + 1e-5)
+    rounds to 1), which would make a serving comparison vacuous: move their
+    parameters and running statistics off it, as the CPU tests do."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                c, dev = m.num_features, m.weight.device
+                m.weight.mul_((0.5 + torch.rand(c, generator=gen)).to(dev))
+                m.bias.add_((0.1 * torch.randn(c, generator=gen)).to(dev))
+                m.running_mean.add_((0.1 * torch.randn(c, generator=gen)).to(dev))
+                m.running_var.mul_((0.5 + torch.rand(c, generator=gen)).to(dev))
+
+
 def native_fused_serving_phase(torch, mods, batch: int = 2048, n_batches: int = 4) -> dict:
     """(d) native-best with stem_fusion="fused", bn_fusion="on" served
     through Transcriber at batch 2048: native_fwd once a batch, no other
@@ -1695,18 +1728,7 @@ def native_fused_serving_phase(torch, mods, batch: int = 2048, n_batches: int = 
                             device="cuda", seed=0)
     plain = mods["Transcriber"](None, model_cfg=recipe.model, cqt_cfg=cfg, batch_size=batch,
                                 device="cuda", seed=0)
-    # at init every BatchNorm is the identity in bf16 (rsqrt(1 + 1e-5)
-    # rounds to 1), which would make the comparison vacuous: move their
-    # parameters and running statistics off it, as the CPU tests do
-    gen = torch.Generator().manual_seed(25)
-    with torch.no_grad():
-        for m in t.model.modules():
-            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
-                c = m.num_features
-                m.weight.mul_((0.5 + torch.rand(c, generator=gen)).cuda())
-                m.bias.add_((0.1 * torch.randn(c, generator=gen)).cuda())
-                m.running_mean.add_((0.1 * torch.randn(c, generator=gen)).cuda())
-                m.running_var.mul_((0.5 + torch.rand(c, generator=gen)).cuda())
+    off_identity(torch, t.model, 25)
     plain.model.load_state_dict(t.model.state_dict(), strict=True)
     windows = tone_windows(batch * n_batches, cfg.window_samples, cfg.sample_rate,
                            seed=24).cpu().numpy()
@@ -2047,8 +2069,6 @@ def _run_captured(torch, mods, main, argv: list, label: str,
     line that ``show`` keeps printed again on a line of its own; the
     counters set to 0 just before and read just after.  Returns (lines,
     launches, seconds)."""
-    import io
-
     _reset_counts(mods)
     buf = io.StringIO()
     t = time.perf_counter()
@@ -2496,12 +2516,492 @@ def audio_train_phase(torch, mods, tree: str) -> dict:
     return out
 
 
+STREAM_SECONDS = 60.0
+STREAM_CHUNKS = (1000, 20001)  # seeded chunk sizes in samples, as JAX tests/test_infer.py:248
+
+
+def _counting_buckets(t) -> list:
+    """Record the row count of each ``predict_logits`` call of ``t`` (one a
+    bucket of ``predict_windows``)."""
+    calls, predict = [], t.predict_logits
+
+    def counted(windows):
+        calls.append(int(windows.shape[0]))
+        return predict(windows)
+
+    t.predict_logits = counted
+    return calls
+
+
+def _stream(stream, audio, sizes, rng=None) -> tuple:
+    """Feed ``audio`` to ``stream`` in chunks (seeded sizes in ``sizes``, or
+    all of ``sizes`` samples when ``rng`` is None), then flush: (frets,
+    times, ms per feed)."""
+    frets, times, ms, pos = [], [], [], 0
+    while pos < len(audio):
+        n = int(rng.integers(*sizes)) if rng is not None else sizes
+        t = time.perf_counter()
+        out = stream.feed(audio[pos:pos + n])  # returns host arrays: synchronised
+        ms.append(1e3 * (time.perf_counter() - t))
+        frets.append(out.frets)
+        times.append(out.times)
+        pos += n
+    out = stream.flush()
+    return np.concatenate(frets + [out.frets]), np.concatenate(times + [out.times]), ms
+
+
+def _profile_feeds(torch, t, audio, sizes, rng) -> dict:
+    """``audio`` streamed through ``t`` under ``torch.profiler``: per feed
+    (the flush counted as one), its wall time (under the profiler), the
+    device time of its kernels and copies and their count, the host's time
+    in the CUDA runtime's launch calls, and its time in the calls that wait
+    for the card (synchronise, blocking copies).  Device time far under the
+    wall time, with the host seldom waiting, is a feed the host holds
+    back."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from guitar_tablature_classification_tpu_torch.infer import StreamingTranscriber
+
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, ms = _stream(StreamingTranscriber(t), audio, sizes, rng)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA and _device_ms(e) > 0]
+    host = [e for e in events if e.device_type != DeviceType.CUDA]
+
+    def cpu_ms(keep):
+        return sum(e.self_cpu_time_total for e in host if keep(e.key)) / 1e3
+
+    feeds = len(ms) + 1  # and the flush
+    dev = sum(_device_ms(e) for e in device)
+    return {
+        "feeds": feeds, "wall_ms_per_feed": wall / feeds,
+        "device_ms_per_feed": dev / feeds,
+        "device_ops_per_feed": sum(e.count for e in device) / feeds,
+        "launch_api_ms_per_feed": cpu_ms(lambda k: "LaunchKernel" in k) / feeds,
+        "host_wait_ms_per_feed": cpu_ms(
+            lambda k: "Synchronize" in k or k in ("cudaMemcpy", "cudaMemcpyAsync")) / feeds,
+        "device_busy_share": dev / wall if wall > 0 else None,
+        "seconds": time.perf_counter() - t_all,  # the trace taken and read
+    }
+
+
+def streaming_phase(torch, mods) -> dict:
+    """20. Streaming transcription: path B served (native-best,
+    stem_fusion="fused", bn_fusion="on", batch 2048, its BatchNorms off the
+    identity) through ``StreamingTranscriber``: a 60 s synthetic track in
+    seeded chunks of 1,000-20,000 samples, then ``flush()``, must give the
+    offline ``transcribe`` of the same Transcriber exactly (times within
+    1e-9 s); B1's tensor-core launches and ``native_fwd``'s one each a
+    bucket call; per-feed median and p90 ms and windows/s.  Then 2 s fed in
+    single 8,820-sample windows (the 1-row bucket), against the offline
+    path too; then both kinds of feed under the profiler
+    (:func:`_profile_feeds`); then the CLI with ``--image``."""
+    from guitar_tablature_classification_tpu_torch.infer import StreamingTranscriber
+
+    recipe = mods["RECIPES"]["native-best"]()
+    cfg = recipe.cqt
+    model_cfg = dataclasses.replace(recipe.model, stem_fusion="fused", bn_fusion="on")
+    t = mods["Transcriber"](None, model_cfg=model_cfg, cqt_cfg=cfg, batch_size=2048,
+                            device="cuda", seed=0)
+    off_identity(torch, t.model, 26)
+    rng = np.random.default_rng(31)
+    audio = synthetic_track(rng, STREAM_SECONDS, cfg.sample_rate)
+    offline = t.transcribe(audio)  # also the warm-up
+    calls = _counting_buckets(t)
+    torch.cuda.synchronize()
+    _reset_counts(mods)
+    t0 = time.perf_counter()
+    frets, times, ms = _stream(StreamingTranscriber(t), audio, STREAM_CHUNKS, rng)
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in _counts(mods).items() if v}
+    want = {"native_fwd": len(calls)}
+    for b in calls:
+        for k, v in _cqt_expect(_route(t.frontend, b), cfg.precision).items():
+            want[k] = want.get(k, 0) + v
+    equal = bool(np.array_equal(frets, offline.frets))
+    times_err = float(np.abs(times - offline.times).max()) if len(times) == len(offline.times) \
+        else float("inf")
+    out = {"track_s": STREAM_SECONDS, "windows": int(len(frets)), "feeds": len(ms),
+           "bucket_calls": len(calls), "bucket_rows": sorted(set(calls)),
+           "feed_ms_median": float(np.median(ms)), "feed_ms_p90": float(np.percentile(ms, 90)),
+           "windows_per_s": len(frets) / seconds, "launches": counts,
+           "frets_equal_offline": equal, "times_max_err_s": times_err}
+    if not equal or times_err > 1e-9 or counts != want:
+        raise AssertionError(f"streaming: {out}, expected launches {want}")
+
+    # 2 s in single windows: each feed predicts 1 or 2 windows, in 1-row buckets
+    short = audio[: int(2.0 * cfg.sample_rate)]
+    want_short = t.transcribe(short)
+    del calls[:]
+    f1, t1, ms1 = _stream(StreamingTranscriber(t), short, cfg.window_samples)
+    out["single_windows"] = {"feeds": len(ms1), "bucket_rows": sorted(set(calls)),
+                             "feed_ms_median": float(np.median(ms1)),
+                             "frets_equal_offline": bool(np.array_equal(f1, want_short.frets))}
+    if not out["single_windows"]["frets_equal_offline"] or set(calls) != {1} \
+            or np.abs(t1 - want_short.times).max() > 1e-9:
+        raise AssertionError(f"streaming single windows: {out['single_windows']}")
+    # where a feed's time goes: the first 3 s of the track in chunks, then
+    # 1 s in single windows, each under the profiler (a longer trace costs
+    # tens of seconds to take and read)
+    out["profile"] = {
+        "chunks": _profile_feeds(torch, t, audio[: int(3.0 * cfg.sample_rate)],
+                                 STREAM_CHUNKS, np.random.default_rng(33)),
+        "single_windows": _profile_feeds(torch, t, short[: int(1.0 * cfg.sample_rate)],
+                                         cfg.window_samples, None)}
+    out["cli_image"] = cli_image_check(mods)
+    print("streaming: " + json.dumps(out), flush=True)
+    del t
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_image_check(mods) -> dict:
+    """The serving CLI with ``--image``: a PNG of the tab image's size
+    where PIL imports; else a non-zero exit before transcribing, with
+    nothing written."""
+    from scipy.io import wavfile
+
+    seconds = 3.0
+    audio = synthetic_track(np.random.default_rng(32), seconds, 44100)
+    have_pil = importlib.util.find_spec("PIL") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        wav, png = os.path.join(tmp, "demo.wav"), os.path.join(tmp, "tab.png")
+        wavfile.write(wav, 44100, (np.clip(audio, -1, 1) * 32767).astype(np.int16))
+        argv = [wav, "--recipe", "native-best", "--batch-size", "64", "--device", "cuda",
+                "--image", png]
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):  # the tab's text
+                rc = mods["cli"].main(argv)
+        except SystemExit as e:
+            rc = e.code
+        written = sorted(os.listdir(tmp))
+        size = None
+        if have_pil and os.path.exists(png):
+            from PIL import Image
+
+            with Image.open(png) as img:
+                size = list(img.size)
+    windows = (len(audio) - 8820) // 4410 + 1  # the CLI's 0.2 s windows, 50 % overlap
+    want_size = [1600, 60 + 60 + -(-windows // 32) * (40 * 7 + 30)]
+    out = {"pil": have_pil, "rc": rc if isinstance(rc, int) else str(rc), "files": written,
+           "png_size": size}
+    ok = (rc == 0 and size == want_size) if have_pil else \
+        (rc not in (0, None) and written == ["demo.wav"])
+    if not ok:
+        raise AssertionError(f"CLI --image: {out}, expected size {want_size}")
+    return out
+
+
+RGB_TRAIN_STEPS = 10
+RGB_BATCH = 256
+
+
+def rgb_renders(seed: int, batch: int) -> np.ndarray:
+    """[batch, 224, 224, 3] uint8 spectrogram renders made in NumPy: seeded
+    dB features [batch, 96, 9] through a fixed colour table (a
+    blue-to-yellow ramp), nearest-neighbour to 224^2 (no matplotlib)."""
+    rng = np.random.default_rng(seed)
+    db = rng.uniform(-120.0, 0.0, (batch, 96, 9)).astype(np.float32)
+    level = np.clip((db + 120.0) / 120.0 * 255.0, 0, 255).astype(np.uint8)
+    v = np.arange(256) / 255.0
+    table = (np.stack([v, np.sqrt(v), 1.0 - v], axis=1) * 255.0).astype(np.uint8)
+    rows, cols = np.arange(224) * 96 // 224, np.arange(224) * 9 // 224
+    return table[level[:, rows][:, :, cols]]
+
+
+def rgb_train_phase(torch, mods) -> dict:
+    """21. The rgb_image input kind on the card: the flagship resnet18
+    (stem_fusion="fused", bn_fusion="on") trains on [256, 224, 224, 3] uint8
+    renders: a 3-channel input takes the plain conv stem, so bn1 and the
+    trunk run B7 (``bn_sums``, ``bn_grad_sums``: 20 a step each) and B1 and
+    B2 never launch.  10 steps (step ms, host enqueue ms), then the first
+    step from the same state with the kernels and with ``plain_bn``, held
+    to STEP_TOL["bfloat16"]."""
+    cfg = mods["ModelConfig"](arch="resnet18", stem_fusion="fused", bn_fusion="on")
+    optim = mods["OptimConfig"]()
+    preprocess = mods["make_preprocess"](cfg, 224, "rgb_image")
+    torch.cuda.empty_cache()
+    feats = [torch.from_numpy(rgb_renders(40 + i, RGB_BATCH)).cuda() for i in range(2)]
+    g = torch.Generator(device="cuda").manual_seed(41)
+    labels = [torch.randint(0, 19, (RGB_BATCH, 6), generator=g, device="cuda") for _ in range(2)]
+    batches = [{"features": f, "labels": y} for f, y in zip(feats, labels)]
+    model = mods["build_model"](cfg, generator=torch.Generator().manual_seed(0))
+    state = mods["create_train_state"](model, optim, device="cuda")
+    step = mods["make_train_step"](model, preprocess, smoothing=optim.label_smoothing)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    for i in range(2):  # warm-up
+        step(state, batches[i], gen, LR)
+    torch.cuda.synchronize()
+    _reset_counts(mods)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    t_host = time.perf_counter()
+    losses = [step(state, batches[i % 2], gen, LR)["loss"] for i in range(RGB_TRAIN_STEPS)]
+    t_host = time.perf_counter() - t_host
+    end.record()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _counts(mods).items() if v}
+    losses = [float(x) for x in losses]
+    n_bn = sum(isinstance(m, mods["FusedBatchNorm"]) for m in model.modules())
+    per_step = {"bn_sums": n_bn, "bn_grad_sums": n_bn}
+    out = {"batch": RGB_BATCH, "steps": RGB_TRAIN_STEPS, "fused_batchnorms": n_bn,
+           "step_ms": start.elapsed_time(end) / RGB_TRAIN_STEPS,
+           "host_enqueue_ms_per_step": 1e3 * t_host / RGB_TRAIN_STEPS,
+           "launches": counts, "first_loss": losses[0], "last_loss": losses[-1]}
+    del state, model
+    torch.cuda.empty_cache()
+    want = {k: RGB_TRAIN_STEPS * v for k, v in per_step.items()}
+    if counts != want or n_bn != 20 or not np.isfinite(losses).all():
+        raise AssertionError(f"rgb_train: {out}, expected launches {want}")
+    out["kernel_vs_plain_step"] = compare_step(
+        torch, mods, cfg, None, batches[0], optim_cfg=optim, smoothing=optim.label_smoothing,
+        plain_ctx=lambda model: plain_bn(mods["bn_fused"]), expect=per_step,
+        bn=lambda model: model.resnet.bn1, trunk_bn=lambda model: model.resnet.layer1[0].bn1,
+        plain_cqt=False, preprocess=preprocess)
+    print("rgb_train: " + json.dumps(out), flush=True)
+    del feats, labels, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+DP_WORLD = 2
+DP_BATCH = 2048
+DP_TIMEOUT = 300
+
+
+def _dp_case(torch, mods):
+    """Path B's model config, the seeded global batch (host arrays) and the
+    frontend, the same in every process."""
+    recipe = mods["RECIPES"]["native-best"]()
+    cfg = dataclasses.replace(recipe.model, stem_fusion="fused", bn_fusion="on")
+    rng = np.random.default_rng(51)
+    t = np.arange(recipe.cqt.window_samples) / recipe.cqt.sample_rate
+    f0 = 80.0 * 2.0 ** rng.uniform(0, 4, (DP_BATCH, 1))
+    audio = (0.5 * np.sin(2 * np.pi * f0 * t) + 0.01 * rng.standard_normal(
+        (DP_BATCH, t.size))).astype(np.float32)
+    batch = {"audio": audio, "labels": rng.integers(0, 19, (DP_BATCH, 6)).astype(np.int64)}
+    return recipe, cfg, batch
+
+
+def _dp_step(torch, mods, mesh=None) -> dict:
+    """One path-B step from the seeded state on the global batch (this
+    rank's rows under ``mesh``): metrics, launches, the state's names,
+    parameters, running averages and Adam moments (on the host)."""
+    recipe, cfg, batch = _dp_case(torch, mods)
+    from guitar_tablature_classification_tpu_torch.parallel import shard_batch
+
+    model = mods["build_model"](cfg, generator=torch.Generator().manual_seed(0))
+    state = mods["create_train_state"](model, recipe.optim, device="cuda", mesh=mesh)
+    frontend = mods["CQTFrontend"](recipe.cqt)
+    step = mods["make_train_step"](model, mods["make_preprocess"](cfg),
+                                   smoothing=recipe.optim.label_smoothing, frontend=frontend,
+                                   mesh=mesh)
+    dev_batch = shard_batch(mesh, batch) if mesh is not None else \
+        {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    _reset_counts(mods)
+    m = step(state, dev_batch, torch.Generator(device="cuda").manual_seed(7), LR)
+    torch.cuda.synchronize()
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "launches": {k: v for k, v in _counts(mods).items() if v},
+           "cqt_expect": _cqt_expect(_route(frontend, dev_batch["audio"].shape[0]),
+                                     recipe.cqt.precision),
+           "names": list(state.names), "params": state.params.cpu(),
+           "mu": {k: v.cpu() for k, v in state.adam_state()["mu"].items()},
+           "sd": {k: v.cpu() for k, v in model.state_dict().items()}}
+    del state, model, dev_batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_serve(torch, mods, mesh=None) -> dict:
+    recipe, cfg, _ = _dp_case(torch, mods)
+    t = mods["Transcriber"](None, model_cfg=cfg, cqt_cfg=recipe.cqt, batch_size=DP_BATCH,
+                            device="cuda", seed=0, mesh=mesh)
+    off_identity(torch, t.model, 25)
+    windows = tone_windows(DP_BATCH * 2, recipe.cqt.window_samples, recipe.cqt.sample_rate,
+                           seed=52).cpu().numpy()
+    _reset_counts(mods)
+    logits = t.predict_windows(windows)
+    out = {"logits": logits, "buckets": list(t.bucket_sizes),
+           "launches": {k: v for k, v in _counts(mods).items() if v}}
+    del t
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_worker(rank: int, port: int, out_dir: str) -> int:
+    """One of DP_WORLD ranks of the data_parallel phase (``chip_smoke.py
+    --dp-worker RANK PORT DIR``): gloo on the one card; which CUDA
+    collectives gloo carries; path B's step under dp=2 and under mp=2;
+    ``Transcriber(mesh=...)`` at dp=2.  Writes ``DIR/rank{RANK}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    mods = port_modules()
+    from guitar_tablature_classification_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=DP_WORLD)
+    probe = {}
+    for name, op in (("all_reduce", lambda t: dist.all_reduce(t)),
+                     ("all_gather", lambda t: dist.all_gather([torch.empty_like(t)
+                                                               for _ in range(DP_WORLD)], t)),
+                     ("broadcast", lambda t: dist.broadcast(t, 0))):
+        try:
+            op(torch.ones(4, device="cuda"))
+            probe[name] = "carried on CUDA tensors"
+        except RuntimeError as e:
+            probe[name] = f"refused: {str(e).splitlines()[0][:120]}"
+    refused = {k: v for k, v in probe.items() if v.startswith("refused")}
+    if refused:  # the port calls these collectives on CUDA tensors directly
+        raise AssertionError(f"gloo does not carry the port's collectives on CUDA tensors: "
+                             f"{refused}")
+    dp = make_mesh(mods["MeshConfig"](), device="cuda")
+    mp = make_mesh(mods["MeshConfig"](model_parallel=2), device="cuda")
+    out = {"probe": probe, "dp": _dp_step(torch, mods, dp), "mp": _dp_step(torch, mods, mp),
+           "serve": _dp_serve(torch, mods, dp), "strings": mp.strings}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _cosine(torch, a: dict, b: dict, names: list) -> float:
+    x = torch.cat([a[n].flatten() for n in names])
+    y = torch.cat([b[n].flatten() for n in names])
+    return float(torch.nn.functional.cosine_similarity(x, y, dim=0))
+
+
+def _running_rel(a: dict, b: dict, key: str) -> float:
+    return max(float((a[f"{key}.running_{s}"] - b[f"{key}.running_{s}"]).abs().max()
+                     / b[f"{key}.running_{s}"].abs().max()) for s in ("mean", "var"))
+
+
+def data_parallel_phase(torch, mods) -> dict:
+    """22. Data and string parallelism on the one card: two processes with
+    the gloo backend (NCCL refuses two ranks on one device), each running
+    :func:`dp_worker`.  Path B's step at a global B=2048 under dp=2 (each
+    rank 1,024 rows) and under mp=2 (each rank 3 strings' heads) against
+    the one-process step from the same state and batch, within
+    STEP_TOL["bfloat16"] (loss, gradient norm, the Adam moments' cosine,
+    bn1's running statistics; a trunk BatchNorm's within TRUNK_BN_TOL); the
+    shared parameters bit-identical on both ranks; path B's launches on
+    each rank; ``Transcriber(mesh=...)`` at dp=2 against one process within
+    the fused serving phase's limits."""
+    one = _dp_step(torch, mods)
+    single_serve = _dp_serve(torch, mods)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        script = os.path.abspath(__file__)
+        procs = [subprocess.Popen([sys.executable, script, "--dp-worker", str(r), str(port),
+                                   out_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for r in range(DP_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DP_TIMEOUT)[0].decode())
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"data_parallel: rank {r} exit {p.returncode}: {log[-3000:]}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+    workers_s = time.perf_counter() - t0
+    tol = STEP_TOL["bfloat16"]
+    per_step = {**one["cqt_expect"], "native_stats": 1, "native_fwd": 1, "native_bwd": 1,
+                "bn_sums": 19, "bn_grad_sums": 19}
+    out = {"global_batch": DP_BATCH, "workers_s": workers_s, "gloo": ranks[0]["probe"],
+           "one_process": {
+               "loss": one["loss"], "grad_norm": one["grad_norm"], "launches": one["launches"]}}
+    failures = []
+    if one["launches"] != per_step:
+        failures.append(f"one-process launches {one['launches']}")
+    for kind in ("dp", "mp"):
+        got = [r[kind] for r in ranks]
+        rows = []
+        for r, g in enumerate(got):
+            want = {**g["cqt_expect"], **{k: v for k, v in per_step.items()
+                                         if not k.startswith("cqt")}}
+            rows.append({"loss_rel": abs(g["loss"] - one["loss"]) / abs(one["loss"]),
+                         "grad_norm_rel": abs(g["grad_norm"] - one["grad_norm"])
+                         / abs(one["grad_norm"]),
+                         "launches": g["launches"], "launches_ok": g["launches"] == want})
+        # the ranks' moments and state by name (a rank holds its strings only)
+        mu, sd = {}, {}
+        for g in got:
+            mu.update(g["mu"])
+            sd.update(g["sd"])
+        shared = [n for n in got[0]["sd"] if n in got[1]["sd"]]
+        entry = {"ranks": rows,
+                 "adam_mu_cosine": _cosine(torch, mu, one["mu"], one["names"]),
+                 "bn1_running_rel": _running_rel(sd, one["sd"], "resnet.bn1"),
+                 "trunk_bn_running_rel": _running_rel(sd, one["sd"], "resnet.layer1.0.bn1"),
+                 "shared_bit_identical": all(torch.equal(got[0]["sd"][n], got[1]["sd"][n])
+                                             for n in shared)}
+        if kind == "mp":
+            heads = [[n for n in g["sd"] if n.startswith("branches.") and n.endswith(".8.weight")]
+                     for g in got]
+            entry["strings"] = [r["strings"] for r in ranks]
+            entry["head_tensors_per_rank"] = [len(h) for h in heads]
+            if entry["head_tensors_per_rank"] != [3, 3] \
+                    or [tuple(x) for x in entry["strings"]] != [(0, 3), (3, 6)]:
+                failures.append(f"mp strings {entry['strings']} heads {heads}")
+        else:
+            entry["params_bit_identical"] = bool(torch.equal(got[0]["params"], got[1]["params"]))
+            if not entry["params_bit_identical"]:
+                failures.append("dp: the ranks' parameters differ")
+        if (max(r["loss_rel"] for r in rows) > tol["loss"]
+                or max(r["grad_norm_rel"] for r in rows) > tol["grad_norm"]
+                or entry["adam_mu_cosine"] < tol["cosine"] or entry["bn1_running_rel"] > tol["bn1"]
+                or entry["trunk_bn_running_rel"] > TRUNK_BN_TOL["bfloat16"]
+                or not all(r["launches_ok"] for r in rows) or not entry["shared_bit_identical"]):
+            failures.append(f"{kind}: {entry}")
+        out[kind] = entry
+    serve = []
+    for r in ranks:
+        logits = r["serve"]["logits"]
+        want = single_serve["logits"]
+        serve.append({"buckets": r["serve"]["buckets"], "launches": r["serve"]["launches"],
+                      "fret_agreement": float((logits.argmax(-1) == want.argmax(-1)).mean()),
+                      "logit_max_abs_diff": float(np.abs(logits - want).max()),
+                      "logit_scale": float(np.abs(want).max())})
+        if (serve[-1]["fret_agreement"] < FRET_AGREEMENT_MIN
+                or serve[-1]["logit_max_abs_diff"] > 5e-2 * serve[-1]["logit_scale"]
+                or r["serve"]["buckets"] != [8, 32, DP_BATCH]):  # the 1-row bucket dropped
+            failures.append(f"serving under the mesh: {serve[-1]}")
+    out["serving"] = serve
+    print("data_parallel: " + json.dumps(out), flush=True)
+    if failures:
+        raise AssertionError("data_parallel: " + "; ".join(failures))
+    return out
+
+
+# phases that need no earlier phase's result: ``chip_smoke.py --only a,b``
+STANDALONE = {"streaming": streaming_phase, "rgb_train": rgb_train_phase,
+              "data_parallel": data_parallel_phase}
+
+
 def port_modules() -> dict:
     """The port's modules and entry points this script drives."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from guitar_tablature_classification_tpu_torch.config import (
         RECIPES,
         CQTConfig,
+        MeshConfig,
         ModelConfig,
         OptimConfig,
     )
@@ -2537,7 +3037,7 @@ def port_modules() -> dict:
     )
 
     return dict(
-        RECIPES=RECIPES, CQTConfig=CQTConfig, ModelConfig=ModelConfig,
+        RECIPES=RECIPES, CQTConfig=CQTConfig, ModelConfig=ModelConfig, MeshConfig=MeshConfig,
         OptimConfig=OptimConfig, Transcriber=Transcriber, cli=cli,
         build_model=build_model, cqt_cuda=cqt_cuda, stem_cuda=stem_cuda,
         attention=attention, attention_cuda=attention_cuda,
@@ -2619,6 +3119,8 @@ def stem_build_report(source: str, log: str) -> None:
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of the data_parallel phase
+        return dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2661,6 +3163,12 @@ def main() -> int:
         result = fn(*args, **kwargs)
         phase_s[name] = round(time.perf_counter() - t, 1)
         return result
+
+    if sys.argv[1:2] == ["--only"]:  # after the build, these phases alone: no result lines
+        for name in sys.argv[2].split(","):
+            timed(name, STANDALONE[name], torch, mods)
+        print("phase seconds: " + json.dumps(phase_s), flush=True)
+        return 0
 
     timed("cqt_kernels", kernel_phase, torch, cqt_cuda, CQTConfig, CQTFrontend)
     timed("cqt_route_sweep", cqt_route_sweep, torch, cqt_cuda, CQTConfig, CQTFrontend)
@@ -2753,6 +3261,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tree:
         runbook = timed("runbook", runbook_phase, torch, mods, tree)
         audio_train = timed("audio_train", audio_train_phase, torch, mods, tree)
+    streaming = timed("streaming", streaming_phase, torch, mods)
+    rgb_train = timed("rgb_train", rgb_train_phase, torch, mods)
+    data_parallel = timed("data_parallel", data_parallel_phase, torch, mods)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernel_sources = {  # name -> (source, TPU kernel, rows, the main path's run)
@@ -2794,11 +3305,17 @@ def main() -> int:
     for entry in kernels:
         for tier, row in tiers.get(entry["name"], {}).items():
             entry[tier] = {k: row[k] for k in ("launches", *fields)}
-        # the dataset path's launches beside the main path's: the runbook's
-        # extraction (B1) and the raw-audio train step (B1, B6, B7)
-        for path, run in (("runbook", runbook), ("audio_train", audio_train)):
-            if run["launches"].get(entry["name"]):
-                entry[f"{path}_launches"] = run["launches"][entry["name"]]
+        # the other paths' launches beside the main path's: the runbook's
+        # extraction (B1), the raw-audio train step (B1, B6, B7), streaming
+        # (B1, native_fwd), the rgb_image step (B7) and rank 0's step under
+        # dp=2 (B1, B6, B7)
+        for path, launches in (("runbook", runbook["launches"]),
+                               ("audio_train", audio_train["launches"]),
+                               ("streaming", streaming["launches"]),
+                               ("rgb_train", rgb_train["launches"]),
+                               ("data_parallel", data_parallel["dp"]["ranks"][0]["launches"])):
+            if launches.get(entry["name"]):
+                entry[f"{path}_launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

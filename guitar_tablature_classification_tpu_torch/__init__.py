@@ -15,7 +15,9 @@ easy to find:
   data/    audio file loading, synthetic data, packing, loaders
   labels/  JAMS reading and tablature labels
   utils/   generators, metrics logging, profiling
-  infer/   batched transcription, tab text, the tab-transcribe CLI
+  infer/   batched and streaming transcription, tab text and image, the
+           tab-transcribe CLI
+  parallel/ data and string-head parallelism over torch.distributed ranks
   bench.py the root bench.py's rows on the card
 
 Entry points run on the card (``cuda``) unless the caller passes

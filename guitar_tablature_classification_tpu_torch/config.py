@@ -272,12 +272,12 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh for SPMD execution.
+    """The mesh of ranks for data and string-head parallelism.
 
     The reference's only distribution is ``nn.DataParallel``
-    (bestengine.py:1032-1034); here data parallelism is expressed as a
-    named mesh axis consumed by ``jax.sharding`` shardings, with a second
-    (optional) ``model`` axis that shards the per-string heads.
+    (bestengine.py:1032-1034); here a ``data`` axis splits the batch over
+    ``torch.distributed`` ranks, with a second (optional) ``model`` axis
+    that splits the per-string heads (:func:`.parallel.make_mesh`).
     """
 
     data_axis: str = "data"

@@ -7,7 +7,8 @@
   copied from pinned host memory on a copy stream of its own, and the
   consumer's stream waits for that copy before it uses the tensors.
 - :func:`host_shard` slices each batch down to this process's share for
-  multi-process training.
+  multi-process training; :func:`as_device_batches` with a mesh slices it
+  to the rank's rows and prefetches them.
 """
 
 from __future__ import annotations
@@ -121,25 +122,24 @@ def host_shard(
         process_count = dist.get_world_size() if initialised else 1
     if process_count == 1:
         return dict(batch)
+    from ..parallel.mesh import contiguous_rows
 
-    def slc(x):
-        n = x.shape[0]
-        if n % process_count:
-            raise ValueError(f"batch {n} not divisible by process count {process_count}")
-        per = n // process_count
-        return x[process_index * per : (process_index + 1) * per]
-
-    return {k: slc(v) for k, v in batch.items()}
+    return {k: v[contiguous_rows(v.shape[0], process_index, process_count,
+                                 f"process count {process_count}")]
+            for k, v in batch.items()}
 
 
 def as_device_batches(
-    loader: Iterable[Mapping], *, mesh=None, mesh_cfg=None, prefetch: int = 2, device=None
+    loader: Iterable[Mapping], *, mesh=None, prefetch: int = 2, device=None
 ) -> Iterator[dict]:
-    """Loader -> device batches (:func:`device_prefetch`).  Sharding over a
-    mesh's data axis is not ported yet (ROADMAP A13): a ``mesh`` raises."""
-    if mesh is not None or mesh_cfg is not None:
-        raise NotImplementedError(
-            "as_device_batches(mesh=...) is not ported yet (ROADMAP A13, the "
-            "parallel slice); call it without a mesh for one device"
-        )
-    yield from device_prefetch(loader, size=prefetch, device=device)
+    """Loader -> device batches (:func:`device_prefetch`).  Under ``mesh``
+    (:func:`..parallel.make_mesh`) each global batch is cut to this rank's
+    rows (:func:`..parallel.mesh.host_rows`) on the host and prefetched to
+    the mesh's device."""
+    if mesh is None:
+        yield from device_prefetch(loader, size=prefetch, device=device)
+        return
+    from ..parallel.mesh import host_rows
+
+    yield from device_prefetch((host_rows(mesh, batch) for batch in loader), size=prefetch,
+                               device=mesh.device)

@@ -6,9 +6,11 @@ Same flags as the JAX CLI, plus ``--device`` (default ``cuda``).
 port's trainer (``train.run``): its directory, its name in that directory
 (``checkpoints/best_guitar_tab_model``, as the JAX CLI takes its Orbax
 one) or its ``.pt`` file, checked against the requested model
-configuration.  The JAX package's Orbax directories, tab images
-(``--image``) and activation plots (``--visualize``) are not ported and
-raise a clear error.
+configuration.  The JAX package's Orbax directories are not read
+(convert them to ``.pt`` first).  ``--image`` renders the tab as a PNG
+(PIL) and ``--visualize`` the per-string activation plot (matplotlib);
+where the flag's package does not import, the CLI exits non-zero before it
+transcribes, naming the package.
 
     python -m guitar_tablature_classification_tpu_torch.infer.cli track.wav \\
         --recipe native-best --model best_guitar_tab_model.pt
@@ -119,15 +121,25 @@ def load_transcriber(args):
     return Transcriber(None, **common)  # seeded random init (smoke/demo)
 
 
+def _require(args) -> None:
+    """Exit before transcribing where ``--image`` or ``--visualize`` is
+    given and the package it renders with does not import."""
+    import importlib
+
+    for flag, value, package in (("--image", args.image, "PIL"),
+                                 ("--visualize", args.visualize, "matplotlib")):
+        if value:
+            try:
+                importlib.import_module(package)
+            except ImportError:
+                raise SystemExit(f"{flag} needs {package}, which is not installed")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, value in (("--image", args.image), ("--visualize", args.visualize)):
-        if value:
-            raise SystemExit(
-                f"{flag} is not ported yet (it needs PIL/matplotlib); "
-                "the port writes the ASCII tab only"
-            )
+    _require(args)
     from ..data.audio import load_audio
+    from .tab_image import create_tablature_image, plot_string_activations
     from .tab_text import write_tablature_file
 
     transcriber = load_transcriber(args)
@@ -135,13 +147,17 @@ def main(argv=None) -> int:
     result = transcriber.transcribe(audio, smooth_window=0 if args.no_smooth else 3)
 
     out_path = args.output or os.path.splitext(args.audio)[0] + "_tab.txt"
-    text = write_tablature_file(
-        out_path, result.frets, result.times, title=os.path.basename(args.audio)
-    )
+    title = os.path.basename(args.audio)
+    text = write_tablature_file(out_path, result.frets, result.times, title=title)
     print(text)
     print(f"tablature written to {out_path}")
+    if args.image:
+        create_tablature_image(result.frets, result.times, args.image, title=title)
+        print(f"tab image written to {args.image}")
+    if args.visualize:
+        plot_string_activations(result.frets, result.times, args.visualize)
+        print(f"activation plot written to {args.visualize}")
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -42,6 +42,13 @@ class Transcriber:
     :func:`..models.convert.state_dict_from_flax`); None initializes the
     model from ``seed``.  ``device`` defaults to the card; the CPU is used
     only when asked for (``device="cpu"``).
+
+    ``mesh`` (:func:`..parallel.make_mesh`; every rank constructs its
+    Transcriber and calls it with the same audio): the weights are rank
+    0's on every rank, each rank predicts its rows of every bucket on the
+    mesh's device, the data group gathers the logits, and every rank
+    returns the whole transcription (``infer/transcribe.py:71-83,122-123``
+    of the JAX package).
     """
 
     def __init__(
@@ -55,8 +62,10 @@ class Transcriber:
         bucket_sizes: tuple[int, ...] | None = None,
         device: str | torch.device | None = None,
         seed: int = 0,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.model_cfg = model_cfg or ModelConfig()
         self.cqt_cfg = cqt_cfg or CQTConfig()
         model = build_model(
@@ -65,16 +74,23 @@ class Transcriber:
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
+        if mesh is not None:
+            from ..parallel import replicated
+
+            replicated(mesh, self.model)
         self.frontend = CQTFrontend(self.cqt_cfg)
         self.preprocess = make_preprocess(self.model_cfg, image_size)
         self.batch_size = batch_size
         # Bucketed batch shapes: a short tail (or a single streaming
         # window) pads only to the smallest bucket that fits.
+        # Under a mesh every bucket must split over the data axis: the
+        # others are dropped (all of them: just batch_size).
         if bucket_sizes is None:
             bucket_sizes = (1, 8, 32, batch_size)
-        self.bucket_sizes = tuple(
-            sorted({min(int(b), batch_size) for b in bucket_sizes})
-        )
+        buckets = sorted({min(int(b), batch_size) for b in bucket_sizes})
+        if mesh is not None:
+            buckets = [b for b in buckets if b % mesh.dp == 0] or [batch_size]
+        self.bucket_sizes = tuple(buckets)
 
     @torch.inference_mode()
     def predict_logits(self, windows: torch.Tensor) -> torch.Tensor:
@@ -105,11 +121,25 @@ class Transcriber:
                 chunk = np.concatenate(
                     [chunk, np.zeros((b - take, chunk.shape[1]), chunk.dtype)]
                 )
-            chunk = np.require(chunk, np.float32, ["C", "W"])
-            x = torch.from_numpy(chunk).to(self.device)
-            outs.append(self.predict_logits(x)[:take])
+            if self.mesh is None:
+                x = torch.from_numpy(np.require(chunk, np.float32, ["C", "W"]))
+                outs.append(self.predict_logits(x.to(self.device))[:take])
+            else:
+                outs.append(self._predict_sharded(chunk)[:take])
             lo += take
         return torch.cat(outs).cpu().numpy()
+
+    def _predict_sharded(self, chunk: np.ndarray) -> torch.Tensor:
+        """A bucket's logits under the mesh: this rank predicts its rows,
+        and the data group gathers every rank's."""
+        from ..parallel import batch_sharding
+        from ..parallel.collectives import all_gather
+
+        rows = np.require(chunk[batch_sharding(self.mesh, len(chunk))], np.float32, ["C", "W"])
+        logits = self.predict_logits(torch.from_numpy(rows).to(self.device))
+        if self.mesh.dp == 1:
+            return logits
+        return torch.cat(all_gather(logits, self.mesh.data_group, self.mesh.dp))
 
     def transcribe(
         self,

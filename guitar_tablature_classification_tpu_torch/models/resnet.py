@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bn_fused import batch_norm_eval, batch_norm_train
+from ..parallel.collectives import data_count, data_sum, row_slice
 from ..ops.stem_fusion import precomposed_conv1_quadrant
 from ..ops.stem_native import (
     conv1_parity_native,
@@ -94,15 +95,27 @@ class _BatchNormTrain(torch.autograd.Function):
     input's dtype (``flax/linen/normalization.py`` ``_compute_stats``,
     ``_normalize``), computed in place on an fp32 copy of the input.  The
     backward is the batch-statistics BatchNorm gradient, which is what
-    autodiff of that forward gives."""
+    autodiff of that forward gives.
+
+    Under a mesh with several data ranks (:mod:`..parallel`) the statistics
+    are the global batch's: the per-channel sums are summed over the data
+    group, forward and backward, and the scale and bias gradients are this
+    rank's parts of the global ones (the step sums them)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         dims = (0,) + tuple(range(2, x.ndim))
         shape = (1, -1) + (1,) * (x.ndim - 2)
         xf = x.to(torch.float32, copy=True)  # normalized in place below
-        mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        ctx.sharded = row_slice(x.shape[0]) is not None
+        if ctx.sharded:
+            n = data_count(x.numel() // x.shape[1])
+            sums = data_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]))
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+        else:
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
         rstd = torch.rsqrt(var + eps)
         mul = rstd * weight.float()
         y = xf.sub_(mean.view(shape)).mul_(mul.view(shape)).add_(bias.float().view(shape))
@@ -114,11 +127,29 @@ class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
         x, weight, mean, rstd = ctx.saved_tensors
+        if ctx.sharded:
+            return _sharded_bn_backward(gy, x, weight, mean, rstd) + (None,)
         dx, dw, db = torch.ops.aten.native_batch_norm_backward(
             gy.to(x.dtype), x, weight.float(), None, None, mean, rstd, True,
             ctx.eps, [True, True, True],
         )
         return dx, dw.to(weight.dtype), db.to(weight.dtype), None
+
+
+def _sharded_bn_backward(gy, x, weight, mean, rstd):
+    """The batch-statistics BatchNorm gradient with the global batch's sums
+    g and g * xhat (summed over the data group); the scale and bias
+    gradients from this rank's sums."""
+    dims = (0,) + tuple(range(2, x.ndim))
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    g = gy.float()
+    xhat = (x.float() - mean.view(shape)) * rstd.view(shape)
+    local = torch.stack([g.sum(dims), (g * xhat).sum(dims)])
+    total = data_sum(local)
+    n = data_count(x.numel() // x.shape[1])
+    se = (weight.float() * rstd).view(shape)
+    dx = se * (g - total[0].view(shape) / n - xhat * total[1].view(shape) / n)
+    return dx.to(x.dtype), local[1].to(weight.dtype), local[0].to(weight.dtype)
 
 
 class FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):

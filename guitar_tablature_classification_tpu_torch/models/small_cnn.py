@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import gather_strings
 from .heads import Dropout, StackedDense
 from .resnet import Conv2d
 
@@ -47,7 +48,9 @@ class SmallTabCNN(nn.Module):
         features = h * w * width
         for i, (units, p) in enumerate(zip(hidden, dropout)):
             setattr(self, f"dense{i}", StackedDense(features, units, num_strings))
-            setattr(self, f"dropout{i}", Dropout(p))
+            drop = Dropout(p)
+            drop.string_dim = True  # [B, strings, units]
+            setattr(self, f"dropout{i}", drop)
             features = units
         self.out = StackedDense(features, num_frets, num_strings)
 
@@ -63,4 +66,4 @@ class SmallTabCNN(nn.Module):
         for i in range(2):
             x = F.relu(getattr(self, f"dense{i}")(x))
             x = getattr(self, f"dropout{i}")(x, generator)
-        return self.out(x)
+        return gather_strings(self.out(x), self.out.strings)

@@ -179,7 +179,8 @@ def _vittab(cfg: ModelConfig) -> ViTTab:
 
 
 def build_model(
-    cfg: ModelConfig, *, generator: torch.Generator | None = None
+    cfg: ModelConfig, *, generator: torch.Generator | None = None,
+    input_shape: tuple[int, int, int] | None = None,
 ) -> GuitarTabNet | ViTTab | SmallTabCNN:
     """The model of ``cfg``, seeded from ``generator`` (seed 0 when None):
     GuitarTabNet for ``resnet18`` (224^2) and ``resnet18_native`` (the raw
@@ -204,6 +205,11 @@ def build_model(
     (rematerialization only matters for training memory).
     ``stem_fusion``, ``bn_fusion`` and ``w1_conv`` are validated and then
     ignored for the ViT archs and ``small_cnn``, as in the JAX package.
+
+    ``input_shape`` (H, W, C) is the model input's, which only ``small_cnn``
+    depends on (its flatten scales with the pixel count): the raw [96, 9, 1]
+    CQT when None, the PNG render's shape on the ``rgb_image`` path (the
+    Flax model takes it from its first input).
     """
     if cfg.stem_fusion not in ("on", "off", "fused"):
         raise ValueError(
@@ -230,8 +236,10 @@ def build_model(
     if vit:
         return init_vittab(_vittab(cfg), generator)
     if cfg.arch == "small_cnn":
+        h, w, c = input_shape or (96, 9, 1)
         return init_weights(SmallTabCNN(
-            num_frets=cfg.num_frets, num_strings=cfg.num_strings, dtype=_DTYPES[cfg.dtype],
+            num_frets=cfg.num_frets, num_strings=cfg.num_strings, input_channels=c,
+            input_hw=(h, w), dtype=_DTYPES[cfg.dtype],
         ), generator)
     model = GuitarTabNet(
         num_frets=cfg.num_frets,

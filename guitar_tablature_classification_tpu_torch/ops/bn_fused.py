@@ -20,6 +20,11 @@ Tensors are ``[B, C, ...]`` (channels at dim 1, the port's NCHW modules),
 contiguous or channels last.  The JAX package's 128-lane view
 (``bn_pallas.py:46-53``), which rejects sizes that are not a multiple of
 lcm(C, 128), is a TPU layout rule the port does not carry over.
+
+Under a mesh with several data ranks (:mod:`..parallel`) both directions'
+sums are summed over the data group (:func:`..parallel.collectives.data_sum`
+on the kernels' outputs), so the statistics and the input gradient are the
+global batch's; the scale and bias gradients stay this rank's parts.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..device import on_card
+from ..parallel.collectives import data_count, data_sum
 from . import bn_cuda
 
 def _dims(y: torch.Tensor) -> tuple[int, ...]:
@@ -77,8 +83,8 @@ class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, scale, bias, eps):
         c = y.shape[1]
-        n = y.numel() // c
-        s = sums(y)
+        n = data_count(y.numel() // c)
+        s = data_sum(sums(y))  # the global batch's under a mesh
         # fast variance, no clamp (bn_pallas.py:191-192)
         mean = s[0] / n
         var = s[1] / n - mean**2
@@ -94,7 +100,7 @@ class _BatchNormTrain(torch.autograd.Function):
     def backward(ctx, g, _gmean, _gvar):
         y, mean, var, scale = ctx.saved_tensors
         c = y.shape[1]
-        n = y.numel() // c
+        n = data_count(y.numel() // c)
         g = g.to(y.dtype)
         if g.stride() != y.stride():  # the kernel reads both through one view
             g = torch.empty_like(y).copy_(g)
@@ -102,10 +108,11 @@ class _BatchNormTrain(torch.autograd.Function):
         sum_g, sum_gy = s[0], s[1]
         rstd = torch.rsqrt(var + ctx.eps)
         se = scale.float() * rstd
-        sum_gxhat = rstd * (sum_gy - mean * sum_g)
+        sum_gxhat = rstd * (sum_gy - mean * sum_g)  # this rank's part of dscale
+        total = data_sum(s)  # the global batch's sums under a mesh
         # dy = se*(g - sum_g/n - xhat*sum_gxhat/n) = se*g + B*y + A
-        bch = -se * rstd * sum_gxhat / n
-        ach = -se * sum_g / n - bch * mean
+        bch = -se * rstd * (rstd * (total[1] - mean * total[0])) / n
+        ach = -se * total[0] / n - bch * mean
         # fp32 copies, updated in place: (g*se + y*B) + A, rounded once
         dy = g.to(torch.float32, copy=True).mul_(_per_channel(se, y))
         dy.add_(y.to(torch.float32, copy=True).mul_(_per_channel(bch, y)))

@@ -46,8 +46,13 @@ def resize_matrix(in_size: int, out_size: int, a: float = -0.75) -> np.ndarray:
     return out.astype(np.float32)
 
 
-def resize_bicubic(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Bicubic-resize the last two dims of x ([..., H, W])."""
+def resize_bicubic(
+    x: torch.Tensor, out_hw: tuple[int, int], *, channels_last: bool = False
+) -> torch.Tensor:
+    """Bicubic-resize the spatial dims of x: [..., H, W] or, with
+    ``channels_last``, [..., H, W, C]."""
+    if channels_last:
+        return resize_bicubic(x.movedim(-1, -3), out_hw).movedim(-3, -1)
     rh = torch.from_numpy(resize_matrix(x.shape[-2], out_hw[0])).to(x.device)
     rw = torch.from_numpy(resize_matrix(x.shape[-1], out_hw[1])).to(x.device)
     with fp32_matmul():

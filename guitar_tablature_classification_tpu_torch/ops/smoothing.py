@@ -5,8 +5,10 @@ Vectorized mode filter equivalent to the reference's
 (``tablature_generator.py:695-737``): for each string, each window's fret
 becomes the most common value in a +/- (window//2) neighbourhood; ties
 resolve to the smallest fret.  The reference scans in place (later windows
-see already-smoothed neighbours); this is the standard non-sequential
-filter, as in the JAX package.
+see already-smoothed neighbours); :func:`mode_filter` is the standard
+non-sequential filter, as in the JAX package, and
+:func:`mode_filter_sequential` the reference's in-place scan, for parity
+checks.
 """
 
 from __future__ import annotations
@@ -44,3 +46,21 @@ def mode_filter_np(
     padded = np.pad(one_hot, ((half, half), (0, 0), (0, 0)))
     votes = sum(padded[i : i + t] for i in range(2 * half + 1))
     return np.argmax(votes, axis=-1).astype(preds.dtype)
+
+
+def mode_filter_sequential(preds: np.ndarray, window: int = 3) -> np.ndarray:
+    """Bit-faithful NumPy port of post_process_tablature
+    (tablature_generator.py:695-737), including its in-place scan."""
+    preds = np.asarray(preds)
+    t = preds.shape[0]
+    if t <= window:
+        return preds.copy()
+    out = preds.copy()
+    half = window // 2
+    for s in range(out.shape[1]):
+        col = out[:, s]
+        for j in range(t):
+            lo, hi = max(0, j - half), min(t, j + half + 1)
+            values, counts = np.unique(col[lo:hi], return_counts=True)
+            col[j] = values[np.argmax(counts)]
+    return out

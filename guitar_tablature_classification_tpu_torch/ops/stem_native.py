@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import on_card
+from ..parallel.collectives import data_count, data_sum, data_sums
 from . import stem_native_cuda
 from .stem_tail import _shift, _shift_back, lane_affine
 
@@ -222,8 +223,8 @@ def native_batch_stats(
     Flax's fast variance E[x^2] - E[x]^2, unclipped
     (``stem_native.py:451-479``)."""
     b, h2, _ = ye.shape
-    n = b * 2 * h2 * wreal
-    s = stats(ye, yo)
+    n = data_count(b * 2 * h2 * wreal)
+    s = data_sum(stats(ye, yo))  # the global batch's under a mesh
     mean = _fold_real(s[0], wreal, channels) / n
     return mean, _fold_real(s[1], wreal, channels) / n - mean**2
 
@@ -286,15 +287,16 @@ class _NativeBNReLUPoolTrain(torch.autograd.Function):
         wreal = ctx.wreal
         b, h2, lanes = ye.shape
         c = scale.shape[0]
-        n = b * 2 * h2 * wreal
+        n = data_count(b * 2 * h2 * wreal)
         se, oe, rstd = lane_affine(mean, var, scale, bias, ctx.eps)
         dye, dyo, sdz, sdzy = bwd(ye, yo, _grad_for_kernel(g, ye), se, oe, wreal)
         d_off = _fold_real(sdz, wreal, c)
         d_se = _fold_real(sdzy, wreal, c)
-        sum_dzxhat, dbias = _param_grads(d_off, d_se, mean, rstd)
+        sum_dzxhat, dbias = _param_grads(d_off, d_se, mean, rstd)  # this rank's parts
+        all_off, all_se = data_sums(d_off, d_se)  # the global batch's under a mesh
         # batch-statistics term on the real columns: dy += A + B*y
-        bch = -se * rstd * sum_dzxhat / n
-        ach = -se * d_off / n - bch * mean.float()
+        bch = -se * rstd * _param_grads(all_off, all_se, mean, rstd)[0] / n
+        ach = -se * all_off / n - bch * mean.float()
         real = (torch.arange(lanes // c, device=ye.device) < wreal)[:, None]
         a_lane = torch.where(real, ach, 0.0).reshape(lanes)
         b_lane = torch.where(real, bch, 0.0).reshape(lanes)

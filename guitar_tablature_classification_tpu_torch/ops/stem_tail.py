@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..device import on_card
+from ..parallel.collectives import data_count, data_sum, data_sums
 from . import stem_cuda
 from .cqt import fp32_matmul
 
@@ -219,8 +220,8 @@ def quadrant_batch_stats(yq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ``stem_pallas.py:436-459``."""
     _, _, h2, lanes = yq.shape
     c = lanes // (2 * h2)
-    n = yq.numel() // c
-    sums = stats(yq)
+    n = data_count(yq.numel() // c)
+    sums = data_sum(stats(yq))  # the global batch's under a mesh
     mean = sums[0] / n
     return mean, sums[1] / n - mean**2
 
@@ -288,15 +289,16 @@ class _BNReLUPoolTrain(torch.autograd.Function):
     def backward(ctx, g, _gmean, _gvar):
         yq, mean, var, scale, bias = ctx.saved_tensors
         c = mean.shape[0]
-        n = yq.numel() // c
+        n = data_count(yq.numel() // c)
         se, oe, rstd = lane_affine(mean, var, scale, bias, ctx.eps)
         dy_direct, d_off, d_se = bwd(yq, _pooled_grad(g, yq), se, oe)
         mu = mean.float()
-        sum_dzxhat = rstd * (d_se - mu * d_off)
+        sum_dzxhat = rstd * (d_se - mu * d_off)  # this rank's part of dscale
+        all_off, all_se = data_sums(d_off, d_se)  # the global batch's under a mesh
         # batch-statistics term: dy += A + B*y per channel
         #   B = -se*rstd*sum(dz*xhat)/n,  A = -se*sum(dz)/n - B*mean
-        bch = -se * rstd * sum_dzxhat / n
-        ach = -se * d_off / n - bch * mu
+        bch = -se * rstd * (rstd * (all_se - mu * all_off)) / n
+        ach = -se * all_off / n - bch * mu
         planes = _planes(yq)
         # dy_direct was rounded to y's dtype; the sum rounds again
         dy = (_planes(dy_direct).float() + ach) + bch * planes.float()

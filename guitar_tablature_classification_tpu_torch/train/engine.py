@@ -28,26 +28,56 @@ from ..device import resolve_device
 from ..ops.loss import label_smoothing_loss, per_string_accuracy
 from ..ops.normalize import db_to_unit, imagenet_normalize, tile_channels
 from ..ops.resize import resize_bicubic
+from ..parallel.collectives import (
+    active_mesh,
+    all_reduce_,
+    data_count,
+    data_sum,
+    row_slice,
+    use_mesh,
+)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam defaults
 
 
 def make_preprocess(
-    model_cfg: ModelConfig, image_size: int = 224
+    model_cfg: ModelConfig, image_size: int = 224, input_kind: str = "db_features"
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """[B, n_bins, n_frames] dB features -> channels-last model input.
+    """Raw batch features -> channels-last model input (``engine.py:87-152``
+    of the JAX package).
 
-    dB -> [0, 1]; the native archs take that as is ([B, 96, T, 1]), and so
-    does ``resnet18`` with ``stem_fusion="fused"`` at 224^2: its fused stem
-    folds resize, tile and normalize into conv1's GEMM (``engine.py:132-140``
-    of the JAX package).  Other ``resnet18`` configurations get a bicubic
-    resize to ``image_size``^2, a 3-channel tile and the ImageNet
-    normalization; ``stem_fusion="on"`` takes those images too (the JAX
-    package folds them into GEMMs that compute the same function).  (The
-    JAX package's ``rgb_image`` input kind, for PNG renders, is not ported.)
+    ``db_features``: [B, n_bins, n_frames] dB features.  dB -> [0, 1]; the
+    native archs take that as is ([B, 96, T, 1]), and so does ``resnet18``
+    with ``stem_fusion="fused"`` at 224^2: its fused stem folds resize, tile
+    and normalize into conv1's GEMM (``engine.py:132-140`` of the JAX
+    package).  Other ``resnet18`` configurations get a bicubic resize to
+    ``image_size``^2, a 3-channel tile and the ImageNet normalization;
+    ``stem_fusion="on"`` takes those images too (the JAX package folds them
+    into GEMMs that compute the same function).
+
+    ``rgb_image``: [B, H, W, 3] uint8 spectrogram renders (the reference
+    CNN's cqt_images/*.png path) -> [0, 1], a bicubic resize to
+    ``image_size``^2 for every arch but ``small_cnn`` (which takes its
+    native resolution), and the ImageNet normalization for ``resnet18``.
+    The native archs consume the raw 1-channel dB map, which a colour map
+    cannot give back, so they refuse this kind.
     """
     arch = model_cfg.arch
+    if input_kind == "rgb_image" and arch in ("resnet18_native", "vit_native"):
+        raise ValueError(
+            f"arch {arch!r} consumes raw 1-channel CQT features; the "
+            "PNG image path is only supported by the 224^2 archs "
+            "(resnet18, vit_s8) and small_cnn"
+        )
     fused = arch == "resnet18" and image_size == 224 and model_cfg.stem_fusion == "fused"
+
+    def rgb(feats: torch.Tensor) -> torch.Tensor:
+        x = feats.to(torch.float32) / 255.0
+        if arch != "small_cnn" and tuple(x.shape[1:3]) != (image_size, image_size):
+            x = resize_bicubic(x, (image_size, image_size), channels_last=True)
+        if arch == "resnet18":
+            x = imagenet_normalize(x)
+        return x
 
     def preprocess(feats: torch.Tensor) -> torch.Tensor:
         x = db_to_unit(feats)
@@ -59,7 +89,21 @@ def make_preprocess(
             x = imagenet_normalize(x)
         return x
 
-    return preprocess
+    return rgb if input_kind == "rgb_image" else preprocess
+
+
+def input_kind_of(features: Any) -> str:
+    """``rgb_image`` for rank-4 features (PNG renders), else
+    ``db_features`` (``train/run.py:258-262`` of the JAX package)."""
+    return "rgb_image" if np.ndim(features) == 4 else "db_features"
+
+
+def model_input_shape(batch: Mapping[str, Any]) -> tuple[int, int, int] | None:
+    """The (H, W, C) of a PNG batch's renders, which ``small_cnn`` takes at
+    their own resolution (:func:`..models.tabnet.build_model`'s
+    ``input_shape``); None for dB features and audio."""
+    feats = batch.get("features")
+    return tuple(feats.shape[1:]) if feats is not None and np.ndim(feats) == 4 else None
 
 
 # ---------------------------------------------------------------- optimizer
@@ -109,11 +153,16 @@ class Optimizer:
         )
 
     def update(
-        self, grads: torch.Tensor, state: AdamState, params: torch.Tensor, lr: float
+        self, grads: torch.Tensor, state: AdamState, params: torch.Tensor, lr: float,
+        g_norm: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, AdamState, torch.Tensor]:
-        """(new params, new state, global norm of the raw gradients)."""
+        """(new params, new state, global norm of the raw gradients).
+        ``g_norm``: that norm where ``grads`` hold only part of the
+        parameters (a rank's strings under a mesh); computed from ``grads``
+        when None."""
         cfg = self.cfg
-        g_norm = torch.linalg.vector_norm(grads)
+        if g_norm is None:
+            g_norm = torch.linalg.vector_norm(grads)
         u = grads
         if cfg.grad_clip_norm:
             max_norm = cfg.grad_clip_norm
@@ -178,7 +227,9 @@ class TrainState:
     parameters and BatchNorm running averages are views of (so the model
     must not be moved to another device afterwards); ``opt_state`` holds
     the Adam moments over ``params``; ``step`` counts train steps, skipped
-    ones included."""
+    ones included.  Under a mesh (``mesh``) the model holds this rank's
+    strings only, and ``string_mask`` marks their elements of ``params``
+    (None where the heads are not split)."""
 
     model: nn.Module
     tx: Optimizer
@@ -188,6 +239,8 @@ class TrainState:
     opt_state: AdamState
     step: int = 0
     param_list: list[torch.Tensor] = field(default_factory=list)
+    mesh: Any = None
+    string_mask: torch.Tensor | None = None  # params of this rank's strings only
 
     def _split(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
         out, offset = {}, 0
@@ -212,11 +265,22 @@ class TrainState:
 
 
 def create_train_state(
-    model: nn.Module, optim_cfg: OptimConfig, device: str | torch.device | None = None
+    model: nn.Module, optim_cfg: OptimConfig, device: str | torch.device | None = None,
+    *, mesh=None,
 ) -> TrainState:
     """Move ``model`` to ``device`` (the card unless the caller asks for
     the CPU), gather its parameters and running averages into flat
-    buffers, and set up the optimizer with zero moments."""
+    buffers, and set up the optimizer with zero moments.
+
+    Under ``mesh`` (:func:`..parallel.make_mesh`) the model goes to the
+    mesh's device, every rank takes rank 0's weights
+    (:func:`..parallel.replicated`), and the heads are cut to this rank's
+    strings (:func:`..parallel.shard_model`) before the buffers are made."""
+    if mesh is not None:
+        from ..parallel import replicated, shard_model, string_param_names
+
+        device = mesh.device
+        shard_model(mesh, replicated(mesh, model.to(device)))
     dev = resolve_device(device)
     model.to(dev)
     named = list(model.named_parameters())
@@ -227,9 +291,15 @@ def create_train_state(
     params = _flatten(param_list, dev)
     buffers = _flatten(_running_stats(model), dev)
     tx = make_optimizer(optim_cfg, names, [p.numel() for p in param_list])
+    string_mask = None
+    if mesh is not None and mesh.strings is not None:
+        mine = string_param_names(model)
+        string_mask = torch.cat([torch.zeros(0, dtype=torch.bool, device=dev)] + [
+            torch.full((p.numel(),), n in mine, device=dev) for n, p in named])
     return TrainState(
         model=model, tx=tx, names=names, params=params, buffers=buffers,
-        opt_state=tx.init(params), param_list=param_list,
+        opt_state=tx.init(params), param_list=param_list, mesh=mesh,
+        string_mask=string_mask,
     )
 
 
@@ -239,8 +309,63 @@ def create_train_state(
 def _features(batch, frontend, preprocess, augment=None, generator=None):
     feats = frontend(batch["audio"]) if "audio" in batch else batch["features"]
     if augment is not None:
-        feats = augment(generator, feats)
+        rows = row_slice(feats.shape[0])
+        if rows is None:
+            feats = augment(generator, feats)
+        else:  # under a mesh: this rank's rows of the global batch's draws
+            n, (total, first) = feats.shape[0], rows
+            full = feats.new_zeros((total,) + feats.shape[1:])
+            full[first:first + n] = feats
+            feats = augment(generator, full)[first:first + n]
     return preprocess(feats) if preprocess is not None else feats
+
+
+def _loss_part(logits, labels, smoothing, weights):
+    """This rank's part of the global batch's loss (the one-process loss
+    itself outside a mesh): its weighted sum over the global weight total
+    (``label_smoothing_loss``'s denominator)."""
+    loss = label_smoothing_loss(logits, labels, smoothing, weights=weights)
+    if row_slice(labels.shape[0]) is None:
+        return loss
+    if weights is None:
+        return loss / active_mesh().dp
+    w = weights.float().sum()
+    return loss * torch.clamp(w, min=1.0) / torch.clamp(data_sum(w), min=1.0)
+
+
+def _reduce_grads(flat: torch.Tensor, state: TrainState) -> tuple[torch.Tensor, torch.Tensor]:
+    """A rank's gradients -> the global batch's, and their global norm:
+    the replicated parameters' summed over the model group where the heads
+    are split (each rank's strings gave their part), then everything summed
+    over the data group; the norm counts each string once."""
+    mesh, mask = state.mesh, state.string_mask
+    if mask is not None:
+        shared = flat[~mask]
+        flat[~mask] = all_reduce_(shared, mesh.model_group)
+    if mesh.dp > 1:
+        all_reduce_(flat, mesh.data_group)
+    if mask is None:
+        return flat, torch.linalg.vector_norm(flat)
+    own = all_reduce_(flat[mask].square().sum(), mesh.model_group)
+    return flat, torch.sqrt(flat[~mask].square().sum() + own)
+
+
+def _accuracy(logits, labels):
+    """``per_string_accuracy`` over the global batch."""
+    if row_slice(labels.shape[0]) is None:
+        return per_string_accuracy(logits, labels)
+    correct = data_sum((logits.argmax(dim=-1) == labels).float().sum(dim=0))
+    rows = data_count(labels.shape[0])
+    return correct / rows, correct.sum() / (rows * labels.shape[1])
+
+
+def _state_mesh(state: TrainState, mesh):
+    """The state's mesh, which a step's own ``mesh`` (None: any) must be:
+    the state's buffers, string mask and heads were cut on it."""
+    if mesh is not None and mesh is not state.mesh:
+        raise ValueError("the step's mesh is not the state's; make the state with "
+                         "create_train_state(..., mesh=mesh)")
+    return state.mesh
 
 
 def make_train_step(
@@ -251,6 +376,7 @@ def make_train_step(
     skip_nonfinite: bool = True,
     frontend: Callable | None = None,
     augment: Callable | None = None,
+    mesh=None,
 ):
     """The train step ``train_step(state, batch, generator, lr) -> metrics``.
 
@@ -266,21 +392,41 @@ def make_train_step(
     parameters, moments and running averages as they were
     (``engine.py:208-215``); ``step`` advances either way.  Metrics (device tensors): ``loss``,
     ``accuracy``, ``per_string_accuracy`` and ``grad_norm`` (of the raw
-    gradients)."""
+    gradients).
+
+    Under the state's mesh (a state made with ``create_train_state(...,
+    mesh=mesh)``, and this rank's rows of the batch,
+    :func:`..parallel.shard_batch`; a ``mesh`` given here must be that
+    mesh, else the step raises ``ValueError``) the step computes the one-process step's function on the global batch, as
+    the JAX package's SPMD step does: the training BatchNorms' statistics
+    are the global batch's (:mod:`..parallel.collectives`), the dropout
+    masks and augmentation are this rank's rows of the global batch's
+    draws, the loss is this rank's part of the global one, and the
+    gradients are summed over the groups before the clip and Adam, whose
+    global norm counts each string once.  The metrics are the global
+    batch's on every rank."""
+
+    step_mesh = mesh
 
     def train_step(state: TrainState, batch, generator: torch.Generator, lr: float):
         model.train()
-        with torch.no_grad():
-            images = _features(batch, frontend, preprocess, augment, generator)
-        labels = batch["labels"]
-        saved = state.buffers.clone() if skip_nonfinite else None
-        logits = model(images, generator)
-        loss = label_smoothing_loss(logits, labels, smoothing, weights=batch.get("weights"))
-        grads = torch.autograd.grad(loss, state.param_list)
-        with torch.no_grad():
+        mesh = _state_mesh(state, step_mesh)
+        with use_mesh(mesh):
+            with torch.no_grad():
+                images = _features(batch, frontend, preprocess, augment, generator)
+            labels = batch["labels"]
+            saved = state.buffers.clone() if skip_nonfinite else None
+            logits = model(images, generator)
+            loss = _loss_part(logits, labels, smoothing, batch.get("weights"))
+            grads = torch.autograd.grad(loss, state.param_list)
+        with torch.no_grad(), use_mesh(mesh):
             flat = torch.cat([g.reshape(-1) for g in grads])
+            g_norm = None
+            if mesh is not None:
+                flat, g_norm = _reduce_grads(flat, state)
+                loss = data_sum(loss.detach())
             new_params, new_opt, grad_norm = state.tx.update(
-                flat, state.opt_state, state.params, lr
+                flat, state.opt_state, state.params, lr, g_norm
             )
             old = state.opt_state
             if skip_nonfinite:
@@ -295,7 +441,7 @@ def make_train_step(
             old.count.copy_(new_opt.count)
             old.mu.copy_(new_opt.mu)
             old.nu.copy_(new_opt.nu)
-            per_string, overall = per_string_accuracy(logits, labels)
+            per_string, overall = _accuracy(logits, labels)
         state.step += 1
         return {
             "loss": loss.detach(), "accuracy": overall,
@@ -311,24 +457,34 @@ def make_eval_step(
     *,
     smoothing: float = 0.05,
     frontend: Callable | None = None,
+    mesh=None,
 ):
     """``eval_step(state, batch) -> metrics``: the eval-mode forward, with
     ``weights`` [B, 6] masking padded rows out of the loss and accuracies
     (``engine.py:228-255``).  Metrics: ``loss``, ``accuracy``,
-    ``per_string_accuracy``, ``correct`` and ``count`` per string."""
+    ``per_string_accuracy``, ``correct`` and ``count`` per string.  Under
+    the state's mesh (a ``mesh`` given here must be it) the batch is this
+    rank's rows and the metrics are the global batch's."""
+
+    step_mesh = mesh
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
         model.eval()
-        logits = model(_features(batch, frontend, preprocess))
-        labels = batch["labels"]
-        weights = batch.get("weights")
-        if weights is None:
-            weights = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-        weights = weights.float()
-        loss = label_smoothing_loss(logits, labels, smoothing, weights=weights)
-        correct = (logits.argmax(dim=-1) == labels).float() * weights
-        count = weights.sum(dim=0)
+        mesh = _state_mesh(state, step_mesh)
+        with use_mesh(mesh):
+            logits = model(_features(batch, frontend, preprocess))
+            labels = batch["labels"]
+            weights = batch.get("weights")
+            if weights is None:
+                weights = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+            weights = weights.float()
+            loss = _loss_part(logits, labels, smoothing, weights)
+            if mesh is not None:
+                loss = data_sum(loss)
+            correct = data_sum((logits.argmax(dim=-1) == labels).float() * weights)
+            count = data_sum(weights.sum(dim=0))
+            weights = data_sum(weights)
         return {
             "loss": loss,
             "accuracy": correct.sum() / torch.clamp(weights.sum(), min=1.0),
@@ -358,18 +514,29 @@ def batch_to_device(batch: Mapping[str, Any], device: torch.device) -> dict[str,
     return out
 
 
+def _to_device(state: TrainState, batch: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A loader's global batch on the state's device: this rank's rows of it
+    under the state's mesh."""
+    if state.mesh is not None:
+        from ..parallel import shard_batch
+
+        return shard_batch(state.mesh, batch)
+    return batch_to_device(batch, state.params.device)
+
+
 def validate_model(state: TrainState, eval_step, loader: Iterable) -> dict[str, Any]:
     """Aggregate eval metrics over a loader (``engine.py:275-298`` of the
     JAX package): per-string accuracy is the exact correct/total ratio,
     and the loss the exact weighted mean over all (sample, string) cells
     (each batch's weighted-mean loss re-scaled by its weight total, so a
     padded or short last batch counts in proportion).  The sums stay on
-    the device in float64 and are read once."""
+    the device in float64 and are read once.  Under the state's mesh each
+    rank evaluates its rows of every batch."""
     dev = state.params.device
     loss_sum = torch.zeros((), dtype=torch.float64, device=dev)
     correct = count = None
     for batch in loader:
-        m = eval_step(state, batch_to_device(batch, dev))
+        m = eval_step(state, _to_device(state, batch))
         c = m["count"].double()
         # eval_step's loss = weighted_sum / weight_total and c.sum() =
         # weight_total, so this recovers the weighted sum
@@ -431,6 +598,7 @@ def train_model(
     log: Callable[[str], None] = print,
     on_epoch_end: Callable[[int, dict, TrainState], None] | None = None,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> tuple[TrainState, dict]:
     """Reference-compatible training loop (bestengine.py:870-1016; JAX
     ``engine.py:305-444``): epoch loop, validation, LR schedule on the val
@@ -446,7 +614,17 @@ def train_model(
     run draws what an uninterrupted one would have.  The train step
     changes the state in place, so the best epoch's parameters, running
     averages, moments and step are copied aside when the val loss
-    improves, and loaded back into the returned state at the end."""
+    improves, and loaded back into the returned state at the end.
+
+    Under ``mesh`` (:func:`..parallel.make_mesh`; every rank runs this with
+    the same loaders) a new state is made on the mesh
+    (``create_train_state(..., mesh=mesh)``), each rank trains and
+    evaluates on its rows of every batch, and rank 0 alone writes the
+    checkpoints.  The rows go to the card as a one-process run's batches
+    do (:func:`_to_device`), without prefetch, so that both loops move
+    their data alike; a loop of the caller's own prefetches them with
+    ``as_device_batches(loader, mesh=mesh)``.  A state split over the strings holds only its rank's
+    heads, so it takes no checkpointer."""
     from ..models.tabnet import build_model
     from ..utils.prng import step_generator
     from .schedules import make_scheduler
@@ -454,20 +632,25 @@ def train_model(
     config = config or TrainConfig()
     ocfg = config.optim
     init_batch = next(iter(train_loader))  # as the JAX loop: a shuffled loader's epoch advances
-    if "features" in init_batch and np.ndim(init_batch["features"]) == 4:
-        raise NotImplementedError(
-            "the rgb_image input kind (PNG spectrogram renders) is not ported "
-            "yet (ROADMAP A3); train on [B, n_bins, n_frames] dB features"
-        )
+    input_kind = input_kind_of(init_batch["features"]) if "features" in init_batch \
+        else "db_features"
     if state is None:
         if model is None:
             model = build_model(
-                config.model, generator=torch.Generator().manual_seed(ocfg.seed)
+                config.model, generator=torch.Generator().manual_seed(ocfg.seed),
+                input_shape=model_input_shape(init_batch),
             )
-        state = create_train_state(model, ocfg, device)
+        state = create_train_state(model, ocfg, device, mesh=mesh)
+    elif mesh is not None and state.mesh is not mesh:
+        raise ValueError("train_model(mesh=...): pass no state, or one made on that mesh")
+    mesh = state.mesh
+    if mesh is not None and mesh.strings is not None and checkpointer is not None:
+        raise ValueError("a state split over the strings holds only this rank's heads; "
+                         "train it without a checkpointer")
+    checkpointer_save = checkpointer if mesh is None or mesh.rank == 0 else None
     model = state.model
     dev = state.params.device
-    preprocess = make_preprocess(config.model, config.data.image_size)
+    preprocess = make_preprocess(config.model, config.data.image_size, input_kind)
 
     start_epoch = 0
     resumed_best = None
@@ -510,7 +693,7 @@ def train_model(
         steps, seen = 0, 0
         for batch in train_loader:
             gen = step_generator(ocfg.seed, state.step, generator=generator)
-            metrics = train_step(state, batch_to_device(batch, dev), gen, lr)
+            metrics = train_step(state, _to_device(state, batch), gen, lr)
             running += metrics["loss"]
             steps += 1
             seen += int(batch["labels"].shape[0])
@@ -542,8 +725,8 @@ def train_model(
             best_val = val["loss"]
             _snapshot(state, into=best)
             patience = 0
-            if checkpointer is not None:
-                checkpointer.save(
+            if checkpointer_save is not None:
+                checkpointer_save.save(
                     state, epoch=epoch, metrics=val, model_meta=model_meta,
                 )
         else:

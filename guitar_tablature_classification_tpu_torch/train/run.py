@@ -265,7 +265,7 @@ def _run(args, cfg, device, logger) -> int:
     from ..models.tabnet import build_model
     from ..utils.profiling import trace
     from .checkpoint import Checkpointer, CheckpointMismatchError, OrbaxCheckpointError
-    from .engine import create_train_state, make_eval_step, make_preprocess, test_model
+    from .engine import create_train_state, make_eval_step, model_input_shape, test_model
     from .engine import train_model, validate_model
 
     if args.synthetic:
@@ -281,24 +281,24 @@ def _run(args, cfg, device, logger) -> int:
 
     ckpt = Checkpointer(cfg.checkpoint_dir, cfg.checkpoint_name)
 
-    def eval_step_of(model):
+    def eval_step_of(model, loader):
         return make_eval_step(
-            model, make_preprocess(cfg.model, cfg.data.image_size),
-            smoothing=cfg.optim.label_smoothing,
+            model, preprocess_for(cfg, loader), smoothing=cfg.optim.label_smoothing,
         )
 
     if args.eval_only:
         if not ckpt.exists():
             raise SystemExit(f"--eval-only: no checkpoint in {cfg.checkpoint_dir}")
         model = build_model(
-            cfg.model, generator=torch.Generator().manual_seed(cfg.optim.seed)
+            cfg.model, generator=torch.Generator().manual_seed(cfg.optim.seed),
+            input_shape=model_input_shape(next(iter(val_loader))),
         )
         state = create_train_state(model, cfg.optim, device)
         try:
             state, _ = ckpt.restore(state, expect_model=dataclasses.asdict(cfg.model))
         except (CheckpointMismatchError, OrbaxCheckpointError) as e:
             raise SystemExit(f"--eval-only: {e}")
-        eval_step = eval_step_of(model)
+        eval_step = eval_step_of(model, val_loader)
         val = validate_model(state, eval_step, val_loader)
         test = test_model(state, eval_step, test_loader)
         logger.log(
@@ -336,7 +336,7 @@ def _run(args, cfg, device, logger) -> int:
     except (CheckpointMismatchError, OrbaxCheckpointError) as e:
         raise SystemExit(f"--resume: {e}")
 
-    test = test_model(state, eval_step_of(state.model), test_loader)
+    test = test_model(state, eval_step_of(state.model, test_loader), test_loader)
     logger.log(
         "test", accuracy=test["accuracy"],
         per_string=test["per_string_accuracy"],
@@ -349,6 +349,16 @@ def _run(args, cfg, device, logger) -> int:
     if args.report_dir:
         write_report(args.report_dir, history, state, cfg, test_loader)
     return 0
+
+
+def preprocess_for(cfg, loader):
+    """The model-input preprocess for ``loader``'s batches: the input kind
+    follows the rank of its first batch's features (rank 4: PNG renders),
+    as at ``train/run.py:258-262,319-321,358-359`` of the JAX package."""
+    from .engine import input_kind_of, make_preprocess
+
+    kind = input_kind_of(next(iter(loader))["features"])
+    return make_preprocess(cfg.model, cfg.data.image_size, kind)
 
 
 def predict(state, preprocess, loader) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -388,11 +398,10 @@ def make_periodic_reporter(report_dir, every: int, cfg, val_loader):
     every 5 epochs (bestengine.py:1006-1007) and confusion matrices during
     every validation pass (ViT_engine.py:473)."""
     from ..report import plot_confusion_matrices, plot_training_metrics
-    from .engine import make_preprocess
     from .metrics import confusion_matrices
 
     os.makedirs(report_dir, exist_ok=True)
-    preprocess = make_preprocess(cfg.model, cfg.data.image_size)
+    preprocess = preprocess_for(cfg, val_loader)
 
     def on_epoch_end(epoch, history, state):
         if (epoch + 1) % every:
@@ -411,11 +420,9 @@ def report_data(state, cfg, loader) -> dict:
     the state's device: ``preds`` and ``targets`` [N, 6] (padded rows left
     out), ``features`` (the first batch's, at most 8), ``confusion``
     [6, 19, 19], ``fret_accuracy`` and ``fret_support`` [6, 19]."""
-    from .engine import make_preprocess
     from .metrics import confusion_matrices, per_fret_accuracy
 
-    preds, targets, feats0 = predict(state, make_preprocess(cfg.model, cfg.data.image_size),
-                                     loader)
+    preds, targets, feats0 = predict(state, preprocess_for(cfg, loader), loader)
     cm = confusion_matrices(preds, targets).numpy()
     acc, support = per_fret_accuracy(cm)
     return {"preds": preds, "targets": targets, "features": feats0, "confusion": cm,

@@ -51,9 +51,10 @@ def test_source_imports_no_jax(path):
 def test_port_runs_without_jax_in_sys_modules(tmp_path):
     """Import the port, its tools (the runbook's too), its train CLI and
     bench, the dataset path's modules (loaders, pipeline, extractor,
-    extraction, report plots with Matplotlib), build a
-    Transcriber and the CLI on the CPU, run one short transcription, then
-    check sys.modules."""
+    extraction, report plots with Matplotlib), the parallel package,
+    streaming, the tab image and the librosa oracle, build a Transcriber
+    and the CLI on the CPU, run one short transcription and one stream,
+    plan a mesh, then check sys.modules."""
     script = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
@@ -73,6 +74,10 @@ from guitar_tablature_classification_tpu_torch.labels import extractor
 from guitar_tablature_classification_tpu_torch.models import small_cnn
 from guitar_tablature_classification_tpu_torch.ops import extract
 from guitar_tablature_classification_tpu_torch.tools import make_synthetic_guitarset, run_guitarset
+from guitar_tablature_classification_tpu_torch import parallel
+from guitar_tablature_classification_tpu_torch.parallel import collectives, mesh
+from guitar_tablature_classification_tpu_torch.infer import StreamingTranscriber, streaming, tab_image
+from guitar_tablature_classification_tpu_torch.ops import cqt_librosa, min_max_normalize
 report.plots._plt()
 run.make_config(run.build_parser().parse_args(["--synthetic", "--recipe", "native-best"]))
 cfg = RECIPES["native-best"]()
@@ -80,6 +85,10 @@ t = Transcriber(None, model_cfg=cfg.model, cqt_cfg=cfg.cqt, batch_size=4,
                 device="cpu")
 out = t.transcribe(np.zeros(cfg.cqt.window_samples * 2, np.float32))
 assert out.frets.shape == (3, 6)
+s = StreamingTranscriber(t)
+s.feed(np.zeros(cfg.cqt.window_samples * 2, np.float32))
+assert s.flush().frets.shape[1] == 6
+assert parallel.make_mesh(world_size=2, rank=1, device="cpu").shape == {{"data": 2, "model": 1}}
 args = cli.build_parser().parse_args(["x.wav", "--recipe", "native-best",
                                       "--device", "cpu"])
 cli.load_transcriber(args)

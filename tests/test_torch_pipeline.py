@@ -51,8 +51,20 @@ def test_host_shard_matches_jax():
 
 
 def test_as_device_batches_names_the_mesh_item():
-    with pytest.raises(NotImplementedError, match="A13"):
-        next(as_device_batches(iter([{"x": np.zeros(2)}]), mesh=object()))
+    """Under a mesh each rank gets its contiguous rows of every batch, on
+    the mesh's device (here a mesh of two ranks planned without
+    processes, seen from rank 1)."""
+    from guitar_tablature_classification_tpu_torch.config import MeshConfig
+    from guitar_tablature_classification_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(MeshConfig(), world_size=2, rank=1, device="cpu")
+    batch = {"x": np.arange(8)[:, None] * np.ones((1, 3)), "y": np.arange(8)}
+    out = list(as_device_batches(iter([batch, batch]), mesh=mesh))
+    assert len(out) == 2
+    np.testing.assert_array_equal(out[0]["y"].numpy(), [4, 5, 6, 7])
+    np.testing.assert_array_equal(out[1]["x"].numpy(), batch["x"][4:])
+    with pytest.raises(ValueError, match="not divisible by the data axis"):
+        next(as_device_batches(iter([{"x": np.zeros(3)}]), mesh=mesh))
 
 
 def test_prefetch_on_the_card_needs_a_card(monkeypatch):

@@ -182,11 +182,18 @@ def test_cli_matches_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--image", "--visualize"])
-def test_cli_unported_outputs_raise(tmp_path, flag):
+def test_cli_unported_outputs_raise(tmp_path, flag, monkeypatch):
+    """Where the flag's package does not import, the CLI exits before it
+    transcribes, naming the package, and writes nothing."""
+    import sys
+
+    package = {"--image": "PIL", "--visualize": "matplotlib"}[flag]
+    monkeypatch.setitem(sys.modules, package, None)  # import raises ImportError
     wav = tmp_path / "demo.wav"
     _write_wav(wav, 0.5)
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match=f"{flag} needs {package}"):
         cli.main([str(wav), flag, str(tmp_path / "x.png"), "--device", "cpu"])
+    assert not (tmp_path / "x.png").exists() and not (tmp_path / "demo_tab.txt").exists()
 
 
 def test_cli_orbax_directory_raises(tmp_path):
