@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import profiling
 
 
 class _PinnedPool:
@@ -41,7 +42,8 @@ class _PinnedPool:
         if len(self.sets) < self.limit:
             return {}
         buffers, event = self.sets.popleft()
-        event.synchronize()
+        with profiling.span("data.prefetch_wait"):
+            event.synchronize()
         return buffers
 
     def give(self, buffers: dict, event: torch.cuda.Event) -> None:
@@ -94,18 +96,22 @@ def device_prefetch(
             t.record_stream(consumer)  # allocated on the copy stream
         return out
 
+    # the span "data.prefetch": the generator's own work between two yields
     queue: collections.deque = collections.deque()
     it = iter(loader)
-    for batch in it:
-        queue.append(put(batch))
-        if len(queue) == size:
-            break
-    while queue:
-        out = queue.popleft()
+    with profiling.span("data.prefetch"):
         for batch in it:
             queue.append(put(batch))
-            break
-        yield ready(out)
+            if len(queue) == size:
+                break
+    while queue:
+        with profiling.span("data.prefetch"):
+            out = queue.popleft()
+            for batch in it:
+                queue.append(put(batch))
+                break
+            out = ready(out)
+        yield out
 
 
 def host_shard(

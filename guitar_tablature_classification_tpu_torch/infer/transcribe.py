@@ -12,6 +12,7 @@ attention (785 tokens) in the forward kernel of ``ops/attention_cuda.py``.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Mapping
 
@@ -25,6 +26,7 @@ from ..ops.cqt import CQTFrontend
 from ..ops.framing import frame_track, window_times
 from ..ops.smoothing import mode_filter
 from ..train.engine import make_preprocess
+from ..utils import profiling
 
 
 @dataclass
@@ -91,6 +93,7 @@ class Transcriber:
         if mesh is not None:
             buckets = [b for b in buckets if b % mesh.dp == 0] or [batch_size]
         self.bucket_sizes = tuple(buckets)
+        self._track_ids = itertools.count()  # each transcription's request in its spans
 
     @torch.inference_mode()
     def predict_logits(self, windows: torch.Tensor) -> torch.Tensor:
@@ -115,19 +118,27 @@ class Transcriber:
         lo = 0
         while lo < n:
             b = self._bucket_for(n - lo)
-            chunk = windows[lo : lo + b]
-            take = chunk.shape[0]
-            if take < b:  # pad to the bucket's shape
-                chunk = np.concatenate(
-                    [chunk, np.zeros((b - take, chunk.shape[1]), chunk.dtype)]
-                )
-            if self.mesh is None:
-                x = torch.from_numpy(np.require(chunk, np.float32, ["C", "W"]))
-                outs.append(self.predict_logits(x.to(self.device))[:take])
-            else:
-                outs.append(self._predict_sharded(chunk)[:take])
+            with profiling.span("serve.bucket"):
+                chunk = windows[lo : lo + b]
+                take = chunk.shape[0]
+                profiling.count("serve.rows_real", take)
+                profiling.count("serve.rows_forwarded", b)
+                if take < b:  # pad to the bucket's shape
+                    with profiling.span("serve.pad"):
+                        chunk = np.concatenate(
+                            [chunk, np.zeros((b - take, chunk.shape[1]), chunk.dtype)]
+                        )
+                if self.mesh is None:
+                    with profiling.span("serve.h2d"):
+                        x = torch.from_numpy(np.require(chunk, np.float32, ["C", "W"]))
+                        x = x.to(self.device)
+                    with profiling.span("serve.forward"):
+                        outs.append(self.predict_logits(x)[:take])
+                else:
+                    outs.append(self._predict_sharded(chunk)[:take])
             lo += take
-        return torch.cat(outs).cpu().numpy()
+        with profiling.span("serve.fetch"):
+            return torch.cat(outs).cpu().numpy()
 
     def _predict_sharded(self, chunk: np.ndarray) -> torch.Tensor:
         """A bucket's logits under the mesh: this rank predicts its rows,
@@ -135,8 +146,12 @@ class Transcriber:
         from ..parallel import batch_sharding
         from ..parallel.collectives import all_gather
 
-        rows = np.require(chunk[batch_sharding(self.mesh, len(chunk))], np.float32, ["C", "W"])
-        logits = self.predict_logits(torch.from_numpy(rows).to(self.device))
+        with profiling.span("serve.h2d"):
+            rows = np.require(chunk[batch_sharding(self.mesh, len(chunk))], np.float32,
+                              ["C", "W"])
+            rows = torch.from_numpy(rows).to(self.device)
+        with profiling.span("serve.forward"):
+            logits = self.predict_logits(rows)
         if self.mesh.dp == 1:
             return logits
         return torch.cat(all_gather(logits, self.mesh.data_group, self.mesh.dp))
@@ -150,20 +165,23 @@ class Transcriber:
         keep_logits: bool = False,
     ) -> Transcription:
         """audio: 1-D float track at cqt_cfg.sample_rate."""
-        windows = frame_track(
-            np.asarray(audio, dtype=np.float32), self.cqt_cfg,
-            hop_samples=hop_samples,
-        )
-        logits = self.predict_windows(windows)
-        frets = np.argmax(logits, axis=-1)  # [T, 6]
-        if smooth_window and frets.shape[0] > smooth_window:
-            frets = mode_filter(
-                torch.from_numpy(frets), window=smooth_window
-            ).numpy()
-        times = window_times(audio.shape[0], self.cqt_cfg, hop_samples=hop_samples)
-        return Transcription(
-            frets=frets, times=times, logits=logits if keep_logits else None
-        )
+        with profiling.span("serve.transcribe", request=next(self._track_ids)):
+            with profiling.span("serve.frame"):
+                windows = frame_track(
+                    np.asarray(audio, dtype=np.float32), self.cqt_cfg,
+                    hop_samples=hop_samples,
+                )
+            logits = self.predict_windows(windows)
+            with profiling.span("serve.smooth"):
+                frets = np.argmax(logits, axis=-1)  # [T, 6]
+                if smooth_window and frets.shape[0] > smooth_window:
+                    frets = mode_filter(
+                        torch.from_numpy(frets), window=smooth_window
+                    ).numpy()
+                times = window_times(audio.shape[0], self.cqt_cfg, hop_samples=hop_samples)
+            return Transcription(
+                frets=frets, times=times, logits=logits if keep_logits else None
+            )
 
 
 def transcriber_from_torch_checkpoint(

@@ -36,6 +36,7 @@ from ..parallel.collectives import (
     row_slice,
     use_mesh,
 )
+from ..utils import profiling
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam defaults
 
@@ -409,17 +410,23 @@ def make_train_step(
     step_mesh = mesh
 
     def train_step(state: TrainState, batch, generator: torch.Generator, lr: float):
+        with profiling.span("train.step", request=state.step):
+            return _step(state, batch, generator, lr)
+
+    def _step(state: TrainState, batch, generator: torch.Generator, lr: float):
         model.train()
         mesh = _state_mesh(state, step_mesh)
         with use_mesh(mesh):
-            with torch.no_grad():
+            with torch.no_grad(), profiling.span("train.features"):
                 images = _features(batch, frontend, preprocess, augment, generator)
             labels = batch["labels"]
             saved = state.buffers.clone() if skip_nonfinite else None
-            logits = model(images, generator)
-            loss = _loss_part(logits, labels, smoothing, batch.get("weights"))
-            grads = torch.autograd.grad(loss, state.param_list)
-        with torch.no_grad(), use_mesh(mesh):
+            with profiling.span("train.forward"):
+                logits = model(images, generator)
+                loss = _loss_part(logits, labels, smoothing, batch.get("weights"))
+            with profiling.span("train.backward"):
+                grads = torch.autograd.grad(loss, state.param_list)
+        with torch.no_grad(), use_mesh(mesh), profiling.span("train.update"):
             flat = torch.cat([g.reshape(-1) for g in grads])
             g_norm = None
             if mesh is not None:

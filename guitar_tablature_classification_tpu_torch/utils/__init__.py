@@ -2,9 +2,8 @@
 
 from .logging import MetricsLogger
 from .prng import KeySequence, fold_in, set_seed, step_generator
-from .profiling import ThroughputMeter, trace
+from .profiling import trace
 
 __all__ = [
-    "KeySequence", "MetricsLogger", "ThroughputMeter", "fold_in", "set_seed",
-    "step_generator", "trace",
+    "KeySequence", "MetricsLogger", "fold_in", "set_seed", "step_generator", "trace",
 ]
