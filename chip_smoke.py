@@ -1170,9 +1170,11 @@ def vit_serving_phase(torch, mods, batch: int = 128, n_batches: int = 8) -> dict
         images = t.preprocess(feats)
         model_ms = _sync_ms(lambda: t.model(images), 5)
         with_kernel = t.model(images)
+        # the eager forward: a bucket's CUDA graph replays the kernels it captured
+        eager = t.model.forward.eager
         with plain_attention(t.model, mods["attention"]):
-            with_plain = t.model(images)
-            plain_model_ms = _sync_ms(lambda: t.model(images), 3)
+            with_plain = eager(images)
+            plain_model_ms = _sync_ms(lambda: eager(images), 3)
     track = synthetic_track(np.random.default_rng(9), 5.0, cfg.sample_rate)
     res = t.transcribe(track, keep_logits=True)
     diff = float((with_kernel - with_plain).abs().max())

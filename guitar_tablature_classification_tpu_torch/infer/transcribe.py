@@ -27,6 +27,7 @@ from ..ops.framing import frame_track, window_times
 from ..ops.smoothing import mode_filter
 from ..train.engine import make_preprocess
 from ..utils import profiling
+from ..utils.cuda_graphs import GraphedForward
 
 
 @dataclass
@@ -51,6 +52,18 @@ class Transcriber:
     mesh's device, the data group gathers the logits, and every rank
     returns the whole transcription (``infer/transcribe.py:71-83,122-123``
     of the JAX package).
+
+    Without a mesh, the model's forward of each bucket shape is replayed
+    from a CUDA graph (:class:`..utils.cuda_graphs.GraphedForward`, put in
+    place of ``self.model.forward``): one launch where the eager forward
+    makes hundreds, each of which costs the host time.  It engages where the
+    input is on the card, the model in eval mode, grad off (as in
+    :meth:`predict_logits`) and the batch one of ``bucket_sizes``; the first
+    call of a bucket runs eagerly and captures its graph.  Anything else
+    (the CPU, a mesh, training, another batch) runs the eager forward.  The
+    CQT frontend and the preprocess stay eager; ``self.model`` stays the
+    same module, with its ``state_dict`` and its hooks, which fire once a
+    bucket.  The logits are the eager forward's, bit for bit.
     """
 
     def __init__(
@@ -93,6 +106,8 @@ class Transcriber:
         if mesh is not None:
             buckets = [b for b in buckets if b % mesh.dp == 0] or [batch_size]
         self.bucket_sizes = tuple(buckets)
+        if mesh is None:  # a mesh's string heads may hold collectives: always eager
+            self.model.forward = GraphedForward(self.model, self.bucket_sizes, "serve")
         self._track_ids = itertools.count()  # each transcription's request in its spans
 
     @torch.inference_mode()

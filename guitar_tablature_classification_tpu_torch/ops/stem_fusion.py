@@ -63,6 +63,22 @@ def _front_matrices(
     return rh, rw, inh, inw
 
 
+@functools.lru_cache(maxsize=16)
+def _front_constants(
+    src_h: int, src_w: int, out: int, kernel: int, stride: int, device: torch.device
+) -> tuple[torch.Tensor, ...]:
+    """:func:`_front_matrices`, then ImageNet's std and mean, on ``device``,
+    made once a shape and device: the forward copies nothing from the host
+    (a CUDA graph cannot capture such a copy, and each one held the host
+    until the card had drained)."""
+    with torch.inference_mode(False):  # tensors a later training step may use
+        mats = tuple(torch.from_numpy(m).to(device)
+                     for m in _front_matrices(src_h, src_w, out, kernel, stride))
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device)
+    return (*mats, std, mean)
+
+
 def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
     """einsum of operands in ``dtype`` with fp32 accumulation, rounded once
     to ``dtype``.  On the CPU, bf16 operands are upcast exactly to fp32
@@ -79,13 +95,8 @@ def _front_terms(x, conv1_weight, out_size, stride, dtype):
     HWIO fp32 kernel, its 1/sigma and mu/sigma contractions, and h."""
     b, src_h, src_w = x.shape
     k = conv1_weight.shape[-1]
-    rh, rw, inh, inw = (
-        torch.from_numpy(m).to(x.device)
-        for m in _front_matrices(src_h, src_w, out_size, k, stride)
-    )
+    rh, rw, inh, inw, std, mean = _front_constants(src_h, src_w, out_size, k, stride, x.device)
     w = conv1_weight.float().permute(2, 3, 1, 0)  # OIHW -> HWIO [k, k, c, f]
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
     inv_std = 1.0 / std
     w1 = torch.einsum("ijcf,c->ijf", w, inv_std)  # value path
     wmu = torch.einsum("ijcf,c->ijf", w, mean * inv_std)  # -mean/std offset
