@@ -65,7 +65,7 @@ def _serve(cell, seed, dev, control: bool, key: str, seconds: float) -> dict:
            "sampled_windows": sum(r.shape[0] for r in refs)}
     if control:
         low = [drv.reference_logits(drv.tracks[i], "fp8").numpy() for i, _ in sample]
-        out["control"] = {"fret_gap": check.control_gap(refs, low)}
+        out["control"] = check.control_numbers(refs, low, cell.traffic["smooth_window"])
     return out
 
 

@@ -36,7 +36,15 @@ among them):
   reference's logits, at every window and string;
 - ``frets_mismatch``: windows and strings where the served frets are not
   the mode filter (window ``smooth_window``, ties to the lower fret) of
-  the port's own logits' argmax, plus every window missing or extra.
+  the port's own logits' argmax, plus every window missing or extra;
+- ``logit_error``: the RMS over every window, string and fret of the gap
+  between the port's logit and the reference's, over the same RMS.  It
+  reads rounding where the top fret lies far above the runner-up in most
+  windows, as a random-weight model's can, and ``fret_gap`` reads little;
+  being a mean, a rare large gap (a CQT feature on the other side of the
+  -60 dB gate) moves it less than rounding everywhere does.
+
+A cell compares the numbers its ``limits/<cell>.json`` names.
 """
 
 from __future__ import annotations
@@ -109,7 +117,7 @@ def serve_numbers(served: list[tuple[np.ndarray, np.ndarray]], ref_logits: list[
                   smooth_window: int) -> dict[str, float]:
     """``served``: (frets, logits) of each sampled track as the port
     returned them; ``ref_logits``: the reference's logits of its windows."""
-    gaps, sq, count, mismatch = [], 0.0, 0, 0
+    gaps, sq, sq_diff, count, mismatch = [], 0.0, 0.0, 0, 0
     for (frets, logits), ref in zip(served, ref_logits):
         if logits.shape != ref.shape or frets.shape != ref.shape[:2]:
             mismatch += ref.shape[0] * ref.shape[1]
@@ -118,16 +126,17 @@ def serve_numbers(served: list[tuple[np.ndarray, np.ndarray]], ref_logits: list[
         chosen = np.take_along_axis(ref, top[..., None], -1)[..., 0]
         gaps.append(float((ref.max(-1) - chosen).max()))
         sq += float((ref.astype(np.float64) ** 2).sum())
+        sq_diff += float(((logits.astype(np.float64) - ref) ** 2).sum())
         count += ref.size
         mismatch += int((frets != mode_filter(top, smooth_window, ref.shape[-1])).sum())
     rms = (sq / count) ** 0.5 if count else 1.0
-    return {"fret_gap": max(gaps, default=float("inf")) / rms, "frets_mismatch": float(mismatch)}
+    return {"fret_gap": max(gaps, default=float("inf")) / rms, "frets_mismatch": float(mismatch),
+            "logit_error": (sq_diff / count) ** 0.5 / rms if count else float("inf")}
 
 
-def control_gap(ref: list[np.ndarray], low: list[np.ndarray]) -> float:
-    """``fret_gap`` of the top frets of a lower-precision computation
-    (``low``) of the same windows: the control's reading."""
-    gaps = [float((r.max(-1) - np.take_along_axis(r, x.argmax(-1)[..., None], -1)[..., 0]).max())
-            for r, x in zip(ref, low)]
-    rms = float(np.sqrt(np.mean(np.concatenate([r.ravel().astype(np.float64) ** 2 for r in ref]))))
-    return max(gaps) / rms
+def control_numbers(ref_logits: list[np.ndarray], low: list[np.ndarray],
+                    smooth_window: int) -> dict[str, float]:
+    """:func:`serve_numbers` of a lower-precision computation (``low``) of
+    the same windows served in the port's place: the control's readings."""
+    served = [(mode_filter(x.argmax(-1), smooth_window, x.shape[-1]), x) for x in low]
+    return serve_numbers(served, ref_logits, smooth_window)

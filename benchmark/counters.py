@@ -6,6 +6,10 @@ from __future__ import annotations
 
 # kernel names in the device trace that each wrapper's launch gives
 KERNELS = {
+    # each fused CQT launch (B1) enqueues its coefficients kernel, then the
+    # dB epilogue; on the tensor cores the coefficients are cqt_mma_kernel's
+    "cqt_fused": ("cqt_db_kernel",),
+    "cqt_fused_mma": ("cqt_mma_kernel",),
     "stem_stats": ("stem_stats_kernel", "reduce_partials_kernel"),
     "stem_fwd": ("stem_fwd_kernel",),
     "stem_bwd": ("stem_bwd_kernel", "reduce_partials_kernel"),

@@ -50,6 +50,15 @@ class Trace:
         stretch."""
         return 1e-6 * sum(b - a for n, a, b in self.launched if _base(n) in names)
 
+    def misplaced(self, slack_us: float = 1000.0) -> int:
+        """Kernels launched in the stretch whose device interval lies
+        outside it: the stretch ends with a device synchronize, so none
+        can, and a trace whose device clock slipped against the host's
+        (seen on the card: a whole stretch's kernels after its end) holds
+        some."""
+        lo, hi = self.stretch
+        return sum(1 for _, a, b in self.launched if a < lo - slack_us or b > hi + slack_us)
+
     def busy_intervals(self) -> list[tuple[float, float]]:
         lo, hi = self.stretch
         spans = sorted((max(a, lo), min(b, hi)) for _, _, a, b in self.device if b > lo and a < hi)

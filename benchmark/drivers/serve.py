@@ -126,6 +126,6 @@ class Driver:
         with torch.no_grad(), fp32_products():
             for lo in range(0, len(windows), self.traffic["batch_size"]):
                 x = torch.from_numpy(windows[lo:lo + self.traffic["batch_size"]]).to(self.device)
-                img = model.inputs(transform(x))
+                img = model.inputs(transform(x, Precision(kind)))
                 outs.append(model.run(img, train=False, prec=Precision(kind)).cpu())
         return torch.cat(outs)

@@ -97,16 +97,16 @@ def driver(cell: Cell, seed: int, device, spans: Spans):
 
 
 def judge(cell: Cell, drv, port_readings) -> dict:
-    """Each compared number beside its limit; run after the port's state is
-    freed.  ``port_readings``: the training driver's readings from set-up,
-    or the serving driver's sampled results."""
+    """Each number that the cell's limits name beside its limit; run after
+    the port's state is freed.  ``port_readings``: the training driver's
+    readings from set-up, or the serving driver's sampled results."""
     if drv.kind == "train":
         numbers = check.train_numbers(port_readings, drv.reference())
     else:
         served = [(out.frets, out.logits) for _, out in port_readings]
         refs = [drv.reference_logits(drv.tracks[i]).numpy() for i, _ in port_readings]
         numbers = check.serve_numbers(served, refs, cell.traffic["smooth_window"])
-    return {k: {"value": v, "limit": cell.limits[k]} for k, v in numbers.items()}
+    return {k: {"value": numbers[k], "limit": limit} for k, limit in cell.limits.items()}
 
 
 def loaded_forbidden() -> list[str]:
@@ -123,6 +123,10 @@ def run(name: str, seed: int, seconds: float, trace: bool, device: str, t_start:
     drv = driver(cell, seed, dev, spans)
     drv.setup()
     traced = trace and cuda  # a CPU run (the tests) reads no device trace
+    # an end-to-end metric read from the device trace: a --trace 0 run takes
+    # the same stretch after its window, and pays the profiler's first start there
+    e2e_traced = not trace and cuda and any(m["source"] == "device_trace"
+                                            for m in cell.end_to_end)
     if traced:
         devtrace.warm_up()
     r = Run(cell=cell)
@@ -130,11 +134,17 @@ def run(name: str, seed: int, seconds: float, trace: bool, device: str, t_start:
     r.setup_s = time.perf_counter() - t_start
     r.window = drv.window(seconds)
     r.spans = {k: list(v) for k, v in spans.durations.items()}
-    if traced:  # the profiler at times drops a few kernel records: take the stretch again
+    if e2e_traced:
+        devtrace.warm_up()
+    if traced or e2e_traced:  # the profiler at times drops a few kernel records, or places the
+        # device's records off the host's clock: take the stretch again
         for _ in range(TRACE_ATTEMPTS):
             r.trace = devtrace.take(drv.stretch, spans)
-            if not counters.missing(r.trace, tuple(counters.KERNELS)):
+            lost, off = counters.missing(r.trace, tuple(counters.KERNELS)), r.trace.misplaced()
+            if not lost and not off:
                 break
+            print(f"benchmark: a flawed trace: records lost {lost}, "
+                  f"kernels outside the stretch {off}", file=sys.stderr)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     port_readings = drv.readings if drv.kind == "train" else [drv.results[k] for k in drv.sample()]
     attempted = r.window.get("steps", r.window.get("tracks", 0))

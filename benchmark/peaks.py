@@ -6,7 +6,9 @@ Peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W), as
 over their type's peak and the bytes (each input read once, each output
 written once) over the memory bandwidth; the byte and operation counts of
 the stem tail and the attention kernels are ``chip_smoke.py``'s
-(``stem_kernel_phase``, ``attention_kernel_phase``), frozen here.
+(``stem_kernel_phase``, ``attention_kernel_phase``), frozen here; the
+CQT's (B1) are worked out from the reference's filterbank as
+``chip_smoke.py``'s ``cqt_phase`` counts them.
 
 A model's nominal operations are its configuration's (``nominal`` in
 ``configs/<config>.json``), which ``tests/test_bench_counts.py`` works out
@@ -14,6 +16,10 @@ by hand.
 """
 
 from __future__ import annotations
+
+import numpy as np
+
+from .reference.cqt import filterbank, window_samples
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
@@ -59,3 +65,42 @@ def attention_bound_s(kernel: str, batch: int, tokens: int, heads: int,
     if kernel == "attn_fwd":
         return bound_s(4 * el * elems + lse, 4 * sq, "bf16")
     return bound_s(8 * el * elems + lse, 10 * sq, "bf16")
+
+
+# ------------------------------------------------------------------- CQT
+
+
+def cqt_counts(cqt: dict) -> tuple[int, int]:
+    """(multiply-adds, filter values) that one window of the fused CQT
+    needs, re and im, under zero padding: per bin and frame, the nonzero
+    filter rows that meet a sample of the window; per bin, the rows of its
+    nonzero span that meet one in some frame."""
+    if cqt["pad_mode"] != "constant":
+        raise ValueError("the CQT's counts are for zero padding only")
+    kernels = filterbank(cqt)
+    n_bins, n, hop = cqt["n_bins"], window_samples(cqt), cqt["hop_length"]
+    nonzero = (kernels[:, :n_bins] != 0) | (kernels[:, n_bins:] != 0)  # [width, bins]
+    lo = np.argmax(nonzero, axis=0)
+    hi = nonzero.shape[0] - np.argmax(nonzero[::-1], axis=0)
+    frames = 1 + n // hop
+    pad = kernels.shape[0] // 2
+    starts = pad - np.arange(frames) * hop  # filter row of each frame's first sample
+    a = np.maximum(lo[:, None], starts[None, :])
+    b = np.minimum(hi[:, None], starts[None, :] + n)
+    macs = 2 * int(np.maximum(b - a, 0).sum())
+    lo_f = np.maximum(lo, pad - (frames - 1) * hop)
+    hi_f = np.minimum(hi, pad + n)
+    return macs, 2 * int(np.maximum(hi_f - lo_f, 0).sum())
+
+
+def cqt_bound_s(batch: int, cqt: dict) -> float:
+    """Bound of one call of the fused CQT (B1) at the ``default`` tier on
+    ``batch`` windows: one bf16 tensor-core pass of the products, and the
+    audio read (fp32), each filter value the windows need read once (bf16)
+    and the dB features written (fp32)."""
+    if cqt["precision"] != "default":
+        raise ValueError(f"the CQT's bound is the default tier's, not {cqt['precision']!r}")
+    macs, values = cqt_counts(cqt)
+    frames = 1 + window_samples(cqt) // cqt["hop_length"]
+    nbytes = 4 * batch * window_samples(cqt) + 2 * values + 4 * batch * cqt["n_bins"] * frames
+    return bound_s(nbytes, 2 * macs * batch, "bf16")

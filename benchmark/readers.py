@@ -80,8 +80,44 @@ def stem_share(run, backward: bool) -> float | None:
     return 100.0 * bound / spent
 
 
+def device_us_per_segment(run) -> float | None:
+    """Device microseconds a trained segment: the union of the traced
+    steps' kernel, copy and set intervals over the segments they train."""
+    t = _traced(run, True)
+    if t is None:
+        return None
+    return 1e6 * t.busy_s() / sum(t.extra["forward_batches"])
+
+
+def device_mfu(run) -> float | None:
+    """The traced steps' nominal training operations over their device
+    busy seconds, as a share of the bf16 peak."""
+    t, nominal = _traced(run, True), run.cell.config.get("nominal")
+    if t is None or nominal is None:
+        return None
+    flops = nominal["train_flops"] * sum(t.extra["forward_batches"])
+    return 100.0 * flops / t.busy_s() / peaks.PEAK_FLOPS["bf16"]
+
+
 def idle_share(run) -> float | None:
     t = run.trace
     if t is None:
         return None
     return 100.0 * (1.0 - t.busy_s() / t.window_s)
+
+
+def cqt_share(run, backward: bool) -> float | None:
+    """B1's bound over its kernels' device time, at the ``default`` tier
+    on the tensor cores (one CQT call a traced step or forward call)."""
+    t = _traced(run, backward)
+    cqt = run.cell.config["cqt"]
+    if t is None or cqt["precision"] != "default" or t.extra["counts"].get("cqt_fused_mma", 0) == 0:
+        return None
+    wrappers = ("cqt_fused", "cqt_fused_mma")
+    counters.check_trace(t, wrappers)
+    counts, calls = t.extra["counts"], t.extra["forward_batches"]
+    if {counts["cqt_fused"], counts["cqt_fused_mma"]} != {len(calls)}:
+        raise RuntimeError(f"{counts} CQT launches for {len(calls)} calls")
+    bound = sum(peaks.cqt_bound_s(b, cqt) for b in calls)
+    spent = t.kernel_s(tuple(k for w in wrappers for k in counters.KERNELS[w]))
+    return 100.0 * bound / spent

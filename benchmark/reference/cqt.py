@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .precision import fp32_products
+from .precision import Precision, fp32_products
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -73,7 +73,11 @@ class CQT:
         self.cfg = cqt
         self.kernels = torch.from_numpy(filterbank(cqt)).to(device)
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, prec: Precision = Precision()) -> torch.Tensor:
+        """``prec`` rounds the frame product's operands where the
+        configuration states that product in bf16 (``precision``
+        ``default``): the control's step below it.  At ``highest`` and
+        ``bf16x3`` the product stays float32."""
         cfg, kw = self.cfg, self.kernels.shape[0]
         hop, n_bins = cfg["hop_length"], cfg["n_bins"]
         frames_n = 1 + x.shape[-1] // hop
@@ -82,8 +86,11 @@ class CQT:
         if padded.shape[-1] < need:
             padded = F.pad(padded, (0, need - padded.shape[-1]))
         frames = padded.unfold(-1, kw, hop)[:, :frames_n]
+        kernels = self.kernels
+        if cfg["precision"] == "default":
+            frames, kernels = prec(frames), prec(kernels)
         with fp32_products():
-            coeff = frames @ self.kernels
+            coeff = frames @ kernels
         power = (coeff[..., :n_bins] ** 2 + coeff[..., n_bins:] ** 2) ** (cfg["magnitude_power"] / 2)
         ref = power.amax(dim=(1, 2), keepdim=True)
         amin = cfg["amin"]

@@ -3,7 +3,8 @@
 ``Precision("fp32")`` leaves operands as they are (float32, TF32 off inside
 :func:`fp32_products`).  ``Precision("fp8")`` is the control: every operand
 of a backbone product (convolutions, dense layers, attention's two matrix
-products) is rounded to float8 e4m3 with one scale per tensor (its largest
+products, and the CQT's frame product where the configuration states it
+in bf16, the ``default`` tier) is rounded to float8 e4m3 with one scale per tensor (its largest
 magnitude maps to 448), the step below the configurations' bfloat16.  The
 rounding passes gradients straight through, so a training control rounds
 its forward and keeps float32 backward products.

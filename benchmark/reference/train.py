@@ -64,7 +64,7 @@ class Trainer:
 
     def loss(self, audio, labels, generator, rows: slice | None = None):
         with fp32_products():
-            x = self.model.inputs(self.cqt(audio))
+            x = self.model.inputs(self.cqt(audio, self.prec))
             logits = self.model.run(x, train=True, generator=generator, prec=self.prec)
         if rows is not None:  # a fault to read: part of the batch in the mean
             logits, labels = logits[rows], labels[rows]

@@ -1,5 +1,6 @@
 """The control: the reference computed one precision step below the
-configurations' bfloat16 (fp8 e4m3 operands in the backbone's products)
+configurations' bfloat16 (fp8 e4m3 operands in the backbone's products,
+and in the CQT's where the configuration states it in bf16)
 put in the port's place, at a size a test run holds.  It has to come out
 not correct at the cells' limits.  On the card, at the cells' own sizes,
 ``python3 -m benchmark.calibrate --control-seeds ...`` reads the same
@@ -42,12 +43,19 @@ def root(tmp_path_factory):
              e2e=("train_segments_per_s",))
     add_cell(root, "tiny_vit_serve", "vit_s8", dict(TINY_SERVE, track_seconds=[10.0, 5.0]),
              "vit_serve", model={"vit_layers": 2}, e2e=("serve_windows_per_s",))
+    add_cell(root, "tiny_native_train", "resnet18_native", TINY_TRAIN, "native_train",
+             e2e=("train_segments_per_s",))
+    add_cell(root, "tiny_native_serve", "resnet18_native",
+             dict(TINY_SERVE, track_seconds=[20.0, 10.0]), "native_serve",
+             e2e=("serve_windows_per_s",))
     return root
 
 
 @pytest.mark.parametrize("cell,control,number", [
     ("tiny_flagship_train", TRAIN_CONTROL, "logit_direction_error"),
     ("tiny_vit_serve", SERVE_CONTROL, "fret_gap"),
+    ("tiny_native_train", TRAIN_CONTROL, "logit_direction_error"),
+    ("tiny_native_serve", SERVE_CONTROL, "logit_error"),
 ])
 def test_the_control_is_not_correct(root, cell, control, number):
     out = run_cell(root, cell, patch=control)

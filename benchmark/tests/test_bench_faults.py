@@ -5,7 +5,9 @@ served fret altered where it is produced (one card: no exchange between
 chips to leave out); and a backward that returns nothing, the stem tail's
 (``faults/stem_bwd_zero.py``; B5's runs only on the card).  The runs skip the chip check of ``run.py`` and go
 through the rest of the harness on the CPU, at the cells' limits, on tiny
-cells at float32 (where a sound run reads far under them)."""
+cells at float32 (where a sound run reads far under them); and B1's
+``default`` tier writing each bin one bin up (``faults/cqt_default_bin_shift.py``),
+in tiny cells of the ``native-best`` configuration."""
 
 from __future__ import annotations
 
@@ -48,6 +50,11 @@ from benchmark.faults.stem_bwd_zero import plant
 plant()
 """
 
+CQT_BIN_SHIFT = """
+from benchmark.faults.cqt_default_bin_shift import plant
+plant()
+"""
+
 ALTERED = """
 from guitar_tablature_classification_tpu_torch.infer import transcribe
 made = transcribe.Transcriber.transcribe
@@ -66,10 +73,18 @@ def root(tmp_path_factory):
              model={"dtype": "float32"}, e2e=("train_segments_per_s",))
     add_cell(root, "tiny_flagship_serve", "resnet18_flagship", TINY_SERVE, "flagship_serve",
              model={"dtype": "float32"}, e2e=("serve_windows_per_s",))
+    add_cell(root, "tiny_native_train", "resnet18_native", TINY_TRAIN, "native_train",
+             model={"dtype": "float32"}, e2e=("train_segments_per_s",))
+    # longer tracks than the flagship's: the native model's argmax turns on
+    # a few hundred windows, not on a few dozen
+    add_cell(root, "tiny_native_serve", "resnet18_native",
+             dict(TINY_SERVE, track_seconds=[20.0, 10.0]), "native_serve",
+             model={"dtype": "float32"}, e2e=("serve_windows_per_s",))
     return root
 
 
-@pytest.mark.parametrize("cell", ["tiny_flagship_train", "tiny_flagship_serve"])
+@pytest.mark.parametrize("cell", ["tiny_flagship_train", "tiny_flagship_serve",
+                                  "tiny_native_train", "tiny_native_serve"])
 def test_a_sound_run_is_correct(root, cell):
     out = run_cell(root, cell)
     assert out["correct"], out["checks"]
@@ -80,7 +95,10 @@ def test_a_sound_run_is_correct(root, cell):
     ("tiny_flagship_train", HALF_BATCH, "logit_direction_error"),
     ("tiny_flagship_train", STEM_BWD_ZERO, "direction_error"),
     ("tiny_flagship_serve", ALTERED, "frets_mismatch"),
-], ids=["state_unchanged", "half_batch", "stem_bwd_zero", "fret_altered"])
+    ("tiny_native_train", CQT_BIN_SHIFT, "logit_direction_error"),
+    ("tiny_native_serve", CQT_BIN_SHIFT, "logit_error"),
+], ids=["state_unchanged", "half_batch", "stem_bwd_zero", "fret_altered",
+        "native_train_cqt_bin_shift", "native_serve_cqt_bin_shift"])
 def test_a_broken_run_is_not_correct(root, cell, fault, number):
     out = run_cell(root, cell, patch=fault)
     assert not out["correct"]

@@ -105,3 +105,16 @@ def test_every_reader_is_none_without_the_stretch():
     for name, (unit, read) in progtrace.READERS.items():
         assert unit in ("ms", "%")
         assert read(None) is None and read(empty) is None, name
+
+
+def test_a_trace_whose_kernels_left_the_stretch_is_misplaced():
+    """The stretch ends with a device synchronize, so a kernel launched in
+    it that the trace puts after the end (or before the mark) means the
+    device's clock slipped against the host's: the harness takes the
+    stretch again."""
+    launched = [("k0", 1100.0, 1300.0), ("k1", 1300.0, 1990.5)]
+    trace = devtrace.Trace(stretch=(1000.0, 2000.0), device=[], launched=launched, host=[])
+    assert trace.misplaced() == 0
+    trace.launched.append(("k2", 3500.0, 3600.0))  # past the end by more than 1 ms
+    trace.launched.append(("k3", -400.0, -300.0))
+    assert trace.misplaced() == 2

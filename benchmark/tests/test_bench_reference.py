@@ -45,7 +45,7 @@ def _models(cfg: dict, seed: int = 3):
     return port, ref
 
 
-@pytest.mark.parametrize("cell", ["flagship_train", "vit_train"])
+@pytest.mark.parametrize("cell", ["flagship_train", "vit_train", "native_train"])
 def test_reference_has_the_ports_keys(cell):
     config, build_model, _ = _port()
     cfg = _cfg(cell)
@@ -81,14 +81,18 @@ def test_cqt_matches_the_ports_plain_transform():
     assert float((got - want)[both].abs().max()) < 2e-3
 
 
-@pytest.mark.parametrize("arch", ["resnet18", "vit_s8"])
+@pytest.mark.parametrize("arch", ["resnet18", "vit_s8", "resnet18_native"])
 def test_image_matches_the_ports_preprocess(arch):
     config, _, engine = _port()
-    cell = "flagship_train" if arch == "resnet18" else "vit_train"
+    cell = {"resnet18": "flagship_train", "vit_s8": "vit_train",
+            "resnet18_native": "native_train"}[arch]
     cfg = _cfg(cell, stem_fusion="off")
     db = torch.rand(3, 96, 9) * 100 - 110
     want = engine.make_preprocess(config.ModelConfig(**cfg["model"]))(db).permute(0, 3, 1, 2)
-    got = rcqt.image(db, 224, imagenet=arch == "resnet18")
+    with torch.device("meta"):
+        ref = models.build(cfg["model"])
+    got = ref.inputs(db)
+    assert tuple(got.shape) == ((3, 1, 96, 9) if arch == "resnet18_native" else (3, 3, 224, 224))
     assert torch.allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
@@ -102,14 +106,23 @@ def test_framing_matches_the_port():
     np.testing.assert_array_equal(rcqt.frame(track, cfg["cqt"], 4410), want)
 
 
-@pytest.mark.parametrize("cell,model", [
-    ("flagship_serve", {"dtype": "float32"}),
-    ("flagship_serve", {"dtype": "float32", "stem_fusion": "off"}),
-    ("vit_serve", {"dtype": "float32", "vit_layers": 2}),
-])
-def test_eval_logits_match_the_port_at_float32(cell, model):
+# the native cells' CQT runs at the default tier (bf16 operands), which the
+# port's plain version rounds too: these compare the models, on the float32
+# transform of both sides
+HIGHEST = {"precision": "highest"}
+
+
+@pytest.mark.parametrize("cell,model,cqt", [
+    ("flagship_serve", {"dtype": "float32"}, {}),
+    ("flagship_serve", {"dtype": "float32", "stem_fusion": "off"}, {}),
+    ("vit_serve", {"dtype": "float32", "vit_layers": 2}, {}),
+    ("native_serve", {"dtype": "float32"}, HIGHEST),
+], ids=["flagship_serve-model0", "flagship_serve-model1", "vit_serve-model2",
+        "native_serve-model3"])
+def test_eval_logits_match_the_port_at_float32(cell, model, cqt):
     config, _, engine = _port()
     cfg = _cfg(cell, **model)
+    cfg["cqt"].update(cqt)
     port, ref = _models(cfg)
     port.eval()
     from guitar_tablature_classification_tpu_torch.ops.cqt import CQTFrontend
@@ -129,10 +142,15 @@ def test_eval_logits_match_the_port_at_float32(cell, model):
     # agree to rounding
     ("flagship_train", {"dtype": "float32"}, 0.1),
     ("vit_train", {"dtype": "float32", "vit_layers": 1}, 0.01),
-])
+    # at B=4 a few entries of the native trunk's BatchNorm biases have step-1
+    # gradients that are nought to rounding; one turned sign of 128 reads 1/64
+    ("native_train", {"dtype": "float32"}, 0.05),
+], ids=["flagship_train-model0-0.1", "vit_train-model1-0.01", "native_train-model2-0.05"])
 def test_train_steps_match_the_port_at_float32(cell, model, limit):
     c = harness.load_cell(cell)
     c.config["model"].update(model)
+    if cell == "native_train":
+        c.config["cqt"].update(HIGHEST)
     c.traffic = dict(TINY_TRAIN)
     from benchmark.spans import Spans
 
