@@ -1138,6 +1138,155 @@ def attention_kernel_phase(torch, mods) -> dict:
             "sdpa_ms": {"fwd": lib_fwd, "bwd": lib_bwd, "fwd_bwd": lib_fwd_bwd}}
 
 
+# latent attention (MLA) at DeepSeek-V2-Lite's training shape (B=32: 16
+# heads, 785 tokens, query/key 192 wide, value 128), causal, and at a
+# ragged shape; its scale: 192^-1/2 * mscale^2, mscale = 0.1 * 0.707 *
+# ln 40 + 1 (YaRN)
+MLA_CASES = {"main": (32, 785, 16), "ragged": (1, 200, 4)}
+MLA_SCALE = 192 ** -0.5 * (0.1 * 0.707 * np.log(40) + 1) ** 2  # 0.114721
+MLA_MUST_FAIL = ("mask_dropped", "default_scale", "dv_halved")
+MLA_TRAIN_LAYERS = 2  # the dense layer and one expert layer, at the published widths
+
+
+def _mla_inputs(torch, b, n, h, seed):
+    """q, k [B, N, H, 192] contiguous and v [B, N, H, 128] a strided view of
+    a [B, N, H, 256] tensor (as kv_b_proj's output holds it), and an output
+    gradient g, bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(width):
+        return torch.randn((b, n, h, width), generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, kv, g = draw(192), draw(192), draw(256), draw(128)
+    return q, k, kv[..., 128:], g
+
+
+def mla_attention_phase(torch, mods) -> dict:
+    """The MLA kernels (``attention_cuda.fwd_mla`` and ``bwd_mla``, causal,
+    scale MLA_SCALE) against the plain version at MLA_CASES: forward,
+    gradients, two identical backward runs and the autograd.Function's
+    wiring, under the 64-wide kernels' bf16 limits (ATTN_TOL, ATTN_REL_TOL),
+    which must reject the unmasked kernel, the default Dqk^-1/2 scale and a
+    halved dV.  Then at the main shape the times beside the plain version,
+    the bound (``benchmark/bounds_deepseek.py``) and
+    scaled_dot_product_attention; then a deepseek_v2 train step of
+    MLA_TRAIN_LAYERS layers, whose launch counters (set to 0 just before)
+    must read one ``attn_fwd_mla`` and one ``attn_bwd_mla`` a layer and
+    nothing of the 64-wide kernels."""
+    from benchmark.bounds_deepseek import mla_bound_s
+
+    attention, attention_cuda = mods["attention"], mods["attention_cuda"]
+    F = torch.nn.functional
+    (atol, rtol), (gatol, grtol) = ATTN_TOL["bfloat16"]["out"], ATTN_TOL["bfloat16"]["grad"]
+    errs = {}
+    for case, (b, n, h) in MLA_CASES.items():
+        q, k, v, g = _mla_inputs(torch, b, n, h, seed=21)
+        out, lse = attention_cuda.fwd_mla(q, k, v, MLA_SCALE, True)
+        grads = attention_cuda.bwd_mla(q, k, v, out, lse, g, MLA_SCALE, True)
+        again = attention_cuda.bwd_mla(q, k, v, out, lse, g, MLA_SCALE, True)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = attention.attention_reference(*leaves, scale=MLA_SCALE, causal=True)
+        want_grads = torch.autograd.grad(want, leaves, g)
+        want = want.detach()
+        leaves2 = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fused = attention.fused_attention(*leaves2, scale=MLA_SCALE, causal=True)
+        fused_grads = torch.autograd.grad(fused, leaves2, g)
+        torch.cuda.synchronize()
+        r = {
+            "out_max_abs_err": float((out.float() - want.float()).abs().max()),
+            "grad_max_abs_err": max(float((a.float() - w.float()).abs().max())
+                                    for a, w in zip(grads, want_grads)),
+            "out_ok": _allclose(out, want, atol, rtol),
+            "grad_ok": all(_allclose(a, w, gatol, grtol) for a, w in zip(grads, want_grads)),
+            "deterministic": all(torch.equal(a, w) for a, w in zip(grads, again)),
+            "function_equals_kernels": bool(torch.equal(fused, out) and all(
+                torch.equal(a, w) for a, w in zip(fused_grads, grads))),
+            "lse_finite": bool(torch.isfinite(lse).all()),
+            "rel_err": {t: _rel_err(a, w) for t, a, w in
+                        zip(("out", "dq", "dk", "dv"), (out, *grads), (want, *want_grads))},
+        }
+        r["rel_ok"] = _rel_ok(r["rel_err"])
+        print(f"MLA kernels vs plain, {case} [B={b}, N={n}, H={h}, 192/128] causal: "
+              + json.dumps(r), flush=True)
+        if not all(val for key, val in r.items() if not key.endswith("err")):
+            raise AssertionError(f"MLA kernels disagree, {case}: {r}")
+        with torch.no_grad():
+            faulty = {
+                "mask_dropped": {"out": attention_cuda.fwd_mla(q, k, v, MLA_SCALE, False)[0]},
+                "default_scale": {"out": attention.attention_reference(q, k, v, causal=True)},
+                "dv_halved": {"dv": (0.5 * want_grads[2].float()).to(torch.bfloat16)},
+            }
+        refs = {"out": want, "dv": want_grads[2]}
+        controls = {}
+        for name, tensors in faulty.items():
+            rel = {t: _rel_err(got, refs[t]) for t, got in tensors.items()}
+            controls[name] = {"rel_err": rel, "rejected": not _rel_ok(rel)}
+        print(f"MLA controls (faulty versions vs plain), {case}: " + json.dumps(controls),
+              flush=True)
+        passed = [c for c in MLA_MUST_FAIL if not controls[c]["rejected"]]
+        if passed:
+            raise AssertionError(f"the MLA limits pass faulty versions {passed}, {case}")
+        if case == "main":
+            errs = {"attn_fwd_mla": r["out_max_abs_err"], "attn_bwd_mla": r["grad_max_abs_err"]}
+        del q, k, v, g, out, lse, grads, again, leaves, want, want_grads, leaves2, fused
+        del fused_grads, faulty
+        torch.cuda.empty_cache()
+
+    # times at the training shape
+    b, n, h = MLA_CASES["main"]
+    q, k, v, g = _mla_inputs(torch, b, n, h, seed=22)
+    out, lse = attention_cuda.fwd_mla(q, k, v, MLA_SCALE, True)
+    ms = {"attn_fwd_mla": _sync_ms(lambda: attention_cuda.fwd_mla(q, k, v, MLA_SCALE, True), 10),
+          "attn_bwd_mla": _sync_ms(
+              lambda: attention_cuda.bwd_mla(q, k, v, out, lse, g, MLA_SCALE, True), 5)}
+    with torch.no_grad():
+        plain = {"attn_fwd_mla": _sync_ms(lambda: attention.attention_reference(
+            q, k, v, scale=MLA_SCALE, causal=True), 3)}
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = attention.attention_reference(*leaves, scale=MLA_SCALE, causal=True)
+    plain["attn_bwd_mla"] = _sync_ms(
+        lambda: torch.autograd.grad(ref, leaves, g, retain_graph=True), 3)
+    del ref, leaves
+    torch.cuda.empty_cache()
+    # yardstick: scaled_dot_product_attention on [B, H, N, D] (never called by the port)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    gh = g.transpose(1, 2).contiguous()
+    sdpa = dict(is_causal=True, scale=MLA_SCALE)
+    with torch.no_grad():
+        lib_fwd = _sync_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, **sdpa), 10)
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, **sdpa)
+    lib_bwd = _sync_ms(
+        lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh, retain_graph=True), 10)
+    del lib_out, qh, kh, vh, gh
+    rows = {}
+    for name in ("attn_fwd_mla", "attn_bwd_mla"):
+        bound = 1e3 * mla_bound_s(name, b, n, h)
+        ops_part = 1e3 * mla_bound_s(name, b, n, h, el=0)  # no operand bytes: the operations'
+        rows[name] = {"max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain[name],
+                      "bound_ms": bound, "share_of_bound": bound / ms[name],
+                      "bound_by": "operations" if ops_part >= bound else "bytes",
+                      "library_ms": lib_fwd if name == "attn_fwd_mla" else lib_bwd}
+    print(f"MLA kernel rows, bf16 [{b}, {n}, {h}, 192/128] causal: " + json.dumps(rows),
+          flush=True)
+    del q, k, v, g, out, lse
+    torch.cuda.empty_cache()
+
+    # a deepseek_v2 train step: the MLA kernels on the main path
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmark", "configs", "deepseek_v2_lite.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    model_cfg = mods["ModelConfig"](**{**cfg["model"], "deepseek": {
+        **cfg["model"]["deepseek"], "num_hidden_layers": MLA_TRAIN_LAYERS}})
+    cqt_cfg = mods["CQTConfig"](**cfg["cqt"])
+    expect = {**_cqt_expect(_route(mods["CQTFrontend"](cqt_cfg), b), cqt_cfg.precision),
+              "attn_fwd_mla": MLA_TRAIN_LAYERS, "attn_bwd_mla": MLA_TRAIN_LAYERS}
+    train = train_phase(torch, mods, f"deepseek_v2 ({MLA_TRAIN_LAYERS} layers)", model_cfg,
+                        cqt_cfg, b, expect=expect, optim_cfg=mods["OptimConfig"](**cfg["optim"]),
+                        steps=3)
+    return {"rows": rows, "train": train}
+
+
 def vit_serving_phase(torch, mods, batch: int = 128, n_batches: int = 8) -> dict:
     """(c) vit_s8 serving through Transcriber at batch 128 (vit-reference
     recipe, bf16): windows/s, attn_fwd launches (12 a batch), and the same
@@ -2994,7 +3143,7 @@ def data_parallel_phase(torch, mods) -> dict:
 
 # phases that need no earlier phase's result: ``chip_smoke.py --only a,b``
 STANDALONE = {"streaming": streaming_phase, "rgb_train": rgb_train_phase,
-              "data_parallel": data_parallel_phase}
+              "data_parallel": data_parallel_phase, "mla_attention": mla_attention_phase}
 
 
 def port_modules() -> dict:
@@ -3212,6 +3361,7 @@ def main() -> int:
     bf16x3_row["launches"] = highest_mma_row["launches"] = 0
 
     attn = timed("attention_kernels", attention_kernel_phase, torch, mods)
+    mla = timed("mla_attention", mla_attention_phase, torch, mods)
     vit_recipe = RECIPES["vit-reference"]()
     vit_expect = {**cqt_expect(vit_recipe.cqt, vit_recipe.data.batch_size), "attn_fwd": vit_recipe.model.vit_layers,
                   "attn_bwd": vit_recipe.model.vit_layers}
@@ -3275,6 +3425,8 @@ def main() -> int:
         "stem_bwd": ("stem.cu", "stem_pallas.py:262", stem["rows"], flagship),
         "attn_fwd": ("attention.cu", "attention_pallas.py:70", attn["rows"], vit),
         "attn_bwd": ("attention.cu", "attention_pallas.py:138", attn["rows"], vit),
+        "attn_fwd_mla": ("attention.cu", "attention_pallas.py:70", mla["rows"], mla["train"]),
+        "attn_bwd_mla": ("attention.cu", "attention_pallas.py:138", mla["rows"], mla["train"]),
         "bn_sums": ("bn.cu", "bn_pallas.py:71", bn["rows"], path_a),
         "bn_grad_sums": ("bn.cu", "bn_pallas.py:109", bn["rows"], path_a),
         "native_stats": ("bn.cu", "stem_native.py:347", native_stem["rows"], path_b),

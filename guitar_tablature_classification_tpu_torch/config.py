@@ -150,7 +150,7 @@ class DataConfig:
 class ModelConfig:
     """Architecture selection and dimensions."""
 
-    # resnet18 | resnet18_native | vit_s8 | vit_native | small_cnn
+    # resnet18 | resnet18_native | vit_s8 | vit_native | small_cnn | deepseek_v2
     arch: str = "resnet18"
     input_channels: int = 3
     num_strings: int = NUM_STRINGS
@@ -239,6 +239,12 @@ class ModelConfig:
     # resolution, so "auto" uses tanh for bf16 compute and exact for
     # fp32 (keeping fp32 HF-parity tests exact).
     gelu: str = "auto"  # auto | exact | tanh
+    # arch "deepseek_v2": DeepSeek-V2's published config.json keys under
+    # their own names (hidden_size, num_hidden_layers, kv_lora_rank,
+    # n_routed_experts, rope_scaling, ...; models/deepseek_v2.py KEYS),
+    # plus aux_loss_alpha.  The port's own field: the JAX package has no
+    # such arch.  Patches of vit_patch over the 224^2 image.
+    deepseek: dict | None = field(default=None, hash=False)
 
 
 @dataclass(frozen=True)

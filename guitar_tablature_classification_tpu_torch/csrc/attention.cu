@@ -1,5 +1,8 @@
 // Fused multi-head attention for Hopper (sm_90a), bound through ctypes:
-// softmax(Q K^T * Dh^-1/2) V and its gradient, head dim 64.
+// softmax(Q K^T * scale) V and its gradient: head dim 64 (the ViT), and
+// query/key width 192 with value width 128 under an optional causal mask
+// (DeepSeek-V2's latent attention), both from one template ("the tensor-core
+// kernels" below).
 //
 // Replaces the JAX package's two TPU kernels of
 //   guitar_tablature_classification_tpu/ops/attention_pallas.py
@@ -46,39 +49,26 @@
 //   of 4 registers, and its layout is that of the A operand of the next
 //   product: the rounded P (or dS) is packed to bf16 in registers and used
 //   as the A fragments directly; it never goes to shared memory.
-// * fwd (attn_fwd_mma_kernel): one CTA per (64-query tile, head, batch);
-//   Q's fragments stay in registers, K and V stream.  S = Q K^T; the online
-//   softmax on the accumulator fragments keeps the row max of the unscaled
-//   scores (reduced over the 4 lanes of a quad by shuffles) and forms
-//   P = 2^(S * scale * log2 e - max * scale * log2 e) with one FFMA; O +=
-//   bf16(P) V with P at the running max; O = acc / l in bf16 and lse =
-//   max * scale + log(l) leave through shared memory in 16-byte stores.
-//   Shared memory: Q 9 KB + 2 stages x (K, V) 36 KB = 45 KB a CTA.
-// * bwd: (1) attn_rowdot_mma_kernel forms D as the diagonal of dO O^T on
-//   the tensor cores, so D rounds as dP = dO V^T does (with one key, O = V
-//   and dS = P (dP - D) is exactly 0, as in the plain version).
-//   (2) attn_bwd_kv_mma_kernel, one CTA per (64-key tile, head, batch): K
-//   and V stay in shared memory (their fragments are read again per tile,
-//   which frees 32 registers a thread for a third CTA an SM); Q, dO, lse
-//   and D stream.  Per warp (16 keys) S^T = K Q^T and dP^T = V dO^T,
-//   P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - D), dV += bf16(P^T) dO,
-//   dK += bf16(dS^T) Q.  Shared memory: K, V 18 KB + 2 stages x (Q, dO,
-//   lse, D) 37 KB = 55 KB.
-//   (3) attn_bwd_q_mma_kernel, one CTA per (64-query tile, head, batch): Q
-//   and dO fragments stay in registers, K and V stream; S and dP in the
-//   forward's orientation and k order, dQ += bf16(dS) K.  54 KB.
-//   That is 14*N^2*Dh of products a head (S and dP twice) against 10 for a
-//   single pass, the price of determinism: a dQ partial per key tile would
-//   need ~1 GB of scratch at the main shape.
+// * One source for every width: the kernels' bodies are device functions
+//   templated on the query/key and value widths and on the causal mask (the
+//   "tensor-core kernels" section below says how each works); the ViT runs
+//   their <64, 64, no mask> instance as attn_fwd_mma_kernel,
+//   attn_rowdot_mma_kernel, attn_bwd_kv_mma_kernel and attn_bwd_q_mma_kernel.
+// * fwd: one CTA per (64-query tile, head, batch); Q stays in shared memory,
+//   K and V stream.  Shared memory at 64 wide: Q 9 KB + 2 stages x (K, V)
+//   36 KB = 45 KB a CTA.
+// * bwd: (1) the row dots D = rowsum(dO * O); (2) dK and dV, one CTA per
+//   64-key tile, K and V resident, Q, dO, lse and D streaming (55 KB);
+//   (3) dQ, one CTA per 64-query tile, Q and dO resident, K and V
+//   streaming (54 KB).  That is 14*N^2*Dh of products a head (S and dP
+//   twice) against 10 for a single pass, the price of determinism: a dQ
+//   partial per key tile would need ~1 GB of scratch at the main shape.
 // * Determinism: no atomics.  Every dq, dk and dv element is the sum of one
 //   thread's accumulator over the tiles in order, and D, lse and the
 //   outputs have one writer each: two runs give identical bits.
 // * Registers, spills and CTAs per SM of each kernel: chip_smoke.py prints
-//   the build's -Xptxas -v lines and attn_kernel_info's occupancy (the dK/dV
-//   and dQ kernels are held to 3 CTAs an SM by __launch_bounds__).  On the
-//   H100 with CUDA 12.8: fwd 128 registers a thread (8 bytes spilled), 4
-//   CTAs an SM; row dots 34 registers, 12 CTAs; dK/dV 168 registers (8 bytes
-//   spilled), 3 CTAs; dQ 168 registers (16 bytes spilled), 3 CTAs.
+//   the build's -Xptxas -v lines and attn_kernel_info's occupancy (the ViT's
+//   dK/dV and dQ kernels are held to 3 CTAs an SM by __launch_bounds__).
 //
 // fp32: the SIMT kernels (attn_fwd_kernel, attn_bwd_kv_kernel,
 // attn_bwd_q_kernel).  The fp32 limits (output 2e-5, gradients 1e-4) need
@@ -447,9 +437,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kMmaThreads = 128;  // 4 warps, 16 rows of the tile each
 constexpr int kStages = 2;        // cp.async ring depth
-constexpr int kLdh = kD + 8;      // bf16 shared row: 144 bytes
-constexpr int kTileHalves = kTile * kLdh;
-constexpr size_t kTileBytes = kTileHalves * sizeof(bf16);  // 9,216
 constexpr size_t kRowBytes = kTile * sizeof(float);        // lse or D of a tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -525,20 +512,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // columns 2t, 2t + 1.  A 16 x 64 block is c[8][4]: n-tile j covers columns
 // 8j .. 8j + 7.
 
-// Rows [n0, n0 + 64) of head h in batch b of a bf16 operand -> a padded
-// shared tile, asynchronously (one commit group is the caller's); rows at or
-// past n are zero.
-__device__ __forceinline__ void tile_async(bf16* tile, const View& v, int b, int h, int n0,
-                                           int n) {
-  const bf16* base = static_cast<const bf16*>(v.ptr) + b * v.sb + h * v.sh;
-  for (int i = threadIdx.x; i < kTile * (kD / 8); i += kMmaThreads) {
-    const int row = i / (kD / 8), col = (i % (kD / 8)) * 8;
-    const bool ok = n0 + row < n;
-    cp_async16(tile + row * kLdh + col, base + (long long)(ok ? n0 + row : 0) * v.sn + col,
-               ok);
-  }
-}
-
 // Entries [n0, n0 + 64) of two [B, H, N] fp32 row vectors (the lse and D of
 // a query tile) -> shared, asynchronously; past n: 0.
 __device__ __forceinline__ void rows_async(float* dst, const float* lse, const float* dsum,
@@ -547,48 +520,6 @@ __device__ __forceinline__ void rows_async(float* dst, const float* lse, const f
   const float* src = threadIdx.x < kTile ? lse : dsum;
   const bool ok = n0 + i < n;
   cp_async4(dst + threadIdx.x, src + (ok ? n0 + i : 0), ok);
-}
-
-// A fragments of the warp's 16 rows (from r0) x 64 columns of a tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* tile, int r0,
-                                       int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(a[kk], tile + (r0 + (lane & 15)) * kLdh + kk * 16 + (lane >> 4) * 8);
-}
-
-// acc (16 x 64) += A (16 x 64 head dims) * tile^T: column j is the tile's
-// row j.  B fragments by ldmatrix (non-trans): two n-tiles per x4, the head
-// dim in ascending k-steps.
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                        const bf16* tile, int lane) {
-  const int row = (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, tile + (np * 16 + row) * kLdh + kk * 16 + col);
-      mma_bf16(acc[2 * np], a[kk], bf[0], bf[1]);
-      mma_bf16(acc[2 * np + 1], a[kk], bf[2], bf[3]);
-    }
-}
-
-// acc (16 x 64 head dims) += A (16 x 64 tile rows) * tile.  B fragments by
-// ldmatrix.trans: two head-dim n-tiles per x4, the tile rows in ascending
-// k-steps.
-__device__ __forceinline__ void mma_ab(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                       const bf16* tile, int lane) {
-  const int row = lane & 15, col = (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, tile + (kk * 16 + row) * kLdh + dp * 16 + col);
-      mma_bf16(acc[2 * dp], a[kk], bf[0], bf[1]);
-      mma_bf16(acc[2 * dp + 1], a[kk], bf[2], bf[3]);
-    }
 }
 
 // Accumulator block (16 x 64) -> bf16 A fragments (16 x 64): n-tiles 2kk and
@@ -603,90 +534,203 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&c)[8][4]
   }
 }
 
-__device__ __forceinline__ void zero(float (&c)[8][4]) {
+// ------------------------------------------ the tensor-core kernels
+//
+// One template serves both widths: q and k [B, N, H, DQK], v [B, N, H, DV],
+// an explicit scale, and optionally the causal mask (key s takes weight in
+// query row t only where s <= t).  Its instances are <64, 64, no mask> (the
+// ViT; attn_*_mma_kernel) and <192, 128> (DeepSeek-V2's latent attention,
+// MLA; attn_*_mla_kernel): the bodies below are device functions, and each
+// instance is a kernel of its own name, so a trace tells them apart.
+// * A warp reads the A operand of a score product from shared memory one
+//   16-wide k-step at a time: at 192 wide a warp's fragments do not fit in
+//   registers beside its accumulators (dK alone is 16 x 192 fp32, 96
+//   registers a thread).
+// * Shared tiles are [64][D + 8] bf16 (rows of 144, 272 and 400 bytes keep
+//   ldmatrix free of bank conflicts).  At <192, 128> the forward takes
+//   112 KB a CTA, the dK/dV and dQ kernels 130 KB and 129 KB: one or two
+//   CTAs an SM.
+// * Under the mask a query tile reads key tiles 0 .. its own, and a key tile
+//   query tiles from its own on: the causal pass does about half the work.
+//   The forward and the dQ kernel then run their query tiles from the last
+//   (the longest) to the first.
+
+template <int D>
+struct Wide {
+  static constexpr int kLd = D + 8;                   // bf16 shared row
+  static constexpr int kHalves = kTile * kLd;         // a 64-row tile
+  static constexpr size_t kBytes = kHalves * sizeof(bf16);
+};
+
+// Rows [n0, n0 + 64) of head h in batch b of a D-wide bf16 operand -> a
+// padded shared tile, asynchronously; rows at or past n are zero.
+template <int D>
+__device__ __forceinline__ void tile_async(bf16* tile, const View& v, int b, int h, int n0,
+                                           int n) {
+  const bf16* base = static_cast<const bf16*>(v.ptr) + b * v.sb + h * v.sh;
+  for (int i = threadIdx.x; i < kTile * (D / 8); i += kMmaThreads) {
+    const int row = i / (D / 8), col = (i % (D / 8)) * 8;
+    const bool ok = n0 + row < n;
+    cp_async16(tile + row * Wide<D>::kLd + col,
+               base + (long long)(ok ? n0 + row : 0) * v.sn + col, ok);
+  }
+}
+
+// acc (16 x 64) += A (rows r0 .. r0 + 15 of the D-wide shared tile `a`) *
+// tile^T (column j is the tile's row j), the k-steps in ascending order.
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const bf16* a, int r0,
+                                        const bf16* tile, int lane) {
+  constexpr int kLd = Wide<D>::kLd;
+  const int row = (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) * 8;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    ldmatrix_x4(af, a + (r0 + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, tile + (np * 16 + row) * kLd + kk * 16 + col);
+      mma_bf16(acc[2 * np], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x D) += A (16 x 64 tile rows, in registers) * tile (64 rows, D wide).
+template <int D>
+__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&a)[4][4],
+                                       const bf16* tile, int lane) {
+  constexpr int kLd = Wide<D>::kLd;
+  const int row = lane & 15, col = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, tile + (kk * 16 + row) * kLd + dp * 16 + col);
+      mma_bf16(acc[2 * dp], a[kk], bf[0], bf[1]);
+      mma_bf16(acc[2 * dp + 1], a[kk], bf[2], bf[3]);
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
 }
 
-// The warp's 16 x 64 block -> bf16 rows t0 .. t0 + 15 (those before n) of
-// head h of a contiguous [B, N, H, 64] output, through the warp's 16 rows
-// of a padded shared tile (`stage`, read by no other warp) and 16-byte
-// stores.
-__device__ __forceinline__ void store_rows(bf16* out, const float (&c)[8][4], bf16* stage,
-                                           int t0, int b, int h, int n, int heads,
-                                           int lane) {
+template <int N>
+__device__ __forceinline__ void scale_all(float (&c)[N][4], float s) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] *= s;
+}
+
+// The warp's 16 x D block -> bf16 rows t0 .. t0 + 15 (those before n) of
+// head h of a contiguous [B, N, H, D] output, through `stage` (16 rows of
+// D + 8 halves that no other warp reads) and 16-byte stores.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&c)[D / 8][4], bf16* stage,
+                                           int t0, int b, int h, int n, int heads, int lane) {
+  constexpr int kLd = Wide<D>::kLd;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh)
-      *reinterpret_cast<uint32_t*>(stage + ((lane >> 2) + 8 * hh) * kLdh + j * 8 +
+      *reinterpret_cast<uint32_t*>(stage + ((lane >> 2) + 8 * hh) * kLd + j * 8 +
                                    2 * (lane & 3)) = pack_bf16(c[j][2 * hh], c[j][2 * hh + 1]);
   __syncwarp();
 #pragma unroll
-  for (int i = lane; i < 16 * (kD / 8); i += 32) {
-    const int row = i / (kD / 8), col = (i % (kD / 8)) * 8;
+  for (int i = lane; i < 16 * (D / 8); i += 32) {
+    const int row = i / (D / 8), col = (i % (D / 8)) * 8;
     if (t0 + row < n)
-      *reinterpret_cast<uint4*>(out + (((long long)b * n + t0 + row) * heads + h) * kD + col) =
-          *reinterpret_cast<const uint4*>(stage + row * kLdh + col);
+      *reinterpret_cast<uint4*>(out + (((long long)b * n + t0 + row) * heads + h) * D + col) =
+          *reinterpret_cast<const uint4*>(stage + row * kLd + col);
   }
 }
 
-// ------------------------------------------------------------------ forward
+// Whether accumulator entry e of n-tile nt (row: the warp's 16 rows from r0;
+// column: the 64 from c0) is masked: the column at or past n, or under the
+// causal mask a key past its query.  `key_cols`: the columns are keys (S),
+// else queries (S^T).
+template <bool CAUSAL>
+__device__ __forceinline__ bool masked(int r0, int c0, int nt, int e, int lane, int n,
+                                       bool key_cols) {
+  const int r = r0 + (lane >> 2) + 8 * (e >> 1), c = c0 + nt * 8 + 2 * (lane & 3) + (e & 1);
+  if (c >= n) return true;
+  return CAUSAL && (key_cols ? c > r : c < r);
+}
 
-__global__ void __launch_bounds__(kMmaThreads)
-    attn_fwd_mma_kernel(View q, View k, View v, bf16* out, float* lse, int n, int heads,
-                        float scale_log2) {
+// dynamic shared bytes of each kernel at <DQK, DV>
+template <int DQK, int DV>
+struct TileSmem {
+  static constexpr size_t kFwd = Wide<DQK>::kBytes + kStages * (Wide<DQK>::kBytes + Wide<DV>::kBytes);
+  static constexpr size_t kKvStage = Wide<DQK>::kBytes + Wide<DV>::kBytes + 2 * kRowBytes;
+  static constexpr size_t kKv = Wide<DQK>::kBytes + Wide<DV>::kBytes + kStages * kKvStage;
+  static constexpr size_t kQ = Wide<DQK>::kBytes + Wide<DV>::kBytes +
+                               kStages * (Wide<DQK>::kBytes + Wide<DV>::kBytes);
+};
+
+// forward: one CTA per (64-query tile, head, batch); Q stays in shared
+// memory, K and V stream.  S = Q K^T; the online softmax on the accumulator
+// fragments keeps the row max of the unscaled scores (reduced over the 4
+// lanes of a quad by shuffles) and forms P = 2^(S * scale * log2 e - max *
+// scale * log2 e) with one FFMA; O += bf16(P) V with P at the running max;
+// O = acc / l in bf16 and lse = max * scale + log(l) leave through shared
+// memory in 16-byte stores.
+template <int DQK, int DV, bool CAUSAL>
+__device__ __forceinline__ void fwd_body(View q, View k, View v, bf16* out, float* lse, int n,
+                                         int heads, float scale_log2) {
+  constexpr int kQH = Wide<DQK>::kHalves, kVH = Wide<DV>::kHalves;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][kLdh]
-  bf16* ring = qs + kTileHalves;                 // kStages x (K, V)
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][DQK + 8], resident
+  bf16* ring = qs + kQH;                         // kStages x (K, V)
+  const int qt = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * kTile, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tiles = (n + kTile - 1) / kTile;
+  const int tiles = CAUSAL ? qt + 1 : (n + kTile - 1) / kTile;
+  auto load_stage = [&](int s, int k0) {
+    bf16* ks = ring + s * (kQH + kVH);
+    tile_async<DQK>(ks, k, b, h, k0, n);
+    tile_async<DV>(ks + kQH, v, b, h, k0, n);
+  };
 
-  tile_async(qs, q, b, h, q0, n);
+  tile_async<DQK>(qs, q, b, h, q0, n);
   cp_async_commit();
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < tiles) {
-      tile_async(ring + 2 * s * kTileHalves, k, b, h, s * kTile, n);
-      tile_async(ring + (2 * s + 1) * kTileHalves, v, b, h, s * kTile, n);
-    }
+    if (s < tiles) load_stage(s, s * kTile);
     cp_async_commit();
   }
-  cp_async_wait<kStages - 1>();  // Q has landed
-  __syncthreads();
-  uint32_t qf[4][4];
-  load_a(qf, qs, warp * 16, lane);
 
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8: max of S, sum
-  float o[8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[DV / 8][4];
   zero(o);
   for (int j = 0; j < tiles; ++j) {
-    cp_async_wait<kStages - 2>();  // tile j has landed
-    __syncthreads();               // for every thread; and tile j - 1 is read
+    cp_async_wait<kStages - 2>();  // tile j (and, on the first, Q) has landed
+    __syncthreads();
     {
-      const int next = j + kStages - 1, s = next % kStages;
-      if (next < tiles) {
-        tile_async(ring + 2 * s * kTileHalves, k, b, h, next * kTile, n);
-        tile_async(ring + (2 * s + 1) * kTileHalves, v, b, h, next * kTile, n);
-      }
+      const int next = j + kStages - 1;
+      if (next < tiles) load_stage(next % kStages, next * kTile);
       cp_async_commit();
     }
-    const bf16* ks = ring + 2 * (j % kStages) * kTileHalves;
-    const bf16* vs = ks + kTileHalves;
+    const bf16* ks = ring + (j % kStages) * (kQH + kVH);
+    const bf16* vs = ks + kQH;
     const int k0 = j * kTile;
 
     float s[8][4];
     zero(s);
-    mma_abt(s, qf, ks, lane);  // S = Q K^T, unscaled
-    if (k0 + kTile > n) {      // the last tile: keys past n take no weight
+    mma_abt<DQK>(s, qs, warp * 16, ks, lane);  // S = Q K^T, unscaled
+    if (k0 + kTile > n || (CAUSAL && j == tiles - 1)) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (k0 + nt * 8 + 2 * (lane & 3) + (e & 1) >= n) s[nt][e] = -INFINITY;
+          if (masked<CAUSAL>(q0 + warp * 16, k0, nt, e, lane, n, true)) s[nt][e] = -INFINITY;
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -695,16 +739,16 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      // finite: the first tile holds key 0, and m only grows
+      // finite: the first tile holds key 0, which every query row sees
       const float m_new = fmaxf(m[r], mx);
-      const float alpha = ex2((m[r] - m_new) * scale_log2);  // 0 on the first tile
+      const float alpha = ex2((m[r] - m_new) * scale_log2);
       const float offset = -m_new * scale_log2;
       float sum = 0.f;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          s[nt][e] = ex2(fmaf(s[nt][e], scale_log2, offset));  // 0 for masked keys
+          s[nt][e] = ex2(fmaf(s[nt][e], scale_log2, offset));
           sum += s[nt][e];
         }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -712,22 +756,23 @@ __global__ void __launch_bounds__(kMmaThreads)
       l[r] = l[r] * alpha + sum;
       m[r] = m_new;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < DV / 8; ++nt) {
         o[nt][2 * r] *= alpha;
         o[nt][2 * r + 1] *= alpha;
       }
     }
     uint32_t pf[4][4];
-    to_a(pf, s);          // P rounded to bf16, at the running max
-    mma_ab(o, pf, vs, lane);  // O += P V
+    to_a(pf, s);
+    mma_ab<DV>(o, pf, vs, lane);  // O += bf16(P) V
   }
 
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < DV / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nt][e] = o[nt][e] / l[e >> 1];
   const int t0 = q0 + warp * 16;
-  store_rows(out, o, qs + warp * 16 * kLdh, t0, b, h, n, heads, lane);
+  // the warp's own Q rows (read by no other warp) stage its output
+  store_rows<DV>(out, o, qs + warp * 16 * Wide<DQK>::kLd, t0, b, h, n, heads, lane);
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -738,35 +783,32 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// ----------------------------------------------------------------- backward
-
-// (1) dsum[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d]: the diagonal of
-// dO O^T for each warp's 16 rows, on the tensor cores with dP's operands
-// and k order.  One CTA per (64-row tile, head, batch).
-__global__ void __launch_bounds__(kMmaThreads)
-    attn_rowdot_mma_kernel(View g, View o, float* dsum, int n, int heads) {
-  __shared__ __align__(16) bf16 gs[kTileHalves];
-  __shared__ __align__(16) bf16 os[kTileHalves];
+// backward (1): D = rowsum(dO * O) as the diagonal of dO O^T on the tensor
+// cores, so D rounds as dP = dO V^T does (with one key, O = V and dS = P (dP
+// - D) is exactly 0, as in the plain version).  One CTA per (64-row tile,
+// head, batch).
+template <int DV>
+__device__ __forceinline__ void rowdot_body(View g, View o, float* dsum, int n, int heads) {
+  constexpr int kLd = Wide<DV>::kLd;
+  __shared__ __align__(16) bf16 gs[Wide<DV>::kHalves];
+  __shared__ __align__(16) bf16 os[Wide<DV>::kHalves];
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  tile_async(gs, g, b, h, q0, n);
-  tile_async(os, o, b, h, q0, n);
+  tile_async<DV>(gs, g, b, h, q0, n);
+  tile_async<DV>(os, o, b, h, q0, n);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t gf[4][4];
-  load_a(gf, gs, warp * 16, lane);
   float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
   const int row = warp * 16 + (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) * 8;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t bf[4];
-    ldmatrix_x4(bf, os + row * kLdh + kk * 16 + col);
-    mma_bf16(c[0], gf[kk], bf[0], bf[1]);
-    mma_bf16(c[1], gf[kk], bf[2], bf[3]);
+  for (int kk = 0; kk < DV / 16; ++kk) {
+    uint32_t af[4], bf[4];
+    ldmatrix_x4(af, gs + (warp * 16 + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8);
+    ldmatrix_x4(bf, os + row * kLd + kk * 16 + col);
+    mma_bf16(c[0], af, bf[0], bf[1]);
+    mma_bf16(c[1], af, bf[2], bf[3]);
   }
-  // row g's diagonal entry is column g of n-tile 0 (row g + 8's: column g of
-  // n-tile 1), held by the lane with 2t + (g & 1) = g
   const int gr = lane >> 2;
   if ((lane & 3) == (gr >> 1)) {
     const long long base = ((long long)b * heads + h) * n;
@@ -776,63 +818,61 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// (2) dK and dV of one 64-key tile, looping over every query tile.
-constexpr size_t kKvStageBytes = 2 * kTileBytes + 2 * kRowBytes;  // Q, dO, lse, D
-
-__global__ void __launch_bounds__(kMmaThreads, 3)
-    attn_bwd_kv_mma_kernel(View q, View k, View v, View g, const float* lse,
-                           const float* dsum, bf16* dk, bf16* dv, int n, int heads,
-                           float scale, float scale_log2) {
+// backward (2): dK and dV of one 64-key tile, over the query tiles that see
+// it.  K and V stay in shared memory; Q, dO, lse and D stream.  Per warp (16
+// keys) S^T = K Q^T and dP^T = V dO^T, P^T = exp(S^T scale - lse), dS^T =
+// P^T (dP^T - D), dV += bf16(P^T) dO, dK += bf16(dS^T) Q.
+template <int DQK, int DV, bool CAUSAL>
+__device__ __forceinline__ void bwd_kv_body(View q, View k, View v, View g, const float* lse,
+                                            const float* dsum, bf16* dk, bf16* dv, int n,
+                                            int heads, float scale, float scale_log2) {
+  constexpr int kQH = Wide<DQK>::kHalves, kVH = Wide<DV>::kHalves;
+  constexpr size_t kStage = TileSmem<DQK, DV>::kKvStage;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [64 keys][kLdh], resident
-  bf16* vs = ks + kTileHalves;                   // [64 keys][kLdh], resident
-  unsigned char* ring = smem_raw + 2 * kTileBytes;
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [64 keys][DQK + 8], resident
+  bf16* vs = ks + kQH;                           // [64 keys][DV + 8], resident
+  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + kVH);
+  const int kt = blockIdx.x, k0 = kt * kTile, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tiles = (n + kTile - 1) / kTile;
+  const int first = CAUSAL ? kt : 0, tiles = (n + kTile - 1) / kTile;
   const long long row_base = ((long long)b * heads + h) * n;
   auto load_stage = [&](int s, int q0) {
-    bf16* qs = reinterpret_cast<bf16*>(ring + s * kKvStageBytes);
-    tile_async(qs, q, b, h, q0, n);
-    tile_async(qs + kTileHalves, g, b, h, q0, n);
-    rows_async(reinterpret_cast<float*>(qs + 2 * kTileHalves), lse + row_base,
-               dsum + row_base, q0, n);
+    bf16* qs = reinterpret_cast<bf16*>(ring + s * kStage);
+    tile_async<DQK>(qs, q, b, h, q0, n);
+    tile_async<DV>(qs + kQH, g, b, h, q0, n);
+    rows_async(reinterpret_cast<float*>(qs + kQH + kVH), lse + row_base, dsum + row_base, q0,
+               n);
   };
 
-  tile_async(ks, k, b, h, k0, n);
-  tile_async(vs, v, b, h, k0, n);
+  tile_async<DQK>(ks, k, b, h, k0, n);
+  tile_async<DV>(vs, v, b, h, k0, n);
   cp_async_commit();
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < tiles) load_stage(s, s * kTile);
+    if (first + s < tiles) load_stage(s, (first + s) * kTile);
     cp_async_commit();
   }
-  float dk_acc[8][4], dv_acc[8][4];  // rows: the warp's 16 keys; columns: head dim
+  float dk_acc[DQK / 8][4], dv_acc[DV / 8][4];  // rows: the warp's 16 keys
   zero(dk_acc);
   zero(dv_acc);
-  for (int j = 0; j < tiles; ++j) {
-    cp_async_wait<kStages - 2>();  // tile j (and, on the first, K and V) has landed
+  for (int j = first; j < tiles; ++j) {
+    const int slot = (j - first) % kStages;
+    cp_async_wait<kStages - 2>();
     __syncthreads();
     {
       const int next = j + kStages - 1;
-      if (next < tiles) load_stage(next % kStages, next * kTile);
+      if (next < tiles) load_stage((next - first) % kStages, next * kTile);
       cp_async_commit();
     }
-    const bf16* qs = reinterpret_cast<const bf16*>(ring + (j % kStages) * kKvStageBytes);
-    const bf16* gs = qs + kTileHalves;
-    const float* ls = reinterpret_cast<const float*>(gs + kTileHalves);
+    const bf16* qs = reinterpret_cast<const bf16*>(ring + slot * kStage);
+    const bf16* gs = qs + kQH;
+    const float* ls = reinterpret_cast<const float*>(gs + kVH);
     const float* ds = ls + kTile;
     const int q0 = j * kTile;
 
-    // K's and V's A fragments are read again for each tile: held in
-    // registers they would cost 32 more a thread, and 3 CTAs an SM
-    // (__launch_bounds__) ran 5 % faster than 2 (measured on the card)
-    uint32_t af[4][4];
-    load_a(af, ks, warp * 16, lane);
-    // P^T (rows: keys; columns: queries nt * 8 + 2t + (e & 1)), 0 past n
-    float p[8][4];
+    float p[8][4];  // P^T: rows the warp's keys, columns the tile's queries
     zero(p);
-    mma_abt(p, af, qs, lane);  // S^T = K Q^T
+    mma_abt<DQK>(p, ks, warp * 16, qs, lane);  // S^T = K Q^T
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const float2 l2 = *reinterpret_cast<const float2*>(ls + nt * 8 + 2 * (lane & 3));
@@ -841,20 +881,20 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
       for (int e = 0; e < 4; ++e)
         p[nt][e] = ex2(fmaf(p[nt][e], scale_log2, (e & 1) ? lse1 : lse0));
     }
-    if (q0 + kTile > n) {  // the last tile: query rows past n add nothing
+    if (q0 + kTile > n || (CAUSAL && j == kt)) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (q0 + nt * 8 + 2 * (lane & 3) + (e & 1) >= n) p[nt][e] = 0.f;
+          if (masked<CAUSAL>(k0 + warp * 16, q0, nt, e, lane, n, false)) p[nt][e] = 0.f;
     }
+    uint32_t af[4][4];
     to_a(af, p);
-    mma_ab(dv_acc, af, gs, lane);  // dV += bf16(P^T) dO
+    mma_ab<DV>(dv_acc, af, gs, lane);  // dV += bf16(P^T) dO
 
-    load_a(af, vs, warp * 16, lane);
     float dp[8][4];
     zero(dp);
-    mma_abt(dp, af, gs, lane);  // dP^T = V dO^T
+    mma_abt<DV>(dp, vs, warp * 16, gs, lane);  // dP^T = V dO^T
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const float2 d2 = *reinterpret_cast<const float2*>(ds + nt * 8 + 2 * (lane & 3));
@@ -862,44 +902,46 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
       for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - ((e & 1) ? d2.y : d2.x));
     }
     to_a(af, dp);
-    mma_ab(dk_acc, af, qs, lane);  // dK += bf16(dS^T) Q
+    mma_ab<DQK>(dk_acc, af, qs, lane);  // dK += bf16(dS^T) Q
   }
 
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[nt][e] *= scale;
+  scale_all(dk_acc, scale);
   const int t0 = k0 + warp * 16;
-  store_rows(dv, dv_acc, vs + warp * 16 * kLdh, t0, b, h, n, heads, lane);
-  store_rows(dk, dk_acc, ks + warp * 16 * kLdh, t0, b, h, n, heads, lane);
+  store_rows<DV>(dv, dv_acc, vs + warp * 16 * Wide<DV>::kLd, t0, b, h, n, heads, lane);
+  store_rows<DQK>(dk, dk_acc, ks + warp * 16 * Wide<DQK>::kLd, t0, b, h, n, heads, lane);
 }
 
-// (3) dQ of one 64-query tile, looping over every key tile.
-__global__ void __launch_bounds__(kMmaThreads, 3)
-    attn_bwd_q_mma_kernel(View q, View k, View v, View g, const float* lse,
-                          const float* dsum, bf16* dq, int n, int heads, float scale,
-                          float scale_log2) {
+// backward (3): dQ of one 64-query tile, over the key tiles it sees: Q and
+// dO stay in shared memory, K and V stream; S and dP in the forward's
+// orientation and k order, dQ += bf16(dS) K.
+template <int DQK, int DV, bool CAUSAL>
+__device__ __forceinline__ void bwd_q_body(View q, View k, View v, View g, const float* lse,
+                                           const float* dsum, bf16* dq, int n, int heads,
+                                           float scale, float scale_log2) {
+  constexpr int kQH = Wide<DQK>::kHalves, kVH = Wide<DV>::kHalves;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64 queries][kLdh]
-  bf16* gs = qs + kTileHalves;                   // [64 queries][kLdh]
-  bf16* ring = gs + kTileHalves;                 // kStages x (K, V)
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64 queries][DQK + 8], resident
+  bf16* gs = qs + kQH;                           // [64 queries][DV + 8], resident
+  bf16* ring = gs + kVH;                         // kStages x (K, V)
+  const int qt = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * kTile, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tiles = (n + kTile - 1) / kTile;
+  const int tiles = CAUSAL ? qt + 1 : (n + kTile - 1) / kTile;
   const long long row_base = ((long long)b * heads + h) * n;
+  auto load_stage = [&](int s, int k0) {
+    bf16* ks = ring + s * (kQH + kVH);
+    tile_async<DQK>(ks, k, b, h, k0, n);
+    tile_async<DV>(ks + kQH, v, b, h, k0, n);
+  };
 
-  tile_async(qs, q, b, h, q0, n);
-  tile_async(gs, g, b, h, q0, n);
+  tile_async<DQK>(qs, q, b, h, q0, n);
+  tile_async<DV>(gs, g, b, h, q0, n);
   cp_async_commit();
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < tiles) {
-      tile_async(ring + 2 * s * kTileHalves, k, b, h, s * kTile, n);
-      tile_async(ring + (2 * s + 1) * kTileHalves, v, b, h, s * kTile, n);
-    }
+    if (s < tiles) load_stage(s, s * kTile);
     cp_async_commit();
   }
-  // the rows g and g + 8 of this lane: -lse in log2 units and D; 0 past n
   float lse2[2], dd[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -907,64 +949,111 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
     lse2[r] = t < n ? -lse[row_base + t] * kLog2e : 0.f;
     dd[r] = t < n ? dsum[row_base + t] : 0.f;
   }
-  cp_async_wait<kStages - 1>();  // Q and dO have landed
-  __syncthreads();
-  uint32_t qf[4][4], gf[4][4];
-  load_a(qf, qs, warp * 16, lane);
-  load_a(gf, gs, warp * 16, lane);
 
-  float dq_acc[8][4];
+  float dq_acc[DQK / 8][4];
   zero(dq_acc);
   for (int j = 0; j < tiles; ++j) {
     cp_async_wait<kStages - 2>();
     __syncthreads();
     {
-      const int next = j + kStages - 1, s = next % kStages;
-      if (next < tiles) {
-        tile_async(ring + 2 * s * kTileHalves, k, b, h, next * kTile, n);
-        tile_async(ring + (2 * s + 1) * kTileHalves, v, b, h, next * kTile, n);
-      }
+      const int next = j + kStages - 1;
+      if (next < tiles) load_stage(next % kStages, next * kTile);
       cp_async_commit();
     }
-    const bf16* ks = ring + 2 * (j % kStages) * kTileHalves;
-    const bf16* vs = ks + kTileHalves;
+    const bf16* ks = ring + (j % kStages) * (kQH + kVH);
+    const bf16* vs = ks + kQH;
     const int k0 = j * kTile;
 
     float p[8][4], dp[8][4];
     zero(p);
     zero(dp);
-    mma_abt(p, qf, ks, lane);   // S = Q K^T, the forward's orientation and k order
-    mma_abt(dp, gf, vs, lane);  // dP = dO V^T
+    mma_abt<DQK>(p, qs, warp * 16, ks, lane);  // S = Q K^T
+    mma_abt<DV>(dp, gs, warp * 16, vs, lane);  // dP = dO V^T
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[nt][e] = ex2(fmaf(p[nt][e], scale_log2, lse2[e >> 1]));
-    if (k0 + kTile > n) {  // the last tile: keys past n take no weight
+    if (k0 + kTile > n || (CAUSAL && j == tiles - 1)) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (k0 + nt * 8 + 2 * (lane & 3) + (e & 1) >= n) p[nt][e] = 0.f;
+          if (masked<CAUSAL>(q0 + warp * 16, k0, nt, e, lane, n, true)) p[nt][e] = 0.f;
     }
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - dd[e >> 1]);  // dS
+      for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - dd[e >> 1]);
     uint32_t af[4][4];
     to_a(af, dp);
-    mma_ab(dq_acc, af, ks, lane);  // dQ += bf16(dS) K
+    mma_ab<DQK>(dq_acc, af, ks, lane);  // dQ += bf16(dS) K
   }
 
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[nt][e] *= scale;
-  store_rows(dq, dq_acc, qs + warp * 16 * kLdh, q0 + warp * 16, b, h, n, heads, lane);
+  scale_all(dq_acc, scale);
+  store_rows<DQK>(dq, dq_acc, qs + warp * 16 * Wide<DQK>::kLd, q0 + warp * 16, b, h, n, heads,
+                  lane);
 }
 
-constexpr size_t kFwdMmaSmem = kTileBytes + kStages * 2 * kTileBytes;
-constexpr size_t kKvMmaSmem = 2 * kTileBytes + kStages * kKvStageBytes;
-constexpr size_t kQMmaSmem = 2 * kTileBytes + kStages * 2 * kTileBytes;
+// The ViT's instance: 64 wide, no mask.  The dK/dV and dQ kernels are held
+// to 3 CTAs an SM (3 ran 5 % faster than 2, measured on the card).
+__global__ void __launch_bounds__(kMmaThreads)
+    attn_fwd_mma_kernel(View q, View k, View v, bf16* out, float* lse, int n, int heads,
+                        float scale_log2) {
+  fwd_body<kD, kD, false>(q, k, v, out, lse, n, heads, scale_log2);
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+    attn_rowdot_mma_kernel(View g, View o, float* dsum, int n, int heads) {
+  rowdot_body<kD>(g, o, dsum, n, heads);
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    attn_bwd_kv_mma_kernel(View q, View k, View v, View g, const float* lse,
+                           const float* dsum, bf16* dk, bf16* dv, int n, int heads,
+                           float scale, float scale_log2) {
+  bwd_kv_body<kD, kD, false>(q, k, v, g, lse, dsum, dk, dv, n, heads, scale, scale_log2);
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    attn_bwd_q_mma_kernel(View q, View k, View v, View g, const float* lse,
+                          const float* dsum, bf16* dq, int n, int heads, float scale,
+                          float scale_log2) {
+  bwd_q_body<kD, kD, false>(q, k, v, g, lse, dsum, dq, n, heads, scale, scale_log2);
+}
+
+// The MLA instances.
+template <int DQK, int DV, bool CAUSAL>
+__global__ void __launch_bounds__(kMmaThreads)
+    attn_fwd_mla_kernel(View q, View k, View v, bf16* out, float* lse, int n, int heads,
+                        float scale_log2) {
+  fwd_body<DQK, DV, CAUSAL>(q, k, v, out, lse, n, heads, scale_log2);
+}
+
+template <int DV>
+__global__ void __launch_bounds__(kMmaThreads)
+    attn_rowdot_mla_kernel(View g, View o, float* dsum, int n, int heads) {
+  rowdot_body<DV>(g, o, dsum, n, heads);
+}
+
+template <int DQK, int DV, bool CAUSAL>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    attn_bwd_kv_mla_kernel(View q, View k, View v, View g, const float* lse,
+                           const float* dsum, bf16* dk, bf16* dv, int n, int heads,
+                           float scale, float scale_log2) {
+  bwd_kv_body<DQK, DV, CAUSAL>(q, k, v, g, lse, dsum, dk, dv, n, heads, scale, scale_log2);
+}
+
+template <int DQK, int DV, bool CAUSAL>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    attn_bwd_q_mla_kernel(View q, View k, View v, View g, const float* lse,
+                          const float* dsum, bf16* dq, int n, int heads, float scale,
+                          float scale_log2) {
+  bwd_q_body<DQK, DV, CAUSAL>(q, k, v, g, lse, dsum, dq, n, heads, scale, scale_log2);
+}
+
+using VitSizes = TileSmem<kD, kD>;
+constexpr int kMlaDqk = 192, kMlaDv = 128;  // DeepSeek-V2's 128 + 64 rotary, and 128
+using MlaSizes = TileSmem<kMlaDqk, kMlaDv>;
 
 // ------------------------------------------------------------------- host
 
@@ -987,14 +1076,18 @@ cudaError_t fwd_simt(const void* q, const void* k, const void* v, const long lon
   return cudaGetLastError();
 }
 
-cudaError_t fwd_mma(const void* q, const void* k, const void* v, const long long* st,
-                    void* out, void* lse, int batch, int n, int heads, float scale,
-                    cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdMmaSmem);
+// the tensor-core forward of instance <DQK, DV> (`kernel`: its causal or
+// unmasked kernel)
+template <int DQK, int DV>
+cudaError_t fwd_tc(void (*kernel)(View, View, View, bf16*, float*, int, int, float),
+                   const void* q, const void* k, const void* v, const long long* st, void* out,
+                   void* lse, int batch, int n, int heads, float scale, cudaStream_t stream) {
+  constexpr size_t smem = TileSmem<DQK, DV>::kFwd;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kTile - 1) / kTile, heads, batch);
-  attn_fwd_mma_kernel<<<grid, kMmaThreads, kFwdMmaSmem, stream>>>(
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
       make_view(q, st), make_view(k, st + 3), make_view(v, st + 6), static_cast<bf16*>(out),
       static_cast<float*>(lse), n, heads, log2_scale(scale));
   return cudaGetLastError();
@@ -1030,33 +1123,41 @@ cudaError_t bwd_simt(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
-cudaError_t bwd_mma(const void* q, const void* k, const void* v, const void* o,
-                    const void* g, const long long* st, const void* lse, void* dsum,
-                    void* dq, void* dk, void* dv, int batch, int n, int heads, float scale,
-                    cudaStream_t stream) {
+using KvKernel = void (*)(View, View, View, View, const float*, const float*, bf16*, bf16*,
+                          int, int, float, float);
+using QKernel = void (*)(View, View, View, View, const float*, const float*, bf16*, int, int,
+                         float, float);
+
+// the tensor-core backward of instance <DQK, DV>: the row dots, then dK/dV,
+// then dQ (`kv_kernel`, `q_kernel`: the instance's causal or unmasked ones)
+template <int DQK, int DV>
+cudaError_t bwd_tc(void (*rowdot_kernel)(View, View, float*, int, int), KvKernel kv_kernel,
+                   QKernel q_kernel, const void* q, const void* k, const void* v, const void* o,
+                   const void* g, const long long* st, const void* lse, void* dsum, void* dq,
+                   void* dk, void* dv, int batch, int n, int heads, float scale,
+                   cudaStream_t stream) {
+  using Sizes = TileSmem<DQK, DV>;
   const View qv = make_view(q, st), kv = make_view(k, st + 3), vv = make_view(v, st + 6);
   const View ov = make_view(o, st + 9), gv = make_view(g, st + 12);
   const dim3 grid((n + kTile - 1) / kTile, heads, batch);
-  attn_rowdot_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(gv, ov, static_cast<float*>(dsum),
-                                                           n, heads);
+  rowdot_kernel<<<grid, kMmaThreads, 0, stream>>>(gv, ov, static_cast<float*>(dsum), n, heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_kv_mma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kKvMmaSmem);
+  err = cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Sizes::kKv);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_q_mma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kQMmaSmem);
+  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Sizes::kQ);
   if (err != cudaSuccess) return err;
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dsum);
   const float s2 = log2_scale(scale);
-  attn_bwd_kv_mma_kernel<<<grid, kMmaThreads, kKvMmaSmem, stream>>>(
-      qv, kv, vv, gv, l, d, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, heads, scale,
-      s2);
+  kv_kernel<<<grid, kMmaThreads, Sizes::kKv, stream>>>(
+      qv, kv, vv, gv, l, d, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, heads, scale, s2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_q_mma_kernel<<<grid, kMmaThreads, kQMmaSmem, stream>>>(
-      qv, kv, vv, gv, l, d, static_cast<bf16*>(dq), n, heads, scale, s2);
+  q_kernel<<<grid, kMmaThreads, Sizes::kQ, stream>>>(qv, kv, vv, gv, l, d,
+                                                     static_cast<bf16*>(dq), n, heads, scale, s2);
   return cudaGetLastError();
 }
 
@@ -1068,14 +1169,21 @@ struct KernelEntry {
 };
 
 const KernelEntry kKernels[] = {
-    {"attn_fwd_mma_kernel", (const void*)attn_fwd_mma_kernel, kMmaThreads, kFwdMmaSmem},
+    {"attn_fwd_mma_kernel", (const void*)attn_fwd_mma_kernel, kMmaThreads, VitSizes::kFwd},
     {"attn_rowdot_mma_kernel", (const void*)attn_rowdot_mma_kernel, kMmaThreads, 0},
-    {"attn_bwd_kv_mma_kernel", (const void*)attn_bwd_kv_mma_kernel, kMmaThreads, kKvMmaSmem},
-    {"attn_bwd_q_mma_kernel", (const void*)attn_bwd_q_mma_kernel, kMmaThreads, kQMmaSmem},
+    {"attn_bwd_kv_mma_kernel", (const void*)attn_bwd_kv_mma_kernel, kMmaThreads, VitSizes::kKv},
+    {"attn_bwd_q_mma_kernel", (const void*)attn_bwd_q_mma_kernel, kMmaThreads, VitSizes::kQ},
     {"attn_fwd_kernel<float>", (const void*)attn_fwd_kernel<float>, kThreads, kFwdSmem},
     {"attn_rowdot_kernel", (const void*)attn_rowdot_kernel, kThreads, 0},
     {"attn_bwd_kv_kernel<float>", (const void*)attn_bwd_kv_kernel<float>, kThreads, kKvSmem},
     {"attn_bwd_q_kernel<float>", (const void*)attn_bwd_q_kernel<float>, kThreads, kQSmem},
+    {"attn_fwd_mla_kernel<192, 128, true>",
+     (const void*)attn_fwd_mla_kernel<kMlaDqk, kMlaDv, true>, kMmaThreads, MlaSizes::kFwd},
+    {"attn_rowdot_mla_kernel<128>", (const void*)attn_rowdot_mla_kernel<kMlaDv>, kMmaThreads, 0},
+    {"attn_bwd_kv_mla_kernel<192, 128, true>",
+     (const void*)attn_bwd_kv_mla_kernel<kMlaDqk, kMlaDv, true>, kMmaThreads, MlaSizes::kKv},
+    {"attn_bwd_q_mla_kernel<192, 128, true>",
+     (const void*)attn_bwd_q_mla_kernel<kMlaDqk, kMlaDv, true>, kMmaThreads, MlaSizes::kQ},
 };
 
 }  // namespace
@@ -1090,7 +1198,8 @@ extern "C" int attn_fwd_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)fwd_simt(q, k, v, strides, out, lse, batch, n, heads, scale, s);
-  return (int)fwd_mma(q, k, v, strides, out, lse, batch, n, heads, scale, s);
+  return (int)fwd_tc<kD, kD>(attn_fwd_mma_kernel, q, k, v, strides, out, lse, batch, n, heads,
+                             scale, s);
 }
 
 // strides: (batch, token, head) element strides of q, k, v, o and g.  dsum
@@ -1104,8 +1213,35 @@ extern "C" int attn_bwd_launch(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return (int)bwd_simt(q, k, v, o, g, strides, lse, dsum, dq, dk, dv, batch, n, heads,
                          scale, s);
-  return (int)bwd_mma(q, k, v, o, g, strides, lse, dsum, dq, dk, dv, batch, n, heads, scale,
-                      s);
+  return (int)bwd_tc<kD, kD>(attn_rowdot_mma_kernel, attn_bwd_kv_mma_kernel, attn_bwd_q_mma_kernel,
+                             q, k, v, o, g, strides, lse, dsum, dq, dk, dv, batch, n, heads, scale,
+                             s);
+}
+
+// The MLA kernels (bf16 only): q, k [B, N, H, 192], v [B, N, H, 128]; out
+// [B, N, H, 128]; causal 0 or 1.  strides as attn_fwd_launch's.
+extern "C" int attn_fwd_mla_launch(const void* q, const void* k, const void* v,
+                                   const long long* strides, void* out, void* lse, int batch,
+                                   int n, int heads, float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)fwd_tc<kMlaDqk, kMlaDv>(causal ? attn_fwd_mla_kernel<kMlaDqk, kMlaDv, true>
+                                             : attn_fwd_mla_kernel<kMlaDqk, kMlaDv, false>,
+                                      q, k, v, strides, out, lse, batch, n, heads, scale, s);
+}
+
+// dq, dk [B, N, H, 192] and dv [B, N, H, 128]; dsum [B, H, N] fp32 scratch.
+extern "C" int attn_bwd_mla_launch(const void* q, const void* k, const void* v, const void* o,
+                                   const void* g, const long long* strides, const void* lse,
+                                   void* dsum, void* dq, void* dk, void* dv, int batch, int n,
+                                   int heads, float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)bwd_tc<kMlaDqk, kMlaDv>(
+      attn_rowdot_mla_kernel<kMlaDv>,
+      causal ? attn_bwd_kv_mla_kernel<kMlaDqk, kMlaDv, true>
+             : attn_bwd_kv_mla_kernel<kMlaDqk, kMlaDv, false>,
+      causal ? attn_bwd_q_mla_kernel<kMlaDqk, kMlaDv, true>
+             : attn_bwd_q_mla_kernel<kMlaDqk, kMlaDv, false>,
+      q, k, v, o, g, strides, lse, dsum, dq, dk, dv, batch, n, heads, scale, s);
 }
 
 // Kernel `which` (0 .. count - 1) of this library as the card runs it:

@@ -24,6 +24,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.attention import resolve_attention
+from .deepseek_v2 import DeepseekV2Tab, init_deepseek
 from .heads import Dropout, SimpleStringHeads, StackedDense, StringBranchHeads
 from .resnet import FlaxBatchNorm, ResNet18
 from .small_cnn import SmallTabCNN
@@ -181,12 +182,14 @@ def _vittab(cfg: ModelConfig) -> ViTTab:
 def build_model(
     cfg: ModelConfig, *, generator: torch.Generator | None = None,
     input_shape: tuple[int, int, int] | None = None,
-) -> GuitarTabNet | ViTTab | SmallTabCNN:
+) -> GuitarTabNet | ViTTab | SmallTabCNN | DeepseekV2Tab:
     """The model of ``cfg``, seeded from ``generator`` (seed 0 when None):
     GuitarTabNet for ``resnet18`` (224^2) and ``resnet18_native`` (the raw
     96x9 CQT), ViTTab for ``vit_s8`` (224^2, 785 tokens at patch 8) and
     ``vit_native`` (the raw CQT, with the conv stem under
-    ``vit_conv_stem``), SmallTabCNN for ``small_cnn`` (the raw CQT).
+    ``vit_conv_stem``), SmallTabCNN for ``small_cnn`` (the raw CQT),
+    DeepseekV2Tab for ``deepseek_v2`` (224^2 in ``vit_patch`` patches, the
+    sizes of ``cfg.deepseek``; :mod:`.deepseek_v2`).
 
     ``stem_fusion="fused"`` builds the fused stem of the arch, as the JAX
     ``build_model`` does (``models/tabnet.py:151-159,197-209`` there): on
@@ -224,8 +227,11 @@ def build_model(
     vit = cfg.arch in ("vit_s8", "vit_native")
     if cfg.vit_conv_stem and not vit:
         raise ValueError(f"vit_conv_stem only applies to ViT archs, got {cfg.arch!r}")
-    if cfg.arch not in ("resnet18", "resnet18_native", "small_cnn") and not vit:
+    if cfg.arch not in ("resnet18", "resnet18_native", "small_cnn", "deepseek_v2") and not vit:
         raise ValueError(f"unknown arch {cfg.arch!r}")
+    if (cfg.arch == "deepseek_v2") != (cfg.deepseek is not None):
+        raise ValueError("ModelConfig.deepseek holds the sizes of arch 'deepseek_v2' alone, "
+                         f"got arch {cfg.arch!r} with deepseek {cfg.deepseek!r}")
     if cfg.dtype not in _DTYPES or cfg.param_dtype != "float32":
         raise ValueError(
             f"dtype must be one of {tuple(_DTYPES)} with float32 params, "
@@ -235,6 +241,11 @@ def build_model(
         generator = torch.Generator().manual_seed(0)
     if vit:
         return init_vittab(_vittab(cfg), generator)
+    if cfg.arch == "deepseek_v2":
+        return init_deepseek(DeepseekV2Tab(
+            cfg.deepseek, num_frets=cfg.num_frets, num_strings=cfg.num_strings,
+            patch=cfg.vit_patch, input_channels=cfg.input_channels, dropout=cfg.dropout,
+            dtype=_DTYPES[cfg.dtype]), generator)
     if cfg.arch == "small_cnn":
         h, w, c = input_shape or (96, 9, 1)
         return init_weights(SmallTabCNN(

@@ -5,7 +5,9 @@ The counterpart of the JAX package's ``ops/attention_pallas.py``
 (``fused_attention`` with its custom VJP) and of ``_resolve_attention``
 (``models/tabnet.py:115-131``).  Both take the layout of
 ``jax.nn.dot_product_attention``: q, k, v ``[B, N, H, Dh]`` -> ``[B, N, H,
-Dh]``, scale ``Dh**-0.5``.
+Dh]``, scale ``Dh**-0.5``.  Both also take DeepSeek-V2's latent attention
+(MLA): query/key width 192 against value width 128, an explicit ``scale``
+and a ``causal`` mask (key s weighted in query row t only where s <= t).
 
 - :func:`attention_reference` is the plain version: the function of
   ``jax.nn.dot_product_attention`` (its XLA path).  The score GEMM takes the
@@ -30,16 +32,41 @@ from . import attention_cuda
 TOKEN_THRESHOLD = 128  # models/tabnet.py:131 of the JAX package
 
 
-def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T * Dh^-1/2) v over [B, N, H, Dh] tensors (the plain
-    version; ``jax.nn.dot_product_attention``'s numerics)."""
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        scale: float | None = None, causal: bool = False) -> torch.Tensor:
+    """softmax(q k^T * scale) v over q, k [B, N, H, Dqk] and v [B, N, H,
+    Dv] (the plain version; ``jax.nn.dot_product_attention``'s numerics);
+    ``scale`` Dqk^-1/2 when None, and under ``causal`` the scores of keys
+    past their query are -inf."""
     dtype = q.dtype
-    scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     scores = torch.einsum("btnh,bsnh->bnts", q.float(), k.float()) * scale
+    if causal:
+        n = q.shape[1]
+        future = torch.ones(n, n, dtype=torch.bool, device=q.device).triu(1)
+        scores = scores.masked_fill(future, float("-inf"))
     weights = torch.softmax(scores, dim=-1).to(dtype)
     if q.device.type == "cpu":  # PyTorch's CPU bf16 products are unreliable
         return torch.einsum("bnts,bsnh->btnh", weights.float(), v.float()).to(dtype)
     return torch.einsum("bnts,bsnh->btnh", weights, v)  # fp32 accumulation
+
+
+class FusedMLAAttention(torch.autograd.Function):
+    """Latent attention's widths on the card (:func:`.attention_cuda.fwd_mla`
+    and ``bwd_mla``), the same scheme as :class:`FusedAttention`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        out, lse = attention_cuda.fwd_mla(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*attention_cuda.bwd_mla(q, k, v, out, lse, g.contiguous(), ctx.scale, ctx.causal),
+                None, None)
 
 
 class FusedAttention(torch.autograd.Function):
@@ -62,13 +89,22 @@ class FusedAttention(torch.autograd.Function):
         return attention_cuda.bwd(q, k, v, out, lse, g.contiguous())
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None, causal: bool = False) -> torch.Tensor:
     """q, k, v: [B, N, H, Dh] -> [B, N, H, Dh], the layout of the JAX
     package's ``fused_attention``.  Its TPU knobs ``q_tile`` and
     ``interpret`` have no counterpart: the card's kernels choose their own
-    tiles, and the CPU runs the plain version."""
+    tiles, and the CPU runs the plain version.  Query/key width 192 with
+    value width 128 (latent attention) takes the MLA kernels, with
+    ``scale`` and ``causal``; every other shape the 64-wide kernels, which
+    take neither a mask nor another scale than Dh^-1/2."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return attention_reference(q, k, v)
+        return attention_reference(q, k, v, scale=scale, causal=causal)
+    if (q.shape[-1], v.shape[-1]) == attention_cuda.MLA_DIMS:
+        return FusedMLAAttention.apply(q, k, v, q.shape[-1] ** -0.5 if scale is None else scale,
+                                       causal)
+    if causal or (scale is not None and scale != q.shape[-1] ** -0.5):
+        raise ValueError("the 64-wide attention kernels take no mask and scale by Dh^-1/2")
     return FusedAttention.apply(q, k, v)
 
 

@@ -34,6 +34,12 @@ the q, k and v views of one ``[B, N, 3*H*64]`` projection, and raise for
 anything else.  ``launches`` counts each wrapper's launches; :func:`bwd`
 enqueues three kernels per launch (the row dots, then dK/dV, then dQ) and
 counts as one.
+
+:func:`fwd_mla` and :func:`bwd_mla` run the same scheme at DeepSeek-V2's
+latent-attention widths (q, k ``[B, N, H, 192]``, v ``[B, N, H, 128]``,
+bf16) with an explicit scale and an optional causal mask, on kernels of
+their own names (``attn_*_mla_kernel``), counted as ``attn_fwd_mla`` and
+``attn_bwd_mla``.
 """
 
 from __future__ import annotations
@@ -48,11 +54,12 @@ from . import nvcc
 SOURCE = os.path.join(nvcc.CSRC_DIR, "attention.cu")
 NVCC_FLAGS = nvcc.BASE_FLAGS
 HEAD_DIM = 64  # csrc/attention.cu kD
+MLA_DIMS = (192, 128)  # csrc/attention.cu kMlaDqk, kMlaDv: query/key and value widths
 THREADS = {torch.float32: 256, torch.bfloat16: 128}  # csrc/attention.cu kThreads, kMmaThreads
 MAX_GRID_YZ = 65535  # heads and batch ride on gridDim.y / gridDim.z
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = {"attn_fwd": 0, "attn_bwd": 0}
+launches = {"attn_fwd": 0, "attn_bwd": 0, "attn_fwd_mla": 0, "attn_bwd_mla": 0}
 _lib = None
 
 
@@ -70,8 +77,11 @@ def _library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.attn_fwd_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, i, p]
         lib.attn_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
+        lib.attn_fwd_mla_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, i, p]
+        lib.attn_bwd_mla_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
         lib.attn_kernel_info.argtypes = [i, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(i)]
-        for fn in (lib.attn_fwd_launch, lib.attn_bwd_launch, lib.attn_kernel_info):
+        for fn in (lib.attn_fwd_launch, lib.attn_bwd_launch, lib.attn_fwd_mla_launch,
+                   lib.attn_bwd_mla_launch, lib.attn_kernel_info):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -95,16 +105,20 @@ def kernel_info() -> dict[str, dict[str, int]]:
     return out
 
 
-def _check(t: torch.Tensor, name: str, like: torch.Tensor | None = None) -> None:
+def _check(t: torch.Tensor, name: str, like: torch.Tensor | None = None,
+           width: int = HEAD_DIM) -> None:
+    """``t`` a [B, N, H, width] operand the kernels can read; with
+    ``like``, of its batch, tokens, heads, dtype and device."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must lie on a CUDA device, got {t.device}")
     if t.dtype not in _DTYPES:
         raise ValueError(f"{name}: the attention kernels take float32 or bfloat16, got {t.dtype}")
     if t.ndim != 4:
         raise ValueError(f"{name} must be [B, N, H, Dh], got {tuple(t.shape)}")
-    if t.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{name}: the attention kernels take head dim {HEAD_DIM}, got {t.shape[-1]}")
-    if like is not None and (t.shape != like.shape or t.dtype != like.dtype
+    if t.shape[-1] != width:
+        raise ValueError(f"{name}: the attention kernels take head dim {width} here, "
+                         f"got {t.shape[-1]}")
+    if like is not None and (t.shape[:3] != like.shape[:3] or t.dtype != like.dtype
                              or t.device != like.device):
         raise ValueError(
             f"{name} must match q: {tuple(like.shape)} {like.dtype} {like.device}, got "
@@ -185,4 +199,67 @@ def bwd(
         )
     _raise_if(rc, "attention backward")
     launches["attn_bwd"] += 1
+    return dq, dk, dv
+
+
+# ------------------------------------------------------------------- MLA
+
+
+def _check_mla(q, k, v) -> None:
+    dqk, dv = MLA_DIMS
+    _check(q, "q", width=dqk)
+    _check(k, "k", q, width=dqk)
+    _check(v, "v", q, width=dv)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the MLA kernels take bfloat16, got {q.dtype}")
+
+
+def fwd_mla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+            causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Latent attention's widths: q, k [B, N, H, 192] and v [B, N, H, 128]
+    bf16 (head-dim values contiguous, rows 16-byte aligned) -> (out [B, N,
+    H, 128] contiguous, lse [B, H, N] fp32), softmax(q k^T * scale) v
+    with, under ``causal``, key s weighted in query row t only where
+    s <= t."""
+    _check_mla(q, k, v)
+    b, n, h = _geometry(q)
+    out = torch.empty((b, n, h, MLA_DIMS[1]), device=q.device, dtype=q.dtype)
+    lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out, lse
+    with torch.cuda.device(q.device):
+        rc = _library().attn_fwd_mla_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v),
+            out.data_ptr(), lse.data_ptr(), b, n, h, float(scale), int(causal),
+            _stream(q.device),
+        )
+    _raise_if(rc, "MLA attention forward")
+    launches["attn_fwd_mla"] += 1
+    return out, lse
+
+
+def bwd_mla(q, k, v, out, lse, g, scale: float, causal: bool):
+    """Gradients of :func:`fwd_mla` for the output gradient g ([B, N, H,
+    128]): (dq, dk, dv) contiguous in q's dtype."""
+    _check_mla(q, k, v)
+    for name, t in (("out", out), ("g", g)):
+        _check(t, name, q, width=MLA_DIMS[1])
+    b, n, h = _geometry(q)
+    if lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous [{b}, {h}, {n}] float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    dq, dk = (torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(2))
+    dv = torch.empty(v.shape, device=q.device, dtype=q.dtype)
+    if q.numel() == 0:
+        return dq, dk, dv
+    dsum = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        rc = _library().attn_bwd_mla_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+            _strides(q, k, v, out, g), lse.data_ptr(), dsum.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h, float(scale), int(causal),
+            _stream(q.device),
+        )
+    _raise_if(rc, "MLA attention backward")
+    launches["attn_bwd_mla"] += 1
     return dq, dk, dv

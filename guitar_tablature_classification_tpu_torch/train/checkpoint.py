@@ -47,6 +47,7 @@ _IDENTITY_FIELDS = (
     "arch", "input_channels", "num_strings", "num_frets", "trunk_dim",
     "vit_hidden", "vit_layers", "vit_heads", "vit_patch",
     "vit_native_patch_w", "vit_conv_stem", "vit_mlp_ratio", "param_dtype",
+    "deepseek",
 )
 
 

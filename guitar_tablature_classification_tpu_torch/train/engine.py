@@ -39,6 +39,7 @@ from ..parallel.collectives import (
 from ..utils import profiling
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam defaults
+UPDATE_CHUNK = 1 << 26  # elements a pass of Optimizer.apply (256 MB of fp32)
 
 
 def make_preprocess(
@@ -153,36 +154,65 @@ class Optimizer:
             mu=torch.zeros_like(params), nu=torch.zeros_like(params),
         )
 
-    def update(
-        self, grads: torch.Tensor, state: AdamState, params: torch.Tensor, lr: float,
-        g_norm: torch.Tensor | None = None,
-    ) -> tuple[torch.Tensor, AdamState, torch.Tensor]:
-        """(new params, new state, global norm of the raw gradients).
-        ``g_norm``: that norm where ``grads`` hold only part of the
-        parameters (a rank's strings under a mesh); computed from ``grads``
-        when None."""
+    def _update(self, grads, mu, nu, params, t, g_norm, lr, backbone):
+        """(new params, mu, nu) of one span of the flat buffers: every
+        operation is elementwise but the global norm ``g_norm``."""
         cfg = self.cfg
-        if g_norm is None:
-            g_norm = torch.linalg.vector_norm(grads)
         u = grads
         if cfg.grad_clip_norm:
             max_norm = cfg.grad_clip_norm
             u = torch.where(g_norm < max_norm, u, (u / g_norm) * max_norm)
         if cfg.name == "adam" and cfg.weight_decay:
             u = u + cfg.weight_decay * params
-        mu = (1 - ADAM_B1) * u + ADAM_B1 * state.mu
-        nu = (1 - ADAM_B2) * (u * u) + ADAM_B2 * state.nu
-        count = state.count + 1
-        t = count.float()
+        mu = (1 - ADAM_B1) * u + ADAM_B1 * mu
+        nu = (1 - ADAM_B2) * (u * u) + ADAM_B2 * nu
         mu_hat = mu / (1 - ADAM_B1**t)
         nu_hat = nu / (1 - ADAM_B2**t)
         u = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
         if cfg.name == "adamw" and cfg.weight_decay:
             u = u + cfg.weight_decay * params
         u = (-1.0 * lr) * u
-        if self.backbone is not None:
-            u = torch.where(self.backbone, cfg.backbone_lr_scale * u, u)
-        return params + u, AdamState(count, mu, nu), g_norm
+        if backbone is not None:
+            u = torch.where(backbone, cfg.backbone_lr_scale * u, u)
+        return params + u, mu, nu
+
+    def apply(
+        self, grads: torch.Tensor, state: AdamState, params: torch.Tensor, lr: float,
+        g_norm: torch.Tensor | None = None, ok: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """One update of ``params`` and ``state`` in place, ``UPDATE_CHUNK``
+        elements at a time, so that no temporary is larger than a chunk (a
+        model of billions of parameters has no room for whole-buffer
+        temporaries beside its parameters, moments and gradients); every
+        operation is elementwise but the global norm, so the chunks change
+        no bit.  ``g_norm``: the raw gradients' global norm where ``grads``
+        hold only part of the parameters (a rank's strings under a mesh);
+        computed from ``grads`` when None.  Where ``ok`` (a 0-dim bool
+        tensor) is False, params and state keep their values.  Returns the
+        global norm."""
+        if g_norm is None:
+            g_norm = torch.linalg.vector_norm(grads)
+        count = state.count + 1
+        t = count.float()
+        for lo in range(0, params.numel(), UPDATE_CHUNK):
+            part = slice(lo, lo + UPDATE_CHUNK)
+            backbone = None if self.backbone is None else self.backbone[part]
+            olds = (params[part], state.mu[part], state.nu[part])
+            news = self._update(grads[part], olds[1], olds[2], olds[0], t, g_norm, lr, backbone)
+            for old, new in zip(olds, news):
+                old.copy_(new if ok is None else torch.where(ok, new, old))
+        state.count.copy_(count if ok is None else torch.where(ok, count, state.count))
+        return g_norm
+
+    def update(
+        self, grads: torch.Tensor, state: AdamState, params: torch.Tensor, lr: float,
+        g_norm: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, AdamState, torch.Tensor]:
+        """(new params, new state, global norm of the raw gradients), with
+        ``params`` and ``state`` left as they were: ``apply`` on copies."""
+        params = params.clone()
+        state = AdamState(state.count.clone(), state.mu.clone(), state.nu.clone())
+        return params, state, self.apply(grads, state, params, lr, g_norm)
 
 
 def make_optimizer(
@@ -428,26 +458,16 @@ def make_train_step(
                 grads = torch.autograd.grad(loss, state.param_list)
         with torch.no_grad(), use_mesh(mesh), profiling.span("train.update"):
             flat = torch.cat([g.reshape(-1) for g in grads])
+            del grads
             g_norm = None
             if mesh is not None:
                 flat, g_norm = _reduce_grads(flat, state)
                 loss = data_sum(loss.detach())
-            new_params, new_opt, grad_norm = state.tx.update(
-                flat, state.opt_state, state.params, lr, g_norm
-            )
-            old = state.opt_state
+            ok = None
             if skip_nonfinite:
                 ok = torch.isfinite(loss)
-                new_params = torch.where(ok, new_params, state.params)
-                new_opt = AdamState(*(
-                    torch.where(ok, n, o) for n, o in
-                    ((new_opt.count, old.count), (new_opt.mu, old.mu), (new_opt.nu, old.nu))
-                ))
                 state.buffers.copy_(torch.where(ok, state.buffers, saved))
-            state.params.copy_(new_params)
-            old.count.copy_(new_opt.count)
-            old.mu.copy_(new_opt.mu)
-            old.nu.copy_(new_opt.nu)
+            grad_norm = state.tx.apply(flat, state.opt_state, state.params, lr, g_norm, ok)
             per_string, overall = _accuracy(logits, labels)
         state.step += 1
         return {
