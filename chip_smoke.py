@@ -5,10 +5,10 @@
     python3 chip_smoke.py --only streaming,rgb_train,data_parallel  # build, then those
 
 1. Set-up: the card's name and power limit, torch and CUDA versions, and
-   the build of the port's eight kernel sources (``csrc/cqt.cu``,
+   the build of the port's nine kernel sources (``csrc/cqt.cu``,
    ``csrc/stem.cu``, ``csrc/attention.cu``, ``csrc/bn.cu``,
    ``csrc/stem_native.cu``, ``csrc/cqt_frame_gemm.cu``,
-   ``csrc/stem_gemm.cu``, ``csrc/conv3x3.cu``: one ``nvcc`` each, started
+   ``csrc/stem_gemm.cu``, ``csrc/conv3x3.cu``, ``csrc/adam.cu``: one ``nvcc`` each, started
    together); the attention kernels' ``-Xptxas -v`` lines (registers,
    spills) and their occupancy on the card (shared bytes, CTAs per SM);
    the same -Xptxas -v lines of the CQT and conv3x3 tensor-core kernels,
@@ -142,6 +142,14 @@
 22. Data and string parallelism: two gloo processes on the card, path B's
    step at global B=2048 under dp=2 and mp=2 against one process, and
    ``Transcriber(mesh=...)`` at dp=2.
+23. The fused Adam update (``adam_update``, ``csrc/adam.cu``; also after
+   the MLA phase in the full run): ``Optimizer.apply`` against
+   ``apply_plain`` bit for bit at resnet18_flagship's parameter count
+   (adam and adamw, the backbone mask or none); times at that count and at
+   deepseek_v2_lite's 2,422,007,154 beside the bound (28 bytes a
+   parameter, 29 with the mask), the plain chain and
+   ``torch.optim.AdamW(fused=True)``; three ``native-best`` train steps
+   launch it once each (``launches`` and ``train.update_kernel``).
 
 Then one JSON line of the fourteen kernels' measurements (``cqt_fused`` and
 ``cqt_frame_gemm`` with their other tiers' beside: B1's ``bf16x3`` at the
@@ -1146,6 +1154,10 @@ MLA_CASES = {"main": (32, 785, 16), "ragged": (1, 200, 4)}
 MLA_SCALE = 192 ** -0.5 * (0.1 * 0.707 * np.log(40) + 1) ** 2  # 0.114721
 MLA_MUST_FAIL = ("mask_dropped", "default_scale", "dv_halved")
 MLA_TRAIN_LAYERS = 2  # the dense layer and one expert layer, at the published widths
+# the Adam update phase: deepseek_v2_lite's parameters (PERF.md §4; the
+# flagship's are counted from its model)
+DSV2_LITE_PARAMS = 2_422_007_154
+ADAM_BYTES = {"plain": 28, "mask": 29}  # a parameter: g, p, m, v read, p, m, v written (+ mask)
 
 
 def _mla_inputs(torch, b, n, h, seed):
@@ -1285,6 +1297,134 @@ def mla_attention_phase(torch, mods) -> dict:
                         cqt_cfg, b, expect=expect, optim_cfg=mods["OptimConfig"](**cfg["optim"]),
                         steps=3)
     return {"rows": rows, "train": train}
+
+
+def _adam_buffers(torch, n: int, seed: int):
+    """grads (global norm ~sqrt(n): the clip engages), params, mu, nu."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.empty(n, device="cuda").normal_(generator=g),
+            torch.empty(n, device="cuda").normal_(generator=g),
+            torch.zeros(n, device="cuda"), torch.zeros(n, device="cuda"))
+
+
+def adam_update_phase(torch, mods) -> dict:
+    """The fused Adam update (``adam_cuda.update``, one launch through
+    ``Optimizer.apply``): bit for bit against ``apply_plain`` at
+    resnet18_flagship's parameter count, adam and adamw, with the backbone
+    mask and without, two steps each; then at that count and at
+    DSV2_LITE_PARAMS (each configuration's optimizer, clip engaged) the
+    kernel's time (``_sync_ms`` of ``adam_cuda.update`` alone), with the
+    mask, ``apply`` (the count and bias corrections besides), the plain
+    chain and ``torch.optim.AdamW(fused=True)`` over the buffer as 2^26
+    element tensors (yardstick only: its rounding differs and the port never
+    calls it), beside the bound; then three ``native-best`` train steps,
+    which must launch the kernel once each."""
+    from guitar_tablature_classification_tpu_torch.train import engine
+    from guitar_tablature_classification_tpu_torch.utils import profiling
+
+    adam_cuda = mods["adam_cuda"]
+    configs = {}
+    for name in ("resnet18_flagship", "deepseek_v2_lite"):
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "benchmark", "configs", f"{name}.json")) as f:
+            configs[name] = mods["OptimConfig"](**json.load(f)["optim"])
+    flagship = mods["build_model"](mods["ModelConfig"](arch="resnet18", stem_fusion="fused"))
+    sizes = {"resnet18_flagship": sum(p.numel() for p in flagship.parameters()),
+             "deepseek_v2_lite": DSV2_LITE_PARAMS}
+    del flagship
+
+    # bit for bit at the flagship's size
+    n = sizes["resnet18_flagship"]
+    bits = {}
+    for opt in ("adam", "adamw"):
+        for scale in (1.0, 0.1):
+            cfg = dataclasses.replace(configs["resnet18_flagship"], name=opt,
+                                      backbone_lr_scale=scale)
+            tx = engine.make_optimizer(cfg, ["resnet.w", "heads.w"], [n // 2, n - n // 2])
+            grads, params, mu, nu = _adam_buffers(torch, n, seed=31)
+            state = tx.init(params)
+            p2, state2 = params.clone(), engine.AdamState(state.count.clone(), mu, nu)
+            ok = torch.tensor(True, device="cuda")
+            for _ in range(2):
+                tx.apply(grads, state, params, LR, ok=ok)
+                tx.apply_plain(grads, state2, p2, LR, ok=ok)
+            torch.cuda.synchronize()
+            same = {k: bool(torch.equal(a, b)) for k, a, b in
+                    zip(("params", "mu", "nu", "count"), (params, state.mu, state.nu, state.count),
+                        (p2, state2.mu, state2.nu, state2.count))}
+            bits[f"{opt}{'_mask' if scale != 1.0 else ''}"] = same
+    print("adam_update vs plain, bit for bit at resnet18_flagship's "
+          f"{n:,} parameters: " + json.dumps(bits), flush=True)
+    if not all(all(v.values()) for v in bits.values()):
+        raise AssertionError(f"the Adam kernel differs from the plain chain: {bits}")
+    del grads, params, mu, nu, p2, state, state2
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for name, n in sizes.items():
+        cfg = configs[name]
+        tx = engine.make_optimizer(cfg, ["w"], [n])
+        grads, params, mu, nu = _adam_buffers(torch, n, seed=32)
+        state = engine.AdamState(torch.zeros((), dtype=torch.int32, device="cuda"), mu, nu)
+        g_norm = torch.linalg.vector_norm(grads)
+        ok = torch.tensor(True, device="cuda")
+        t = torch.ones((), device="cuda")
+        bias = {"bias1": 1 - engine.ADAM_B1**t, "bias2": 1 - engine.ADAM_B2**t}
+        mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+        mask[: n // 2] = True
+
+        def kernel(backbone=None):
+            adam_cuda.update(grads, params, mu, nu, lr=LR, betas=(engine.ADAM_B1, engine.ADAM_B2),
+                             eps=engine.ADAM_EPS, **bias, decay=cfg.name,
+                             weight_decay=cfg.weight_decay, g_norm=g_norm,
+                             max_norm=cfg.grad_clip_norm, backbone=backbone,
+                             backbone_scale=0.1, ok=ok)
+
+        ms = _sync_ms(kernel, 10)
+        ms_mask = _sync_ms(lambda: kernel(mask), 10)
+        apply_ms = _sync_ms(lambda: tx.apply(grads, state, params, LR, g_norm=g_norm, ok=ok), 10)
+        plain_ms = _sync_ms(lambda: tx.apply_plain(grads, state, params, LR, g_norm=g_norm,
+                                                   ok=ok), 3)
+        del state, mu, nu, mask
+        torch.cuda.empty_cache()
+        chunks = [torch.nn.Parameter(v) for v in params.split(1 << 26)]
+        for p, gv in zip(chunks, grads.split(1 << 26)):
+            p.grad = gv
+        library = torch.optim.AdamW(chunks, lr=LR, weight_decay=cfg.weight_decay, fused=True)
+        library_ms = _sync_ms(library.step, 5)
+        del library, chunks, grads, params
+        torch.cuda.empty_cache()
+        bound = {k: 1e3 * b * n / PEAK_BYTES_PER_S for k, b in ADAM_BYTES.items()}
+        rows[name] = {"params": n, "optimizer": cfg.name, "ms": ms, "bound_ms": bound["plain"],
+                      "share_of_bound": bound["plain"] / ms,
+                      "bytes_per_s": ADAM_BYTES["plain"] * n / (ms / 1e3),
+                      "mask_ms": ms_mask, "mask_bound_ms": bound["mask"],
+                      "mask_share_of_bound": bound["mask"] / ms_mask,
+                      "apply_ms": apply_ms, "plain_ms": plain_ms, "library_ms": library_ms}
+    print("adam_update rows: " + json.dumps(rows), flush=True)
+
+    # the train step: one launch a step
+    recipe = mods["RECIPES"]["native-best"]()
+    model = mods["build_model"](recipe.model, generator=torch.Generator().manual_seed(0))
+    state = mods["create_train_state"](model, recipe.optim, device="cuda")
+    step = mods["make_train_step"](model, mods["make_preprocess"](recipe.model),
+                                   frontend=mods["CQTFrontend"](recipe.cqt))
+    g = torch.Generator(device="cuda").manual_seed(33)
+    batch = {"audio": torch.randn((256, recipe.cqt.window_samples), generator=g, device="cuda"),
+             "labels": torch.randint(0, 19, (256, 6), generator=g, device="cuda")}
+    before = adam_cuda.launches["adam_update"]
+    with profiling.recording() as rec:
+        for _ in range(3):
+            step(state, batch, g, LR)
+    torch.cuda.synchronize()
+    train = {"steps": 3, "adam_update": adam_cuda.launches["adam_update"] - before,
+             "train.update_kernel": rec.drain()[1].get("train.update_kernel", 0)}
+    print("adam_update in native-best train steps: " + json.dumps(train), flush=True)
+    if train["adam_update"] != 3 or train["train.update_kernel"] != 3:
+        raise AssertionError(f"the train step did not launch the Adam kernel once a step: {train}")
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return {"rows": rows, "bits": bits, "train": train}
 
 
 def vit_serving_phase(torch, mods, batch: int = 128, n_batches: int = 8) -> dict:
@@ -3143,7 +3283,8 @@ def data_parallel_phase(torch, mods) -> dict:
 
 # phases that need no earlier phase's result: ``chip_smoke.py --only a,b``
 STANDALONE = {"streaming": streaming_phase, "rgb_train": rgb_train_phase,
-              "data_parallel": data_parallel_phase, "mla_attention": mla_attention_phase}
+              "data_parallel": data_parallel_phase, "mla_attention": mla_attention_phase,
+              "adam_update": adam_update_phase}
 
 
 def port_modules() -> dict:
@@ -3163,6 +3304,7 @@ def port_modules() -> dict:
         FusedBatchNorm,
     )
     from guitar_tablature_classification_tpu_torch.ops import (
+        adam_cuda,
         attention,
         attention_cuda,
         bn_cuda,
@@ -3190,7 +3332,7 @@ def port_modules() -> dict:
     return dict(
         RECIPES=RECIPES, CQTConfig=CQTConfig, ModelConfig=ModelConfig, MeshConfig=MeshConfig,
         OptimConfig=OptimConfig, Transcriber=Transcriber, cli=cli,
-        build_model=build_model, cqt_cuda=cqt_cuda, stem_cuda=stem_cuda,
+        build_model=build_model, cqt_cuda=cqt_cuda, stem_cuda=stem_cuda, adam_cuda=adam_cuda,
         attention=attention, attention_cuda=attention_cuda,
         stem_fusion=stem_fusion, stem_tail=stem_tail, CQTFrontend=CQTFrontend,
         bn_cuda=bn_cuda, bn_fused=bn_fused, stem_native=stem_native,
@@ -3294,7 +3436,8 @@ def main() -> int:
                ("attention", mods["attention_cuda"].build), ("bn", mods["bn_cuda"].build),
                ("stem_native", mods["stem_native_cuda"].build),
                ("cqt_frame_gemm", cqt_cuda.build_frame_gemm),
-               ("stem_gemm", stem_cuda.build_gemm_stats), ("conv3x3", mods["conv3x3_cuda"].build))
+               ("stem_gemm", stem_cuda.build_gemm_stats), ("conv3x3", mods["conv3x3_cuda"].build),
+               ("adam", mods["adam_cuda"].build))
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:  # one nvcc per source
         builds = {name: pool.submit(build) for name, build in sources}
         builds = {name: fut.result() for name, fut in builds.items()}
@@ -3362,6 +3505,7 @@ def main() -> int:
 
     attn = timed("attention_kernels", attention_kernel_phase, torch, mods)
     mla = timed("mla_attention", mla_attention_phase, torch, mods)
+    timed("adam_update", adam_update_phase, torch, mods)
     vit_recipe = RECIPES["vit-reference"]()
     vit_expect = {**cqt_expect(vit_recipe.cqt, vit_recipe.data.batch_size), "attn_fwd": vit_recipe.model.vit_layers,
                   "attn_bwd": vit_recipe.model.vit_layers}

@@ -5,11 +5,11 @@
 
 The JAX step is one jitted pure function; here the step runs eagerly and
 updates the state in place (the parameters, moments and running averages
-live in flat fp32 buffers, so each optimizer operation is one kernel over
-all of them).  Nothing in a step reads a device value on the host: the
-non-finite-loss skip is a device-side select, and the metrics come back as
-device tensors.  The loops above the steps read the device once an epoch
-(the summed train loss) and once a validation pass.
+live in flat fp32 buffers, so on the card the whole optimizer update is one
+kernel over all of them).  Nothing in a step reads a device value on the
+host: the non-finite-loss skip is a device-side select, and the metrics
+come back as device tensors.  The loops above the steps read the device
+once an epoch (the summed train loss) and once a validation pass.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from torch import nn
 
 from ..config import ModelConfig, OptimConfig, TrainConfig
 from ..device import resolve_device
+from ..ops import adam_cuda
 from ..ops.loss import label_smoothing_loss, per_string_accuracy
 from ..ops.normalize import db_to_unit, imagenet_normalize, tile_channels
 from ..ops.resize import resize_bicubic
@@ -39,7 +40,7 @@ from ..parallel.collectives import (
 from ..utils import profiling
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam defaults
-UPDATE_CHUNK = 1 << 26  # elements a pass of Optimizer.apply (256 MB of fp32)
+UPDATE_CHUNK = 1 << 26  # elements a pass of Optimizer.apply_plain (256 MB of fp32)
 
 
 def make_preprocess(
@@ -180,16 +181,42 @@ class Optimizer:
         self, grads: torch.Tensor, state: AdamState, params: torch.Tensor, lr: float,
         g_norm: torch.Tensor | None = None, ok: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        """One update of ``params`` and ``state`` in place, ``UPDATE_CHUNK``
-        elements at a time, so that no temporary is larger than a chunk (a
-        model of billions of parameters has no room for whole-buffer
-        temporaries beside its parameters, moments and gradients); every
-        operation is elementwise but the global norm, so the chunks change
-        no bit.  ``g_norm``: the raw gradients' global norm where ``grads``
-        hold only part of the parameters (a rank's strings under a mesh);
-        computed from ``grads`` when None.  Where ``ok`` (a 0-dim bool
-        tensor) is False, params and state keep their values.  Returns the
-        global norm."""
+        """One update of ``params`` and ``state`` in place.  ``g_norm``: the
+        raw gradients' global norm where ``grads`` hold only part of the
+        parameters (a rank's strings under a mesh); computed from ``grads``
+        when None.  Where ``ok`` (a 0-dim bool tensor) is False, params and
+        state keep their values.  Returns the global norm.
+
+        On the card one launch of the fused update kernel
+        (:func:`..ops.adam_cuda.update`) does the whole buffer, with the
+        bits of :meth:`apply_plain`, which buffers on the CPU take."""
+        if params.device.type != "cuda":
+            return self.apply_plain(grads, state, params, lr, g_norm, ok)
+        cfg = self.cfg
+        if g_norm is None:
+            g_norm = torch.linalg.vector_norm(grads)
+        count = state.count + 1
+        t = count.float()
+        adam_cuda.update(
+            grads, params, state.mu, state.nu, lr=lr, betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS,
+            bias1=1 - ADAM_B1**t, bias2=1 - ADAM_B2**t, decay=cfg.name,
+            weight_decay=cfg.weight_decay, g_norm=g_norm if cfg.grad_clip_norm else None,
+            max_norm=cfg.grad_clip_norm or 0.0, backbone=self.backbone,
+            backbone_scale=cfg.backbone_lr_scale, ok=ok,
+        )
+        state.count.copy_(count if ok is None else torch.where(ok, count, state.count))
+        return g_norm
+
+    def apply_plain(
+        self, grads: torch.Tensor, state: AdamState, params: torch.Tensor, lr: float,
+        g_norm: torch.Tensor | None = None, ok: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """:meth:`apply` as a chain of PyTorch elementwise operations on any
+        device, ``UPDATE_CHUNK`` elements at a time, so that no temporary is
+        larger than a chunk (a model of billions of parameters has no room
+        for whole-buffer temporaries beside its parameters, moments and
+        gradients); every operation is elementwise but the global norm, so
+        the chunks change no bit."""
         if g_norm is None:
             g_norm = torch.linalg.vector_norm(grads)
         count = state.count + 1

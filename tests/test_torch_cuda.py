@@ -15,9 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from guitar_tablature_classification_tpu_torch.config import RECIPES, CQTConfig
+from guitar_tablature_classification_tpu_torch.config import (
+    RECIPES,
+    CQTConfig,
+    ModelConfig,
+    OptimConfig,
+)
 from guitar_tablature_classification_tpu_torch.infer import Transcriber
 from guitar_tablature_classification_tpu_torch.ops import (
+    adam_cuda,
     attention,
     attention_cuda,
     bn_cuda,
@@ -31,6 +37,8 @@ from guitar_tablature_classification_tpu_torch.ops import (
     stem_tail,
 )
 from guitar_tablature_classification_tpu_torch.ops.cqt import CQTFrontend, frame_gemm_plain
+from guitar_tablature_classification_tpu_torch.train import engine
+from guitar_tablature_classification_tpu_torch.utils import profiling
 
 RECIPE_CFGS = {
     "train": CQTConfig(),
@@ -1284,3 +1292,134 @@ def test_routed_forward_replays_from_a_bucket_graph(card):
     assert torch.equal(replay, eager) and torch.equal(first, eager)
     layer = next(m for m in t.model.modules() if m in moe.LAYERS)
     assert int(layer.rows.sum()) == 8 * 785 * 3
+
+
+# ------------------------------------------------------------ the Adam update
+
+ADAM_LR = 1e-2
+# element offsets of grads, params, mu, nu and the backbone mask in their
+# own buffers: all 16-byte aligned (vectors from element 0), all 4 bytes past
+# (a head of 3 singles, then vectors), and alignments that differ (singles)
+ADAM_LAYOUTS = {"aligned": (0, 0, 0, 0, 0), "offset": (1, 1, 1, 1, 1),
+                "mixed": (1, 2, 0, 3, 1)}
+ADAM_DECAYS = {"adam": ("adam", 1e-2), "adamw": ("adamw", 1e-2), "no_decay": ("adamw", 0.0)}
+
+
+def _adam_case(device, n, decay, clip, mask, offsets, seed=0):
+    """An optimizer and its buffers as views at ``offsets`` into buffers of
+    their own; moments seeded (nu >= 0), the global norm ~5 sqrt(n) with
+    ``clip``, else ~1e-4."""
+    name, wd = ADAM_DECAYS[decay]
+    cfg = OptimConfig(name=name, weight_decay=wd, backbone_lr_scale=0.1 if mask else 1.0)
+    tx = engine.make_optimizer(cfg, ["vit.w", "heads.b"], [n // 2, n - n // 2])
+    g = torch.Generator(device=device).manual_seed(seed)
+    views = []
+    for off, kind in zip(offsets[:4], ("grads", "params", "mu", "nu")):
+        view = torch.empty(n + 4, device=device)[off:off + n]
+        view.copy_({"grads": (5.0 if clip else 1e-4 / n**0.5) * torch.randn(n, generator=g,
+                                                                             device=device),
+                    "params": torch.randn(n, generator=g, device=device),
+                    "mu": 1e-2 * torch.randn(n, generator=g, device=device),
+                    "nu": 1e-4 * torch.rand(n, generator=g, device=device)}[kind])
+        views.append(view)
+    grads, params, mu, nu = views
+    state = engine.AdamState(torch.zeros((), dtype=torch.int32, device=device), mu, nu)
+    if tx.backbone is not None:
+        tx.backbone = torch.zeros(n + 4, dtype=torch.bool, device=device)[
+            offsets[4]:offsets[4] + n].copy_(tx.backbone)
+    return tx, grads, params, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", list(ADAM_LAYOUTS))
+@pytest.mark.parametrize("ok", [None, True, False])
+@pytest.mark.parametrize("mask", [False, True])
+@pytest.mark.parametrize("clip", [True, False])
+@pytest.mark.parametrize("decay", list(ADAM_DECAYS))
+def test_adam_kernel_gives_the_plain_chains_bits(card, decay, clip, mask, ok, layout):
+    """Two steps of ``Optimizer.apply`` (one kernel launch each, counted by
+    ``launches`` and ``train.update_kernel``) against two of
+    ``apply_plain`` from the same state: params, mu, nu and the count bit
+    for bit, at a ragged n (4,099) in each layout; ``ok`` False leaves
+    every buffer as it was."""
+    n = 4099
+    tx, grads, params, state = _adam_case(card, n, decay, clip, mask, ADAM_LAYOUTS[layout])
+    walk = adam_cuda.plan(n, [t.data_ptr() for t in (grads, params, state.mu, state.nu)])
+    head = {"aligned": 0, "offset": 3}.get(layout)
+    assert walk == ((1, 0, n) if head is None else (4, head, (n - head) // 4))
+    p2 = params.clone()
+    state2 = engine.AdamState(state.count.clone(), state.mu.clone(), state.nu.clone())
+    start = [t.clone() for t in (params, state.mu, state.nu, state.count)]
+    flag = None if ok is None else torch.tensor(ok, device=card)
+    for _ in range(2):
+        before = adam_cuda.launches["adam_update"]
+        with profiling.recording() as rec:
+            norm = tx.apply(grads, state, params, ADAM_LR, ok=flag)
+        assert adam_cuda.launches["adam_update"] == before + 1
+        assert rec.drain()[1] == {"train.update_kernel": 1}
+        tx.apply_plain(grads, state2, p2, ADAM_LR, ok=flag)
+    torch.cuda.synchronize()
+    assert (float(norm) > 1.0) == clip
+    got, want = (params, state.mu, state.nu, state.count), (p2, state2.mu, state2.nu, state2.count)
+    for label, a, b in zip(("params", "mu", "nu", "count"), got, want):
+        assert torch.equal(a, b), (label, int((a != b).sum()))
+    if ok is False:
+        assert all(torch.equal(a, b) for a, b in zip(got, start))
+    else:
+        assert int(state.count) == 2 and not torch.equal(params, start[0])
+
+
+@pytest.mark.cuda
+def test_adam_kernel_indexes_past_2_31_elements(card):
+    """One kernel step over n = 2^31 + 5 elements (64-bit indices, byte
+    offsets past 2^33) against the plain chain on the elements at the
+    start, around 2^31, at the end and at random places, with the same
+    global norm."""
+    n = (1 << 31) + 5
+    tx = engine.make_optimizer(OptimConfig(name="adamw"), ["w"], [n])
+    g = torch.Generator(device=card).manual_seed(3)
+    grads = torch.empty(n, device=card).normal_(generator=g)
+    params = torch.empty(n, device=card).normal_(generator=g)
+    state = engine.AdamState(torch.zeros((), dtype=torch.int32, device=card),
+                             torch.empty(n, device=card).normal_(0.0, 1e-2, generator=g),
+                             torch.empty(n, device=card).uniform_(0.0, 1e-4, generator=g))
+    k = 4096
+    at = torch.cat([torch.arange(k), torch.arange((1 << 31) - k, (1 << 31) + 4),
+                    torch.arange(n - k, n),
+                    torch.randint(0, n, (4 * k,), generator=torch.Generator().manual_seed(4))])
+    at = at.to(card)
+    part = [t[at] for t in (grads, params, state.mu, state.nu)]
+    g_norm = torch.linalg.vector_norm(grads)
+    state_part = engine.AdamState(state.count.clone(), part[2], part[3])
+    tx.apply(grads, state, params, ADAM_LR, g_norm=g_norm)
+    tx.apply_plain(part[0], state_part, part[1], ADAM_LR, g_norm=g_norm)
+    torch.cuda.synchronize()
+    for label, full, want in (("params", params, part[1]), ("mu", state.mu, state_part.mu),
+                              ("nu", state.nu, state_part.nu)):
+        assert torch.equal(full[at], want), (label, int((full[at] != want).sum()))
+    assert int(state.count) == 1
+    del grads, params, state, part, state_part
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_train_step_launches_the_update_kernel_once_a_step(card):
+    """Three train steps on the card: ``adam_update`` +3 and
+    ``train.update_kernel`` 3, the update's one kernel a step."""
+    from guitar_tablature_classification_tpu_torch.models import build_model
+
+    model_cfg = ModelConfig(arch="small_cnn", dtype="float32")
+    state = engine.create_train_state(build_model(model_cfg), OptimConfig(), device="cuda")
+    step = engine.make_train_step(state.model, engine.make_preprocess(model_cfg))
+    rng = np.random.default_rng(0)
+    batch = {"features": torch.from_numpy(rng.uniform(-120, 0, (8, 96, 9)).astype(np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, 19, (8, 6)))}
+    batch = {key: value.to(card) for key, value in batch.items()}
+    gen = torch.Generator(device=card).manual_seed(0)
+    before = adam_cuda.launches["adam_update"]
+    with profiling.recording() as rec:
+        for _ in range(3):
+            step(state, batch, gen, 1e-3)
+    torch.cuda.synchronize()
+    assert adam_cuda.launches["adam_update"] == before + 3
+    assert rec.drain()[1].get("train.update_kernel") == 3
